@@ -22,6 +22,7 @@ from __future__ import annotations
 import importlib
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -31,9 +32,11 @@ import numpy as np
 SEED = 0
 EPS = 1e-6
 # card peaks for the bounds, by the name nvidia-smi reports (NVIDIA data
-# sheets, dense, non-tensor-core float32): bytes/s and float32 FLOP/s
-PEAKS = {"PCIe": (2.0e12, 51.0e12), "NVL": (3.9e12, 60.0e12),
-         "SXM": (3.35e12, 67.0e12)}
+# sheets, dense rates): bytes/s, float32 FLOP/s on the CUDA cores, TF32
+# FLOP/s on the tensor cores (the sheets' sparse TF32 figure halved)
+PEAKS = {"PCIe": (2.0e12, 51.0e12, 378.0e12),
+         "NVL": (3.9e12, 60.0e12, 417.5e12),
+         "SXM": (3.35e12, 67.0e12, 495.0e12)}
 
 
 def log(msg: str) -> None:
@@ -45,6 +48,37 @@ def card_peaks(name: str):
         if key in name:
             return key, PEAKS[key]
     return "SXM", PEAKS["SXM"]
+
+
+_TYPES = {"f": "float", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
+def _template_args(mangled: str) -> str:
+    """`<float, 128>` for a mangled kernel template instantiation."""
+    m = re.search(r"kernelI(.*?)EEv", mangled)
+    if m is None:
+        return mangled
+    args = []
+    for tok in re.findall(r"13__nv_bfloat16|6__half|S1_|Li\d+E|f",
+                          m.group(1)):
+        args.append(args[0] if tok == "S1_" else
+                    tok[2:-1] if tok.startswith("Li") else _TYPES[tok])
+    return f"<{', '.join(args)}>"
+
+
+def ptxas_summary(report: str):
+    """One line per kernel instantiation of an nvcc -Xptxas -v report:
+    its mangled template arguments, registers, spills and stack."""
+    out, props = [], ""
+    for line in report.splitlines():
+        line = line.strip()
+        if "bytes stack frame" in line:
+            props = line
+        elif line.startswith("ptxas info    : Used"):
+            out.append(f"{line.split(': ', 1)[1]}; {props}")
+        elif "Compiling entry function" in line:
+            out.append(_template_args(line.split("'")[1]))
+    return [f"{a}: {b}" for a, b in zip(out[::2], out[1::2])]
 
 
 def time_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -192,18 +226,24 @@ def main() -> int:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60, check=True)
     log(smi.stdout.strip().splitlines()[0])
-    part, (bw, f32_peak) = card_peaks(kind)
+    part, (bw, f32_peak, tf32_peak) = card_peaks(kind)
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; bounds use "
         f"the H100 {part} data sheet: {bw / 1e12:g} TB/s, "
-        f"{f32_peak / 1e12:g} TFLOP/s float32 (non-tensor)")
+        f"{f32_peak / 1e12:g} TFLOP/s float32 (non-tensor), "
+        f"{tf32_peak / 1e12:g} TFLOP/s TF32 (tensor cores)")
     t0 = time.perf_counter()
     reports = kernels.build_all()
     log(f"phase 1: built {len(reports)} kernels in "
         f"{time.perf_counter() - t0:.1f} s")
     for name, rep in reports.items():
-        used = sorted({ln.split("info    :")[-1].strip()
-                       for ln in rep.splitlines() if "Used" in ln})
-        log(f"  {name} (ptxas, one line per instantiation): {used}")
+        log(f"  {name} (ptxas -v, per instantiation):")
+        for line in ptxas_summary(rep):
+            log(f"    {line}")
+    for dt in (torch.float32, torch.bfloat16):
+        smem, threads, blocks = fa_mod.kernel_occupancy(dt, 128)
+        log(f"  flash_attention <{dt}, 128>: {smem} bytes of shared memory "
+            f"and {threads} threads a block, {blocks} block(s) = "
+            f"{blocks * threads // 32} warps resident per SM")
 
     rng = np.random.default_rng(SEED)
 
@@ -251,7 +291,17 @@ def main() -> int:
         "flash_attention lanes [32, 4096, 128], K/V lane stride 0",
         fa_mod.flash_attention_cuda(qw, kw, vw, False, scale),
         fa_mod.attention_reference(qw, kw, vw, False, scale), 2e-5, 2e-5)
-    del q4, k4, v4
+    # bf16 in and out: f32 sums in another order, one bf16 rounding each
+    # (the RMSNorm bf16 tolerance)
+    qh = qw.to(torch.bfloat16)
+    kh, vh = (t[0].to(torch.bfloat16).unsqueeze(0).expand(H, L, D)
+              for t in (kw, vw))
+    check_close("flash_attention bf16 lanes [32, 4096, 128], K/V lane "
+                "stride 0", fa_mod.flash_attention_cuda(qh, kh, vh, False,
+                                                        scale),
+                fa_mod.attention_reference(qh, kh, vh, False, scale),
+                1.6e-2, 1e-2)
+    del q4, k4, v4, qh, kh, vh
     torch.cuda.empty_cache()
 
     # ---------------------------------------------------------- phase 3
@@ -269,16 +319,26 @@ def main() -> int:
     qs, ks, vs = (t.unsqueeze(0) for t in (qw, kw.contiguous(),
                                            vw.contiguous()))
     fa = {"ms": time_ms(lambda: fa_mod.flash_attention_cuda(
-              qw, kw, vw, False, scale), 5),
+              qw, kw, vw, False, scale), 20),
           "plain_ms": time_ms(lambda: fa_mod.attention_reference(
               qw, kw, vw, False, scale), 3),
           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
               qs, ks, vs, scale=scale), 5)}
+    # f32-accurate operations either as f32 FMA on the CUDA cores or as
+    # three TF32 passes (3xTF32) on the tensor cores, whichever is faster;
+    # the bound is the larger of that and the bytes
     fa_ops = 4 * H * L * L * D
     fa_bytes = (2 * qw.numel() + 2 * L * D) * 4
-    fa["bound_ms"] = max(fa_bytes / bw, fa_ops / f32_peak) * 1e3
-    fa["bound_by"] = "operations" if fa_ops / f32_peak >= fa_bytes / bw \
+    t_fma, t_tc, t_bytes = (fa_ops / f32_peak, 3 * fa_ops / tf32_peak,
+                            fa_bytes / bw)
+    fa["bound_ms"] = max(t_bytes, min(t_fma, t_tc)) * 1e3
+    fa["bound_by"] = "operations" if min(t_fma, t_tc) >= t_bytes \
         else "bytes"
+    log(f"  flash_attention bound: f32 FMA {t_fma * 1e3:.4f} ms, 3xTF32 "
+        f"tensor cores {t_tc * 1e3:.4f} ms, bytes {t_bytes * 1e3:.4f} ms; "
+        f"achieved {fa_ops / fa['ms'] / 1e9:.1f} TFLOP/s of attention "
+        f"({3 * fa_ops / fa['ms'] / 1e9:.1f} TFLOP/s TF32), SDPA "
+        f"{fa_ops / fa['library_ms'] / 1e9:.1f} TFLOP/s")
     for name, r in (("rms_norm", rms), ("flash_attention", fa)):
         log(f"  {name}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} "
             f"ms, library {r['library_ms']} ms, bound "

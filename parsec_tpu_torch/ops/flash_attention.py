@@ -19,7 +19,7 @@ from .. import kernels
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _HEAD_DIMS = (32, 64, 128)
-_KERNEL_BLOCK = 64  # the kernel's q and kv block rows
+_KERNEL_BLOCK = 64  # Lq and Lk must be multiples of this
 
 
 def attention_reference(q, k, v, causal: bool, scale: float):
@@ -39,8 +39,9 @@ def flash_attention_cuda(q, k, v, causal: bool, scale: float):
     """Launch the CUDA kernel: q [n, Lq, D], k/v [n, Lk, D] on one card,
     one dtype, Lq and Lk multiples of 64, D in (32, 64, 128).  The kernel
     reads each lane as a contiguous [L, D] block at a lane stride, which
-    may be 0 (k/v shared by every lane); other layouts are copied into
-    that one first.  Returns o [n, Lq, D]."""
+    may be 0 (k/v shared by every lane), 16-byte aligned (it stages K/V
+    with 16-byte async copies); other layouts are copied into that one
+    first.  Returns o [n, Lq, D]."""
     n, lq, d = q.shape
     lk = k.shape[1]
     qkv = []
@@ -52,6 +53,8 @@ def flash_attention_cuda(q, k, v, causal: bool, scale: float):
             raise TypeError(f"flash_attention_cuda: {name} is {t.dtype}")
         if t.stride(2) != 1 or t.stride(1) != t.shape[2]:
             t = t.contiguous()
+        if t.data_ptr() % 16 or t.stride(0) * t.element_size() % 16:
+            t = t.clone(memory_format=torch.contiguous_format)
         qkv.append(t)
     q, k, v = qkv
     if k.shape != v.shape or k.shape[0] != n or k.shape[2] != d:
@@ -76,6 +79,22 @@ def flash_attention_cuda(q, k, v, causal: bool, scale: float):
     kernels.check(lib, "flash_attention", rc)
     kernels.LAUNCHES["flash_attention"] += 1
     return o
+
+
+def kernel_occupancy(dtype, d: int):
+    """(shared memory bytes a block, threads a block, blocks resident on
+    one SM) of the kernel's instantiation for `dtype` and head dim `d`,
+    from the CUDA runtime on the current card."""
+    lib = kernels.load("flash_attention")
+    fn = lib.ptc_flash_attention_occupancy
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int, ctypes.c_int] + \
+        [ctypes.POINTER(ctypes.c_int)] * 3
+    smem, threads, blocks = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    kernels.check(lib, "flash_attention",
+                  fn(d, _DTYPE_CODES[dtype], ctypes.byref(smem),
+                     ctypes.byref(threads), ctypes.byref(blocks)))
+    return smem.value, threads.value, blocks.value
 
 
 def flash_fwd(q, k, v, causal: bool, scale: float):

@@ -70,6 +70,68 @@ def test_flash_kernel_shared_kv_lane_stride_zero(card):
                                rtol=2e-5, atol=2e-5)
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_16bit_matches_plain(card, dtype, causal):
+    """bf16 and f16 in and out, at the RMSNorm bf16 tolerance: the kernel
+    and the plain version both sum in f32, in another order, and each
+    rounds its f32 result to the 16-bit type once."""
+    import torch
+    dt = getattr(torch, dtype)
+    q, k, v = (_t(card, (3, 192, 128), s, dt) for s in (10, 11, 12))
+    o = flash_attention_cuda(q, k, v, causal, 128 ** -0.5)
+    assert o.dtype == dt
+    torch.testing.assert_close(
+        o.float(), attention_reference(q, k, v, causal, 128 ** -0.5).float(),
+        rtol=1.6e-2, atol=1e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_flash_kernel_lq_differs_from_lk(card, causal):
+    """192 query rows (a 128-row block and a 64-row tail) over 320 keys."""
+    import torch
+    q = _t(card, (2, 192, 64), 13)
+    k, v = _t(card, (2, 320, 64), 14), _t(card, (2, 320, 64), 15)
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, causal, 0.125),
+                               attention_reference(q, k, v, causal, 0.125),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_causal_shared_kv(card):
+    import torch
+    q = _t(card, (4, 192, 128), 16)
+    k = _t(card, (192, 128), 17).unsqueeze(0).expand(4, 192, 128)
+    v = _t(card, (192, 128), 18).unsqueeze(0).expand(4, 192, 128)
+    sc = 128 ** -0.5
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, True, sc),
+                               attention_reference(q, k, v, True, sc),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_misaligned_input_is_copied(card):
+    """The kernel stages rows with 16-byte copies; a q whose rows start 4
+    bytes off that alignment is copied by the wrapper, not refused."""
+    import torch
+    q = _t(card, (2 * 128 * 64 + 1,), 22)[1:].view(2, 128, 64)
+    assert q.data_ptr() % 16
+    k, v = _t(card, (2, 128, 64), 23), _t(card, (2, 128, 64), 24)
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, False, 0.125),
+                               attention_reference(q, k, v, False, 0.125),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_flash_kernel_f32_large_scores(card):
+    """q scaled by 4: peaked softmax rows, where a single TF32 pass would
+    miss the reference's 2e-5 and the three-pass split must not."""
+    import torch
+    q, k, v = (_t(card, (3, 256, 128), s) for s in (19, 20, 21))
+    q = q * 4
+    sc = 128 ** -0.5
+    torch.testing.assert_close(flash_attention_cuda(q, k, v, False, sc),
+                               attention_reference(q, k, v, False, sc),
+                               rtol=2e-5, atol=2e-5)
+
+
 def test_gemm_taskpool_on_the_card(card):
     rng = np.random.default_rng(8)
     a = rng.standard_normal((256, 256), dtype=np.float32)

@@ -150,6 +150,52 @@ def test_flash_lanes_with_shared_kv_match_jax():
                                    rtol=2e-5, atol=2e-5)
 
 
+# ------------------------------------- the flash kernel's split-TF32 products
+def _tf32(x):
+    """x rounded to TF32 as cvt.rna.tf32.f32 rounds it: to nearest, ties
+    away from zero, on the 13 low mantissa bits of the float32 view."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, passes):
+    """a @ b with TF32 operands and f32 sums.  One pass is big*big; three
+    add small*big and big*small, x = big + small with big = tf32(x) and
+    small = tf32(x - big): the kernel's 3xTF32 products."""
+    ab, bb = _tf32(a), _tf32(b)
+    out = torch.matmul(ab, bb)
+    if passes == 3:
+        a_s, b_s = _tf32(a - ab), _tf32(b - bb)
+        out = torch.matmul(a_s, bb) + torch.matmul(ab, b_s) + out
+    return out
+
+
+def _tf32_attention(q, k, v, scale, passes):
+    """The kernel's arithmetic over one kv tile: S and P V as TF32
+    products, the softmax in f32, P normalised by its row sum last."""
+    s = _tf32_matmul(q, k.transpose(-1, -2), passes) * scale
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    return _tf32_matmul(p, v, passes) / p.sum(dim=-1, keepdim=True)
+
+
+@pytest.mark.parametrize("q_scale", [1.0, 4.0])
+def test_split_tf32_attention_holds_the_reference_tolerance(q_scale):
+    """Three TF32 passes hold the JAX reference's 2e-5 on [2 lanes, 256,
+    128], with q as drawn and scaled by 4 (peaked rows); one pass, which
+    keeps 11 bits of each operand, misses it: the reason for the split."""
+    q, k, v = _qkv((1, 256, 2, 128), 60)
+    q = q * np.float32(q_scale)
+    ref = np.asarray(jax_flash(jnp.asarray(q), jnp.asarray(k),
+                               jnp.asarray(v), block_q=128, block_k=128,
+                               interpret=True))[0].transpose(1, 0, 2)
+    qt, kt, vt = (to_tensor(a)[0].transpose(0, 1).contiguous()
+                  for a in (q, k, v))
+    three = to_numpy(_tf32_attention(qt, kt, vt, 128 ** -0.5, 3))
+    np.testing.assert_allclose(three, ref, rtol=2e-5, atol=2e-5)
+    one = to_numpy(_tf32_attention(qt, kt, vt, 128 ** -0.5, 1))
+    assert not np.allclose(one, ref, rtol=2e-5, atol=2e-5)
+
+
 def test_wrappers_refuse_cuda_kernels_on_cpu_tensors():
     """The CUDA entry points take only tensors on the card: a CPU tensor
     is refused, never run some other way."""
