@@ -14,6 +14,13 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      through GEMM, NORM and FATT at full width, check each result
      against the plain computation on the card, and check from the
      device stats and the launch counters that the kernels ran there
+  5. drive the serving path at Llama-2-7B attention widths (PagedLM
+     vocab 32000, d 4096, 32 heads, page 16): 8 requests of 256..2048
+     tokens over two tenants, two sharing a 1024-token prefix, 8 new
+     tokens each, then a spec_k=2 run; every output is checked against
+     a float64 oracle on the engine's own token stream, every token
+     against the oracle's argmax, and the device and prefix counters
+     against what the run must have done
 Then print the kernels line (JSON) and, last, the device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
@@ -202,6 +209,246 @@ def main_path(rng, dev_t, drive) -> None:
         dev.stop()
 
 
+def serve_oracle(model, req, dev_t, head64):
+    """The request's outputs and logits recomputed on the engine's own
+    token stream (teacher-forced): per step, q of the query token and
+    K/V of every token before it from the port's PagedLM, then plain
+    per-head softmax(q K^T * scale) V in float64 on the card, and the
+    model head in float64.  Returns (outputs [n, d], logits [n, vocab])
+    as float64 tensors.  head64 = (wo, embed) in float64 on the card."""
+    import torch
+    H, dh = model.cfg.heads, model.dh
+    Lp, n = len(req.prompt), len(req.outputs)
+    rows = [model.qkv(t) for t in req.tokens[:Lp + n - 1]]
+    f64 = dict(device=dev_t, dtype=torch.float64)
+    q = torch.tensor(np.stack([r[0] for r in rows[Lp - 1:]]), **f64)
+    k = torch.tensor(np.stack([r[1] for r in rows]), **f64)
+    v = torch.tensor(np.stack([r[2] for r in rows]), **f64)
+    T = k.shape[0]
+    s = torch.einsum("thd,jhd->thj", q.view(n, H, dh), k.view(T, H, dh)) \
+        * model.scale
+    # step t attends to the first Lp + t tokens
+    keep = torch.arange(T, device=dev_t)[None, :] < \
+        (Lp + torch.arange(n, device=dev_t))[:, None]
+    s = s.masked_fill(~keep[:, None, :], float("-inf"))
+    o = torch.einsum("thj,jhd->thd", torch.softmax(s, -1),
+                     v.view(T, H, dh)).reshape(n, H * dh)
+    wo, embed = head64
+    return o, (o @ wo) @ embed.T
+
+
+def serve_path(dev_t, observe=None) -> dict:
+    """The serving path at Llama-2-7B attention widths (hidden 4096, 32
+    heads, vocab 32000; page 16): a two-tenant continuous-batching run
+    of 8 requests, then a short speculative run, each through Context ->
+    Server -> InferenceEngine -> CudaDevice, checked against the float64
+    oracle.  observe(label, fn) runs each engine's decode loop (a
+    profiler may wrap it); returns the numbers the smoke prints."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.ops.paged_attention import (attend_heads,
+                                                      fold_heads, reset_acc)
+    from parsec_tpu_torch.serve import (InferenceEngine, PagedLM,
+                                        PagedLMConfig, TenantConfig)
+    if observe is None:
+        def observe(label, fn):
+            fn()
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("SERVE: TF32 is on for float32 products")
+    out = {}
+    cfg = PagedLMConfig(vocab=32000, d=4096, heads=32, page=16, seed=SEED)
+    H, P, d = cfg.heads, cfg.page, cfg.d
+    t = time.perf_counter()
+    model = PagedLM(cfg)
+    torch.cuda.synchronize()
+    log(f"  PagedLM(vocab={cfg.vocab}, d={d}, heads={H}, page={P}) on "
+        f"{model.device}: {time.perf_counter() - t:.1f} s to draw and "
+        f"place {sum(b.numel() for b in model.buffers()) * 4 / 2**20:.0f} "
+        "MiB of weights")
+
+    # the fold chore alone at the decode wave's shapes: 1 lane (a
+    # decode PATTF) and 8 lanes, against the numpy host fold
+    rng = np.random.default_rng(SEED + 1)
+    for lanes in (1, 8):
+        qn = (0.5 * rng.standard_normal((lanes, 1, d))).astype(np.float32)
+        kn = (0.5 * rng.standard_normal((lanes, P, d))).astype(np.float32)
+        vn = (0.5 * rng.standard_normal((lanes, P, d))).astype(np.float32)
+        an = np.zeros((lanes, 1, d + 2 * H), np.float32)
+        for i in range(lanes):
+            reset_acc(an[i], H)
+            attend_heads(qn[i, 0], kn[i], vn[i], an[i], model.scale, H)
+        ins = [torch.from_numpy(a).to(dev_t) for a in (qn, kn, vn, an)]
+        host = an.copy()
+        for i in range(lanes):
+            attend_heads(qn[i, 0], kn[i], vn[i], host[i], model.scale, H)
+        got = fold_heads(*ins, model.scale, H)
+        torch.cuda.synchronize()
+        # f32 sums over 128 (scores) and 16 (p @ V) terms in another order
+        err = check_close(f"fold_heads [{lanes}, {P}, {d}], {H} heads, vs "
+                          "the numpy host fold", got,
+                          torch.from_numpy(host).to(dev_t), 1e-5, 1e-5)
+        ms = time_ms(lambda: fold_heads(*ins, model.scale, H), 200, 10)
+        nbytes = sum(a.nbytes for a in (qn, kn, vn, an)) + an.nbytes
+        out[f"fold_{lanes}"] = {"ms": ms, "max_abs_err": err,
+                                "bound_ms": nbytes / card_peaks(
+                                    torch.cuda.get_device_name(0))[1][0]
+                                * 1e3}
+        log(f"  fold_heads {lanes} lane(s): {ms:.4f} ms a launch (CUDA "
+            f"events, mean of 200), byte bound "
+            f"{out[f'fold_{lanes}']['bound_ms']:.6f} ms")
+
+    max_new = 8
+    lens = [256 * (i + 1) for i in range(8)]
+    prompts = [[int(x) for x in rng.integers(0, cfg.vocab, size=n)]
+               for n in lens]
+    # the 1280- and 1536-token prompts share their first 1024 tokens:
+    # 64 full pages the second one maps onto frozen pages
+    prompts[5][:1024] = prompts[4][:1024]
+    tenants = ["hi" if i % 2 == 0 else "lo" for i in range(8)]
+
+    head64 = (model.wo.double(), model.embed.double())
+
+    def check_requests(label, hs, n_new):
+        worst, ties = 0.0, 0
+        for h in hs:
+            if h.state != "done" or len(h.generated) != n_new:
+                raise AssertionError(f"{label}: request {h.rid} ended "
+                                     f"{h.state} with {len(h.generated)} "
+                                     f"of {n_new} tokens")
+            o, logits = serve_oracle(model, h, dev_t, head64)
+            err = check_close(
+                f"{label} request {h.rid} ({len(h.prompt)} tokens) "
+                "outputs vs the float64 oracle",
+                torch.from_numpy(np.stack(h.outputs)).to(dev_t), o,
+                1e-4, 1e-5)
+            worst = max(worst, err)
+            top2 = torch.topk(logits, 2, dim=-1)
+            for t, tok in enumerate(h.generated):
+                if int(top2.indices[t, 0]) == tok:
+                    continue
+                gap = float(top2.values[t, 0] - top2.values[t, 1])
+                if gap > 1e-4:
+                    raise AssertionError(
+                        f"{label} request {h.rid} step {t}: token {tok}, "
+                        f"the oracle's argmax {int(top2.indices[t, 0])} "
+                        f"leads by {gap:.3e}")
+                ties += 1
+        log(f"  {label}: {len(hs)} requests match the oracle, max abs err "
+            f"{worst:.3e}; tokens off the oracle's argmax within a 1e-4 "
+            f"tie: {ties}")
+        return worst, ties
+
+    with pt.Context(nb_workers=4, scheduler="lws") as ctx:
+        dev = CudaDevice(ctx)
+        eng = InferenceEngine(
+            ctx, model, n_pages=1200, max_seqs=8, dev=dev,
+            tenants=[TenantConfig("hi", priority=4, weight=4),
+                     TenantConfig("lo")])
+        t0 = time.perf_counter()
+        # the prefix owner is served first, so its frozen pages exist
+        # when the sharer is admitted
+        first = eng.submit(prompts[4], max_new, tenants[4])
+        first.ticket.wait()
+        hs = [eng.submit(prompts[i], max_new, tenants[i])
+              for i in range(8) if i != 4]
+        hs.insert(4, first)
+        walls = []
+
+        def decode():
+            deadline = time.monotonic() + 600
+            while eng.pending() or eng._inflight:
+                if time.monotonic() > deadline:
+                    raise TimeoutError("SERVE: decode loop past 600 s")
+                ts = time.perf_counter()
+                n = eng.step()
+                torch.cuda.synchronize()
+                if n:
+                    walls.append(time.perf_counter() - ts)
+                else:
+                    time.sleep(0.0005)
+            eng.settle()
+
+        observe("SERVE 8 requests, 2 tenants", decode)
+        wall = time.perf_counter() - t0
+        st = dict(dev.stats)
+        pool = eng.pool.stats()
+        scope = ctx.stats()["scope"]
+        eng.close()
+        dev.stop()
+        gen = sum(len(h.generated) for h in hs)
+        out["tokens_per_s"] = gen / wall
+        out["step_wall_p50_ms"] = float(np.percentile(walls, 50)) * 1e3
+        log(f"  SERVE: {gen} tokens in {wall:.2f} s = "
+            f"{out['tokens_per_s']:.2f} tokens/s; {len(walls)} decode "
+            f"steps, wall p50 {out['step_wall_p50_ms']:.1f} ms, max "
+            f"{max(walls) * 1e3:.1f} ms; decode pools "
+            f"{eng.stats['decode_pools']}; prefix hits "
+            f"{pool['prefix_hits']} of {pool['prefix_hits'] + pool['prefix_misses']} "
+            f"pages")
+        for tn in ("hi", "lo"):
+            ttft = [(r.first_token_ns - r.submitted_ns) / 1e6
+                    for h in hs if h.tenant == tn
+                    for r in [eng.scope.request(h.rid)]]
+            out[f"ttft_{tn}"] = (float(np.percentile(ttft, 50)),
+                                 float(np.percentile(ttft, 99)))
+            log(f"  SERVE tenant {tn}: TTFT p50 {out[f'ttft_{tn}'][0]:.1f}"
+                f" ms, p99 {out[f'ttft_{tn}'][1]:.1f} ms over {len(ttft)} "
+                f"requests (scope histogram p50 "
+                f"{scope['tenants'][tn]['ttft_ns_p50'] / 1e6:.1f} ms)")
+        # every request takes max_new - 1 decode token steps (the prefill
+        # emits its first token), and each folds every frozen page once
+        token_steps = max_new - 1
+        out["fold_tasks_per_token_step"] = st["tasks"] / token_steps
+        log(f"  SERVE device: tasks={st['tasks']} batches={st['batches']} "
+            f"h2d_bytes={st['h2d_bytes']} h2d_hits={st['h2d_hits']} "
+            f"h2d_stall={st['h2d_stall_ns'] / 1e6:.1f} ms "
+            f"invalidations={st['invalidations']} "
+            f"cache_peak={st['cache_peak_bytes']}; {token_steps} decode "
+            f"token steps a request = "
+            f"{out['fold_tasks_per_token_step']:.1f} fold launches for one "
+            f"token of all {len(hs)} requests; the {len(walls)} step() "
+            f"calls took {sum(walls) * 1e3:.1f} ms = "
+            f"{sum(walls) * 1e3 / max(1, st['tasks']):.3f} ms a fold task")
+        out["max_abs_err"], out["ties"] = check_requests(
+            "SERVE", hs, max_new)
+        if st["tasks"] <= 0 or st["h2d_hits"] <= 0:
+            raise AssertionError("SERVE: the device folded nothing")
+        if pool["prefix_hits"] < 64:
+            raise AssertionError(f"SERVE: {pool['prefix_hits']} prefix "
+                                 "hits, expected at least 64")
+        out["device"] = st
+
+    # speculative decoding: the verify wave's folds run batched
+    spec_prompts = [[int(x) for x in rng.integers(0, cfg.vocab, size=512)]
+                    for _ in range(2)]
+    with pt.Context(nb_workers=4, scheduler="lws") as ctx:
+        dev = CudaDevice(ctx)
+        eng = InferenceEngine(ctx, model, n_pages=256, max_seqs=2, dev=dev,
+                              tenants=[TenantConfig("hi", priority=4,
+                                                    weight=4)], spec_k=2)
+        t0 = time.perf_counter()
+        hs = [eng.submit(p, 6, "hi") for p in spec_prompts]
+        observe("SERVE speculative, spec_k=2",
+                lambda: eng.run(timeout_s=600))
+        wall = time.perf_counter() - t0
+        st = dict(dev.stats)
+        es = dict(eng.stats)
+        eng.close()
+        dev.stop()
+        log(f"  SERVE spec_k=2: {wall:.2f} s, spec steps "
+            f"{es['spec_steps']}, proposed {es['spec_proposed']}, "
+            f"accepted {es['spec_accepted']}; device tasks={st['tasks']} "
+            f"batches={st['batches']} batched_tasks={st['batched_tasks']}")
+        check_requests("SERVE spec_k=2", hs, 6)
+        if st["batches"] <= 0:
+            raise AssertionError("SERVE spec: no batched verify launch")
+        if es["spec_accepted"] <= 0:
+            raise AssertionError("SERVE spec: no draft token accepted")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -375,6 +622,21 @@ def main() -> int:
         return got
 
     main_path(rng, dev_t, drive)
+
+    log("phase 5: the serving path, Context -> Server -> InferenceEngine "
+        "-> CudaDevice, at Llama-2-7B attention widths")
+    # the serving path launches none of the hand-written kernels (its
+    # device chore is the torch fold); its counts are read all the same
+    kernels.reset_launches()
+    t = time.perf_counter()
+    serve = serve_path(dev_t)
+    log(f"  SERVE phase {time.perf_counter() - t:.1f} s; hand-written "
+        f"kernel launches in it: {dict(kernels.LAUNCHES)}")
+    log(f"  SERVE summary: {serve['tokens_per_s']:.2f} tokens/s, decode "
+        f"step wall p50 {serve['step_wall_p50_ms']:.1f} ms, TTFT p50/p99 "
+        f"hi {serve['ttft_hi'][0]:.1f}/{serve['ttft_hi'][1]:.1f} ms, lo "
+        f"{serve['ttft_lo'][0]:.1f}/{serve['ttft_lo'][1]:.1f} ms")
+    log(smi.stdout.strip().splitlines()[0])
 
     rows_out = []
     for name, r, err, repl in (

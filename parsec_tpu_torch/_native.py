@@ -153,6 +153,8 @@ _sigs = {
                                       C.c_void_p]),
     "ptc_tp_global": (C.c_int64, [C.c_void_p, C.c_int32]),
     "ptc_tp_id": (C.c_int32, [C.c_void_p]),
+    "ptc_tp_set_scope": (None, [C.c_void_p, C.c_int64]),
+    "ptc_clock_ns": (C.c_int64, []),
     "ptc_task_fail": (None, [C.c_void_p, C.c_void_p]),
     "ptc_data_new": (C.c_void_p, [C.c_int64, C.c_void_p, C.c_int64]),
     "ptc_data_destroy": (None, [C.c_void_p]),

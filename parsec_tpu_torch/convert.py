@@ -6,10 +6,12 @@ identical inputs.
   to_numpy(t)               tensor -> numpy (bfloat16 widened to float32)
   to_collection(dense, mb, nb)
                             dense matrix -> TwoDimBlockCyclic (tiles filled)
+  paged_lm_params(model)    a PagedLM's weights as numpy, for
+                            serve.PagedLM.from_params
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -39,6 +41,19 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     if t.dtype == torch.bfloat16:
         t = t.float()
     return t.numpy().copy()
+
+
+def paged_lm_params(model) -> Dict[str, np.ndarray]:
+    """The weights of a PagedLM — the JAX package's (numpy arrays) or
+    this package's (tensors) — as float32 numpy arrays keyed by name
+    (embed, wq, wk, wv, wo), bit for bit: what
+    serve.PagedLM.from_params(cfg, params, device) loads."""
+    out = {}
+    for name in ("embed", "wq", "wk", "wv", "wo"):
+        w = getattr(model, name)
+        a = to_numpy(w) if isinstance(w, torch.Tensor) else np.asarray(w)
+        out[name] = np.array(a, dtype=np.float32, copy=True)
+    return out
 
 
 def to_collection(dense, mb: int, nb: int, dtype=None) -> TwoDimBlockCyclic:

@@ -91,6 +91,8 @@ class Context:
         # live taskpools; _tp_lock serializes walks against destroy
         self._taskpools: List = []
         self._tp_lock = threading.Lock()
+        self._servers: List = []  # serve.Server instances (stats export)
+        self._scope_registry = None
         if _mca.get("runtime.vpmap") != "flat":
             self.set_vpmap(_mca.get("runtime.vpmap"))
         N.lib.ptc_device_set_affinity_skew(
@@ -186,6 +188,52 @@ class Context:
             "executed": self.worker_stats(),
         }
 
+    def device_stats(self) -> dict:
+        """Counters aggregated across this context's devices (the keys
+        of the device module's stats), plus each device's info object
+        under "devices"."""
+        devs = [dev.info() for dev in self._devices]
+        keys = ("tasks", "batches", "batched_tasks", "h2d_hits",
+                "h2d_bytes", "d2h_bytes", "h2d_stall_ns", "evictions",
+                "dead_drops", "invalidations", "eager_gathers",
+                "fused_flows", "wb_tasks", "f64_refused",
+                "cache_peak_bytes")
+        agg = {k: sum(d["stats"][k] for d in devs) for k in keys}
+        agg["devices"] = devs
+        return agg
+
+    def stats(self) -> dict:
+        """Unified counter snapshot of the parts the port has:
+          sched   -> sched_stats()
+          serve   -> the serving front door's admission/queue/reject
+                     counters per tenant (serve.Server.stats());
+                     {"enabled": False} when no Server is attached
+          device  -> device_stats()
+          scope   -> request-scope rollups (profiling/scope.py);
+                     {"enabled": False} when no registry is attached"""
+        serve_ns = {"enabled": False}
+        if self._servers:
+            # one Server per context in practice; the last attached wins
+            serve_ns = dict(self._servers[-1].stats())
+            serve_ns["enabled"] = True
+        reg = self._scope_registry
+        return {
+            "sched": self.sched_stats(),
+            "serve": serve_ns,
+            "device": self.device_stats(),
+            "scope": reg.stats() if reg is not None
+            else {"enabled": False},
+        }
+
+    def scope_registry(self, create: bool = True):
+        """The request-scope registry (one per context;
+        profiling/scope.py).  The serve stack attaches one; create=False
+        just peeks."""
+        if self._scope_registry is None and create:
+            from ..profiling.scope import ScopeRegistry
+            self._scope_registry = ScopeRegistry(self)
+        return self._scope_registry
+
     def stats_dump(self) -> str:
         """Human-readable counter dump (the --mca device_show_statistics
         analog)."""
@@ -200,6 +248,15 @@ class Context:
         return "\n".join(lines)
 
     # ------------------------------------------------------- QoS taskpools
+    def taskpool(self, globals: Optional[Dict[str, int]] = None,
+                 priority: Optional[int] = None,
+                 weight: Optional[int] = None):
+        """Create a Taskpool on this context; `priority`/`weight` arm
+        per-pool QoS (see Taskpool)."""
+        from .taskpool import Taskpool
+        return Taskpool(self, globals=globals, priority=priority,
+                        weight=weight)
+
     def _track_taskpool(self, tp):
         """Strong reference until Taskpool.destroy(): the native pool's
         lifetime anchors the wrapper's (and its ctypes thunks)."""
@@ -323,6 +380,23 @@ class Context:
 
     def device_queue_new(self) -> int:
         return N.lib.ptc_device_queue_new(self._ptr)
+
+    def host_wrote(self, coll, m: int, n: int = 0):
+        """A caller rewrote a collection tile's HOST bytes directly
+        (numpy, outside the runtime): every device mirror of it is stale
+        and must drop — the copy version cannot tell, no runtime write
+        happened.  The serving engine's slot and prompt staging and the
+        PagePool's copy-on-write clones route through here."""
+        if not self._devices:
+            return
+        d = coll._datas.get((m, n))
+        if d is None:
+            return
+        h = N.lib.ptc_copy_handle(N.lib.ptc_data_host_copy(d._ptr))
+        if h:
+            for dev in list(self._devices):
+                dev._drop_mirror(h)
+            N.lib.ptc_device_clear_data_owner(self._ptr, h, -1)
 
     def device_pop(self, qid: int, timeout_ms: int = 100):
         return N.lib.ptc_device_pop(self._ptr, qid, timeout_ms)

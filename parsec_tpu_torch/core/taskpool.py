@@ -1,8 +1,8 @@
 """Taskpool: a DAG of task classes sharing globals (reference:
 parsec_taskpool_t, parsec/parsec_internal.h:119-161).
 
-Port of parsec_tpu/core/taskpool.py without the request-scope stamp, the
-DTD open/drain controls and the static-analysis hooks (not ported yet)."""
+Port of parsec_tpu/core/taskpool.py without the DTD open/drain controls
+and the static-analysis hooks (not ported yet: plan() raises)."""
 from __future__ import annotations
 
 import ctypes as C
@@ -45,6 +45,11 @@ class Taskpool:
             N.lib.ptc_tp_set_qos(self._ptr, self.qos_priority,
                                  self.qos_weight)
         ctx._track_taskpool(self)
+
+    def set_scope(self, scope_id: int):
+        """Stamp the request-scope id this pool serves (0 = unscoped;
+        profiling/scope.py)."""
+        N.lib.ptc_tp_set_scope(self._ptr, int(scope_id))
 
     # ------------------------------------------------------------- building
     def add(self, tc: TaskClass) -> TaskClass:
@@ -123,6 +128,13 @@ class Taskpool:
         if rc != 0:
             raise RuntimeError("ptc_context_add_taskpool failed")
         return self
+
+    def plan(self, *args, **kwargs):
+        """The static plan (ptc-plan) belongs to the analysis layer,
+        which is not ported yet: raises NotImplementedError."""
+        raise NotImplementedError(
+            "Taskpool.plan(): the analysis layer is not ported to "
+            "parsec_tpu_torch yet")
 
     def wait(self):
         rc = N.lib.ptc_tp_wait(self._ptr)

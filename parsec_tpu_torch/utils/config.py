@@ -4,8 +4,9 @@ Parameters are registered with type+default and resolved with ascending
 priority
     defaults  <  config file  <  environment  <  programmatic set
 Environment spelling: PTC_MCA_<name with '.' -> '_'>.  The config file is
-./ptc.conf ("name = value" lines, '#' comments).  Only the keys this
-package reads are registered: runtime.*, sched.*, device.cache_bytes and
+./ptc.conf ("name = value" lines, '#' comments).  Registered: runtime.*,
+sched.*, serve.* (the reference's, read by nothing yet there either),
+the control.spec_* knobs of the serving engine, device.cache_bytes and
 device.affinity_skew.  The runtime.* hooks whose modules are not ported
 yet (pins, live, metrics_port, watchdog, journal) are registered so that
 setting one is refused loudly by Context instead of ignored.
@@ -172,6 +173,31 @@ register("sched.bypass", True, bool,
          "executes its highest-priority ready successor directly")
 register("sched.qos_preempt", True, bool,
          "per-pool QoS wave-boundary preemption under the lws scheduler")
+register("serve.admission_grace_s", 0.0, float,
+         "Server: seconds a rejected submission is retried internally "
+         "before the reject counter ticks (0 = reject immediately; "
+         "backpressure-sensitive clients can poll the ticket instead)")
+register("control.spec_k_max", 4, int,
+         "ptc-pilot adaptive speculation ceiling: engines built with "
+         "spec_k='auto' size their verify scratch for this k and the "
+         "per-tenant bandit picks 0..max from live acceptance")
+register("control.spec_window", 4, int,
+         "adaptive-speculation acceptance window, in verify waves per "
+         "tenant: shrink/grow decisions read the mean acceptance over "
+         "this many most recent waves")
+register("control.spec_accept_low", 0.45, float,
+         "shrink threshold: a tenant whose windowed draft acceptance "
+         "falls below this fraction has its spec_k halved (floor 1 — "
+         "only page pressure disables speculation outright)")
+register("control.spec_accept_high", 0.80, float,
+         "re-expand threshold: a tenant whose windowed acceptance "
+         "sustains at or above this fraction for a full spec_window "
+         "grows its spec_k by one, up to control.spec_k_max")
+register("control.spec_page_floor", 0.25, float,
+         "page-pressure disable: when the pool's free+cached fraction "
+         "drops below this floor (or a speculative reservation just "
+         "failed), adaptive tenants decode plainly (k=0) until the "
+         "fraction recovers above the floor")
 register("device.cache_bytes", 0, int,
          "device byte-budget override: when > 0 every CudaDevice created "
          "without an explicit cache_bytes argument uses this budget "

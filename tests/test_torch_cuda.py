@@ -205,3 +205,64 @@ def test_host_reads_of_device_results_are_coherent(card):
         assert dev.stats["wb_tasks"] == 1
         dev.stop()
     np.testing.assert_array_equal(seen[0], 10.0)
+
+
+@pytest.mark.parametrize("lanes", [1, 8])
+def test_fold_chore_on_the_card_matches_host_fold(card, lanes):
+    """The serving path's fold chore at its decode shape (32 heads of
+    128, 16-row pages) against the numpy host fold: f32 sums over 128
+    and 16 terms in another order, 1e-5."""
+    import torch
+    from parsec_tpu_torch.ops.paged_attention import (attend_heads,
+                                                      fold_heads, reset_acc)
+    nh, dh, P = 32, 128, 16
+    d = nh * dh
+    rng = np.random.default_rng(30 + lanes)
+    q, K, V = ((0.5 * rng.standard_normal(s)).astype(np.float32)
+               for s in ((lanes, 1, d), (lanes, P, d), (lanes, P, d)))
+    acc = np.zeros((lanes, 1, d + 2 * nh), np.float32)
+    for i in range(lanes):
+        reset_acc(acc[i], nh)
+        attend_heads(q[i, 0], K[i], V[i], acc[i], dh ** -0.5, nh)
+    got = fold_heads(*(torch.from_numpy(a).to(card) for a in (q, K, V, acc)),
+                     dh ** -0.5, nh)
+    for i in range(lanes):
+        attend_heads(q[i, 0], K[i], V[i], acc[i], dh ** -0.5, nh)
+    np.testing.assert_allclose(got.cpu().numpy(), acc, rtol=1e-5, atol=1e-5)
+
+
+def test_serving_engine_on_the_card_matches_float64_oracle(card):
+    """Two requests at d=512, 4 heads through Server -> InferenceEngine
+    -> CudaDevice: every output within 1e-4 / 1e-5 of the float64 oracle
+    on the engine's own token stream, every token its argmax (up to a
+    1e-4 tie), and the frozen pages folded on the card."""
+    import torch
+    import chip_smoke
+    from parsec_tpu_torch.serve import (InferenceEngine, PagedLM,
+                                        PagedLMConfig, TenantConfig)
+    model = PagedLM(PagedLMConfig(vocab=1000, d=512, heads=4, page=16,
+                                  seed=4))
+    rng = np.random.default_rng(5)
+    prompts = [[int(t) for t in rng.integers(0, 1000, size=n)]
+               for n in (100, 300)]
+    with pt.Context(nb_workers=2, scheduler="lws") as ctx:
+        dev = CudaDevice(ctx)
+        eng = InferenceEngine(ctx, model, n_pages=64, max_seqs=2, dev=dev,
+                              tenants=[TenantConfig("t")])
+        hs = [eng.submit(p, 5, "t") for p in prompts]
+        eng.run(timeout_s=300)
+        st = dict(dev.stats)
+        eng.close()
+        dev.stop()
+    head64 = (model.wo.double(), model.embed.double())
+    for h in hs:
+        assert h.state == "done" and len(h.generated) == 5
+        o, logits = chip_smoke.serve_oracle(model, h, card, head64)
+        torch.testing.assert_close(
+            torch.from_numpy(np.stack(h.outputs)).to(card).double(), o,
+            rtol=1e-4, atol=1e-5)
+        top2 = torch.topk(logits, 2, dim=-1)
+        for t, tok in enumerate(h.generated):
+            assert tok == int(top2.indices[t, 0]) or float(
+                top2.values[t, 0] - top2.values[t, 1]) <= 1e-4
+    assert st["tasks"] > 0 and st["h2d_hits"] > 0

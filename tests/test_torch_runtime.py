@@ -151,6 +151,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     found = []
     files = _port_files()
     assert len(files) > 10
+    # the walk reaches every subpackage, the serving path's included
+    walked = {os.path.relpath(p, REPO) for p in files}
+    for sub in ("ops/paged_attention.py", "serve/engine.py",
+                "serve/server.py", "profiling/scope.py",
+                "profiling/metrics.py"):
+        assert os.path.join("parsec_tpu_torch", sub) in walked, sub
     for path in files:
         with open(path) as f:
             tree = ast.parse(f.read(), path)

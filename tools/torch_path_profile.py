@@ -1,16 +1,18 @@
 #!/usr/bin/env python3
 """Where the time goes on the PyTorch/CUDA port's main path (one card).
 
-    python3 tools/torch_path_profile.py        # from the repo root
+    python3 tools/torch_path_profile.py [--serve-only]   # repo root
 
-Drives the same main path as chip_smoke.py (GEMM, NORM and FATT
-taskpools at full width through Context -> Taskpool -> CudaDevice, each
-result checked against the plain computation) with every taskpool run
-under torch.profiler (CPU + CUDA activities), and prints per path: the
-traced wall time, the device's busy time (union of its kernel and copy
-intervals) and idle share of the wall, device time summed by kernel or
-copy name, and the device module's staging counters, one JSON line
-per path.  Exits non-zero without a CUDA card.
+Drives the same paths as chip_smoke.py — GEMM, NORM and FATT taskpools
+at full width through Context -> Taskpool -> CudaDevice (left out with
+--serve-only), then the serving path (chip_smoke.serve_path: the
+two-tenant engine run and the speculative run), each result checked as
+the smoke checks it — with every taskpool run, and each engine's decode
+loop, under torch.profiler (CPU + CUDA activities).  Prints one JSON
+line per path: the traced wall time, the device's busy time (union of
+its kernel and copy intervals) and idle share of the wall, device time
+and item count by kernel or copy name, and the device module's staging
+counters.  Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
 
@@ -51,18 +53,19 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     kernels.build_all()
 
-    def drive(label, tp, dev, ntasks):
+    def traced(label, fn, stats=None):
+        """Run fn() under the profiler and print its row: wall, device
+        busy/idle, device time by name, and the device module's staging
+        counters when given."""
         kernels.reset_launches()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t = time.perf_counter()
-            tp.run()
-            tp.wait()
-            dev.flush()
+            fn()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t) * 1e6
-        spans, by_name = [], {}
+        spans, by_name, count = [], {}, {}
         for ev in prof.events():
             if ev.device_type != DeviceType.CUDA:
                 continue
@@ -70,22 +73,38 @@ def main() -> int:
             spans.append((a, b))
             name = ev.name[:60]
             by_name[name] = by_name.get(name, 0.0) + (b - a)
+            count[name] = count.get(name, 0) + 1
         busy = _busy_us(spans)
-        st = dev.stats
-        row = {"path": label, "tasks": st["tasks"],
-               "launches": dict(kernels.LAUNCHES),
+        row = {"path": label, "launches": dict(kernels.LAUNCHES),
                "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
                "device_idle_share": 1.0 - busy / wall_us if wall_us else None,
-               "h2d_stall_ms": st["h2d_stall_ns"] / 1e6,
-               "h2d_bytes": st["h2d_bytes"], "d2h_bytes": st["d2h_bytes"],
-               "device_ms_by_name": {k: v / 1e3 for k, v in sorted(
-                   by_name.items(), key=lambda kv: -kv[1])[:8]}}
+               "device_items": len(spans),
+               "device_ms_by_name": {k: [v / 1e3, count[k]] for k, v in
+                                     sorted(by_name.items(),
+                                            key=lambda kv: -kv[1])[:8]}}
+        if stats is not None:
+            st = stats()
+            row.update(tasks=st["tasks"], batches=st["batches"],
+                       h2d_stall_ms=st["h2d_stall_ns"] / 1e6,
+                       h2d_bytes=st["h2d_bytes"], d2h_bytes=st["d2h_bytes"])
         print(json.dumps(row), flush=True)
+
+    def drive(label, tp, dev, ntasks):
+        def run():
+            tp.run()
+            tp.wait()
+            dev.flush()
+        traced(label, run, lambda: dev.stats)
         return dict(kernels.LAUNCHES)
 
     print(torch.cuda.get_device_name(0))
-    chip_smoke.main_path(np.random.default_rng(chip_smoke.SEED),
-                         torch.device("cuda", 0), drive)
+    dev_t = torch.device("cuda", 0)
+    if "--serve-only" not in sys.argv:
+        chip_smoke.main_path(np.random.default_rng(chip_smoke.SEED), dev_t,
+                             drive)
+    # the serving path: each engine's decode loop (prefills included,
+    # which run concurrently with it) traced whole
+    chip_smoke.serve_path(dev_t, observe=traced)
     return 0
 
 
