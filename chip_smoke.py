@@ -21,7 +21,17 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      a float64 oracle on the engine's own token stream, every token
      against the oracle's argmax, and the device and prefix counters
      against what the run must have done
-Then print the kernels line (JSON) and, last, the device line (JSON).
+  6. drive the dense linear algebra on the card (phase 6, f32, matrices
+     generated on the device): the north-star spotrf as the panel DAG
+     with its speculative epilogue at N=32768, NB=512, then POSV on its
+     factor, the tiled spotrf at N=16384, NB=1024, the panel LU at
+     N=16384, and TRSM, TRTRI, LAUUM, POTRI, GEQRF, the tiled LU and the
+     tiled spotrf's solve dataflow at N=8192, NB=512; each checked by its
+     residual or against one PyTorch call on the card, spotrf also timed
+     against torch.linalg.cholesky (cuSOLVER); then every chore the phase
+     launched is timed at its path's shape beside its bound
+Then print the dense-LA line (JSON), the kernels line (JSON) and, last,
+the device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
@@ -207,6 +217,612 @@ def main_path(rng, dev_t, drive) -> None:
         check_close("FATT O vs plain", to_tensor(Oc.to_dense(), dev_t)
                     .reshape(H, L, D), want, 2e-5, 2e-5)
         dev.stop()
+
+
+# phase 6 sizes: (N, NB) per path; the tiled group shares one (N, NB).
+# DENSE_WARM: the untimed first pass at the same NB, which pays the
+# libraries' first-use costs (cuSOLVER and cuBLAS handles and workspaces
+# on the managers' streams, lazily loaded kernels: 2219 vs 397 ms for a
+# cold vs a warm POTRF-P at N=16384 on the H100), as the reference
+# bench's warm-up does
+DENSE = {"potrf_p": (32768, 512), "posv_nrhs": 512,
+         "potrf_t": (16384, 1024), "getrf_p": (16384, 512),
+         "tiled": (8192, 512)}
+DENSE_WARM = {"potrf_p": (2048, 512), "posv_nrhs": 512,
+              "potrf_t": (4096, 1024), "getrf_p": (2048, 512),
+              "tiled": (2048, 512)}
+
+
+def sync(dev_t) -> None:
+    if dev_t.type == "cuda":
+        import torch
+        torch.cuda.synchronize(dev_t)
+
+
+def timed_ms(dev_t, fn, iters: int, warmup: int = 1) -> float:
+    """time_ms on the card; on the CPU (a rehearsal) the host clock."""
+    if dev_t.type == "cuda":
+        return time_ms(fn, iters, warmup)
+    for _ in range(warmup):
+        fn()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    return (time.perf_counter() - t) * 1e3 / iters
+
+
+def as_tiles(dense, mb: int, nb: int):
+    """(M, N) dense -> (mt*nt, mb, nb) row-major tiles (the inverse of
+    bench_utils.assemble_dense)."""
+    M, N = dense.shape
+    return dense.reshape(M // mb, mb, N // nb, nb).permute(0, 2, 1, 3) \
+        .reshape(-1, mb, nb).contiguous()
+
+
+def chore_flops(name: str, lanes: int, nb: int, n: int, r: int) -> float:
+    """Floating-point operations of one launch of a dense-LA chore over
+    `lanes` lanes: tiles nb x nb, panels n x nb, right-hand sides n x r.
+    Counted as the chore computes (a full product where it forms one;
+    LAPACK's counts for the factorizations)."""
+    c = nb ** 3
+    per_lane = {
+        "k_potrf": c / 3, "k_potrf_inv": 2 * c / 3, "k_trsm": c,
+        "k_trsm_mm": 2 * c, "k_syrk": 2 * c, "k_gemm": 2 * c,
+        "k_solve": c, "k_update": 2 * c,
+        "k_getrf_nopiv": 2 * c / 3, "k_trsm_l": c, "k_trsm_u": c,
+        "k_gemm_lu": 2 * c, "k_tri_inv": c / 3, "k_acc_ab": 2 * c,
+        "k_mul_ab": 2 * c, "k_neg_mul": 2 * c, "k_acc_atb": 2 * c,
+        "k_geqrt": 8 * c / 3, "k_unmqr": 2 * c, "k_tsqrt": 38 * c / 3,
+        "k_tsmqr": 8 * c,
+        "k_panel_factor": 2 * c / 3 + 2 * n * nb * nb,
+        "k_panel_update": 2 * n * nb * nb,
+        "k_panel_fwd": nb * nb * r + 2 * n * nb * r,
+        "k_panel_bwd": nb * nb * r + 2 * n * nb * r,
+        "k_panel_getrf": 2 * c / 3 + n * nb * nb,
+        "k_panel_getrf_update": c + 2 * n * nb * nb}[name]
+    return lanes * per_lane
+
+
+def chore_inputs(name: str, lanes: int, nb: int, n: int, r: int, dev_t):
+    """Inputs of one launch of a chore at the path's shape, random but of
+    the structure the path gives it (SPD tiles for a Cholesky, a
+    well-conditioned factor for a solve); a flow every lane of the path
+    reads is one tile at lane stride 0.  Returns (inputs, library call
+    computing the same function in one PyTorch call, or None)."""
+    import torch
+    g = torch.Generator(device=dev_t)
+    g.manual_seed(SEED)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=g, device=dev_t)
+
+    def spd(k):
+        a = rnd(k, nb, nb)
+        return a @ a.mT + nb * torch.eye(nb, device=dev_t)
+
+    def low(k):
+        return torch.tril(rnd(k, nb, nb)) + 2 * nb * torch.eye(
+            nb, device=dev_t)
+
+    def shared(t):
+        return t.expand(lanes, *t.shape[1:])
+
+    def panels(dominant):
+        blocks = n // nb
+        p = rnd(lanes, n, nb)
+        ks = torch.tensor([[i % blocks] for i in range(lanes)],
+                          dtype=torch.int32, device=dev_t)
+        for i in range(lanes):
+            k = i % blocks
+            p[i, k * nb:(k + 1) * nb] = (low(1)[0] if dominant else
+                                         spd(1)[0])
+        return p, ks
+
+    t, s = rnd(lanes, nb, nb), rnd(lanes, nb, nb)
+    L = torch.linalg
+    if name in ("k_potrf", "k_potrf_inv"):
+        a = spd(lanes)
+        return [a], (lambda: L.cholesky(a)) if name == "k_potrf" else None
+    if name in ("k_trsm", "k_trsm_mm", "k_solve", "k_trsm_l", "k_trsm_u",
+                "k_unmqr", "k_neg_mul"):
+        # the factor every lane of the wave reads: lower, or upper for
+        # k_trsm_u (the U of a packed LU)
+        f = shared(low(1).mT.contiguous() if name == "k_trsm_u"
+                   else low(1))
+        lib = {"k_trsm": lambda: L.solve_triangular(f.mT, t, upper=True,
+                                                    left=False),
+               "k_trsm_mm": lambda: torch.matmul(t, f.mT),
+               "k_solve": lambda: L.solve_triangular(f, t, upper=False),
+               "k_trsm_l": lambda: L.solve_triangular(
+                   f, t, upper=False, unitriangular=True),
+               "k_trsm_u": lambda: L.solve_triangular(
+                   f, t, upper=True, left=False),
+               "k_unmqr": lambda: torch.matmul(f.mT, t)}.get(name)
+        return [f, t], lib
+    if name in ("k_syrk",):
+        return [t, s], lambda: torch.baddbmm(s, t, t.mT, alpha=-1)
+    if name in ("k_gemm", "k_update", "k_gemm_lu", "k_acc_ab", "k_acc_atb"):
+        c = rnd(lanes, nb, nb)
+        tb = {"k_gemm": s.mT, "k_update": s, "k_gemm_lu": s, "k_acc_ab": s,
+              "k_acc_atb": s}[name]
+        ta = t.mT if name == "k_acc_atb" else t
+        alpha = -1 if name in ("k_gemm", "k_update", "k_gemm_lu") else 1
+        return [t, s, c], lambda: torch.baddbmm(c, ta, tb, alpha=alpha)
+    if name == "k_mul_ab":
+        return [t, s], lambda: torch.matmul(t, s)
+    if name == "k_getrf_nopiv":
+        a = low(lanes) + rnd(lanes, nb, nb)
+        return [a], (lambda: L.lu_factor_ex(a, pivot=False)) \
+            if a.is_cuda else None
+    if name == "k_tri_inv":
+        a = low(lanes)
+        return [a], lambda: L.solve_triangular(
+            a, torch.eye(nb, device=dev_t).expand_as(a), upper=False)
+    if name == "k_geqrt":
+        return [t], lambda: L.qr(t, mode="complete")
+    if name == "k_tsqrt":
+        return [torch.triu(t), s], None
+    if name == "k_tsmqr":
+        q2 = shared(L.qr(rnd(1, 2 * nb, 2 * nb))[0])
+        return [q2, t, s], None
+    if name in ("k_panel_factor", "k_panel_getrf"):
+        p, ks = panels(name == "k_panel_getrf")
+        return [p, ks], None
+    if name in ("k_panel_update", "k_panel_getrf_update"):
+        p, ks = panels(name == "k_panel_getrf_update")
+        idx = shared(ks[:1]) if name == "k_panel_getrf_update" else ks
+        return [shared(p[:1]), idx, rnd(lanes, n, nb)], None
+    if name in ("k_panel_fwd", "k_panel_bwd"):
+        p, ks = panels(True)
+        return [p, ks, rnd(lanes, n, r)], None
+    raise KeyError(name)
+
+
+def dense_la_path(dev_t, dims=None, observe=None) -> dict:
+    """Phase 6: the dense linear-algebra builders through Context ->
+    Taskpool -> CudaDevice on `dev_t`, f32, seed SEED, matrices generated
+    on the device: POTRF-P (the headline spotrf, panels, speculative
+    epilogue) then POSV-P on its factor, POTRF-T, GETRF-P, and at the
+    tiled size POTRF-T (solve dataflow), GETRF-T, TRSM, TRTRI, LAUUM,
+    POTRI and GEQRF, each checked (residual, or against one PyTorch call
+    on the same device at the tolerance beside it) and its device task
+    count against the DAG's.  The whole phase first runs once at
+    DENSE_WARM, untimed and checked all the same.  observe(label, fn)
+    runs each timed taskpool run (a profiler may wrap it).  Returns the
+    numbers the smoke prints: per path its walls and stats, per chore
+    its launches and the path's shape."""
+    t = time.perf_counter()
+    _dense_paths(dev_t, DENSE_WARM, None, lambda msg: None)
+    log(f"  warm-up pass at {DENSE_WARM} (untimed, checked): "
+        f"{time.perf_counter() - t:.1f} s")
+    return _dense_paths(dev_t, dims or DENSE, observe, log)
+
+
+def _dense_paths(dev_t, dims, observe, say) -> dict:
+    """dense_la_path's one pass at `dims`; say(msg) prints."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch.algos import (build_geqrf, build_getrf_nopiv,
+                                        build_getrf_panels, build_lauum,
+                                        build_potrf, build_potrf_panels,
+                                        build_potrs_panels, build_trsm,
+                                        build_trtri, getrf_flops,
+                                        potrf_flops, run_potri)
+    from parsec_tpu_torch.data import TwoDimBlockCyclic
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.device.bench_utils import (
+        assemble_dense, device_tiles, gather_device_tiles,
+        generate_spd_on_device,
+        generate_spd_panels_on_device, install_device_tiles,
+        potrf_residual, wait_device_tiles)
+    if observe is None:
+        def observe(label, fn):
+            fn()
+    if dev_t.type == "cuda" and (torch.backends.cuda.matmul.allow_tf32 or
+                                 torch.get_float32_matmul_precision()
+                                 != "highest"):
+        raise AssertionError("DENSE: TF32 is on for float32 products")
+    f32_peak = card_peaks(torch.cuda.get_device_name(dev_t))[1][1] \
+        if dev_t.type == "cuda" else None
+    out = {"paths": {}, "chores": {}}
+    gen = torch.Generator(device=dev_t)
+    gen.manual_seed(SEED)
+
+    def budget(nbytes_held):
+        """Cache budget from the card's free memory, less what the caller
+        holds and room for the launches' transients and the checks (the
+        generated mirrors are clean: an eviction would lose them)."""
+        if dev_t.type != "cuda":
+            return 4 << 30
+        free, _ = torch.cuda.mem_get_info(dev_t)
+        return max(2 << 30, free - nbytes_held - (8 << 30))
+
+    def new_dev(ctx, held=0):
+        return CudaDevice(ctx, device=dev_t, cache_bytes=budget(held))
+
+    def run(label, tp, dev, colls, ntasks, flops=None, shape=None):
+        """One timed taskpool run: wall from tp.run() until every tile of
+        `colls` is final on the device, then the flush; the device task
+        count against the DAG's; chore launches recorded at `shape`."""
+        before = {k: list(v) for k, v in dev.launches.items()}
+        st0 = dict(dev.stats)
+        sync(dev_t)
+        walls = {}
+
+        def go():
+            t = time.perf_counter()
+            tp.run()
+            tp.wait()
+            for c in colls:
+                wait_device_tiles(dev, c)
+            sync(dev_t)
+            walls["run"] = time.perf_counter() - t
+            dev.flush()
+            sync(dev_t)
+            walls["flush"] = time.perf_counter() - t
+        observe(label, go)
+        st = dict(dev.stats)
+        ran = st["tasks"] - st0["tasks"]
+        # this run's counts (the device may have run earlier pools)
+        row = {"wall_ms": walls["run"] * 1e3,
+               "wall_flush_ms": walls["flush"] * 1e3, "tasks": ran,
+               "stats": {k: st[k] - st0[k] for k in (
+                   "batches", "batched_tasks", "h2d_bytes", "d2h_bytes",
+                   "d2d_bytes", "h2d_hits", "eager_gathers", "evictions",
+                   "spec_store", "spec_hits", "spec_misses")}}
+        row["stats"]["cache_peak_bytes"] = st["cache_peak_bytes"]
+        if flops is not None:
+            row["gflops"] = flops / walls["run"] / 1e9
+        launches = {}
+        for k, (n, lanes) in dev.launches.items():
+            n0, l0 = before.get(k, (0, 0))
+            if n > n0:
+                launches[k] = [n - n0, lanes - l0]
+                # a chore is timed at the shape of the first path that
+                # launched it, at that path's mean lanes per launch
+                rec = out["chores"].setdefault(k, {
+                    "launches": 0, "lanes": 0, "path": label,
+                    "shape": shape, "path_lanes": (n - n0) and
+                    (lanes - l0) / (n - n0)})
+                rec["launches"] += n - n0
+                rec["lanes"] += lanes - l0
+        row["launches"] = launches
+        say(f"  {label}: {row['wall_ms']:.1f} ms to final device values, "
+            f"{row['wall_flush_ms']:.1f} ms with the flush; tasks={ran} "
+            + (f"{row['gflops']:.1f} GFLOP/s; " if flops else "")
+            + f"{row['stats']}; launches [count, lanes] {launches}")
+        if ran != ntasks:
+            raise AssertionError(f"{label}: {ran} device tasks, the DAG "
+                                 f"has {ntasks}")
+        out["paths"][label] = row
+        return row
+
+    def check_rel(label, value, limit):
+        say(f"  {label}: {value:.3e} (limit {limit:g})")
+        if not value <= limit:
+            raise AssertionError(f"{label}: {value:.3e} > {limit:g}")
+        return value
+
+    def maxabs(t):  # a reduction: no |t| temporary
+        return float(torch.linalg.vector_norm(t, ord=float("inf")))
+
+    def check_max(label, got, want, rel):
+        return check_rel(f"{label}: max|got - want| / max|want|",
+                         maxabs(got - want) / maxabs(want), rel)
+
+    def bound_ms(flops):
+        return flops / f32_peak * 1e3 if f32_peak else None
+
+    # ---------------------------------------------------- POTRF-P, POSV-P
+    N, nb = dims["potrf_p"]
+    nt = N // nb
+    with pt.Context(nb_workers=4) as ctx:
+        A = TwoDimBlockCyclic(N, N, N, nb)
+        A.register(ctx, "A")
+        dev = new_dev(ctx, N * N * 4)
+        t = time.perf_counter()
+        a_st = generate_spd_panels_on_device(dev, A, seed=SEED)
+        sync(dev_t)
+        say(f"  POTRF-P: generated the {N}^2 SPD matrix ({nt} panels of "
+            f"{N}x{nb}) on the device in {time.perf_counter() - t:.2f} s")
+        label = f"POTRF-P N={N} NB={nb}"
+        row = run(label, build_potrf_panels(ctx, A, dev=dev), dev, [A],
+                  nt + nt * (nt - 1) // 2, potrf_flops(N), (N, nb, 0))
+        s = row["stats"]
+        if not (s["spec_store"] == s["spec_hits"] == nt - 1
+                and s["spec_misses"] == 0):
+            raise AssertionError(f"{label}: epilogue store/hits/misses "
+                                 f"{s['spec_store']}/{s['spec_hits']}/"
+                                 f"{s['spec_misses']}, expected {nt - 1}/"
+                                 f"{nt - 1}/0")
+        row["residual"] = check_rel(f"{label} ||LL^T - A||_F / ||A||_F",
+                                    potrf_residual(dev, A, a_st), 1e-4)
+        # the dense matrices one at a time (at N = 65536 each is 16 GiB):
+        # A, then cuSOLVER's factor, compared panel by panel (the port's
+        # panels hold zeros above their diagonal block already)
+        with dev._on_stream():
+            a = assemble_dense(a_st, 1, nt, nb, N)
+            del a_st
+            lc = torch.linalg.cholesky(a)
+            err = max(maxabs(panel - lc[:, j * nb:(j + 1) * nb])
+                      for (_, j), panel in device_tiles(dev, A))
+            row["vs_cusolver"] = check_rel(
+                f"{label} max|L - torch.linalg.cholesky| / max|L_cusolver|",
+                err / maxabs(lc), 1e-3)
+            del lc
+        row["cusolver_ms"] = timed_ms(dev_t,
+                                      lambda: torch.linalg.cholesky(a), 3)
+        row["bound_ms"] = bound_ms(potrf_flops(N))
+        say(f"  {label}: torch.linalg.cholesky (cuSOLVER) "
+            f"{row['cusolver_ms']:.1f} ms (mean of 3) = "
+            f"{potrf_flops(N) / row['cusolver_ms'] / 1e6:.1f} GFLOP/s; the "
+            f"runtime {row['wall_ms']:.1f} ms; f32 bound {row['bound_ms']} "
+            "ms (potrf_flops / f32 non-tensor peak)")
+
+        # POSV-P: solve with the factor the run left on the device
+        nrhs = dims["posv_nrhs"]
+        b = torch.randn(N, nrhs, generator=gen, device=dev_t)
+        B = TwoDimBlockCyclic(N, nrhs, N, nrhs)
+        B.tile(0, 0)[...] = b.cpu().numpy()
+        B.register(ctx, "B")
+        label = f"POSV-P N={N} NB={nb} nrhs={nrhs}"
+        prow = run(label, build_potrs_panels(ctx, A, B, dev=dev), dev, [B],
+                   2 * nt, shape=(N, nb, nrhs))
+        x = torch.from_numpy(B.tile(0, 0).copy()).to(dev_t)
+        with dev._on_stream():
+            prow["residual"] = check_rel(
+                f"{label} ||Ax - b|| / (||A|| ||x||)",
+                float(torch.linalg.norm(a @ x - b) / (
+                    torch.linalg.norm(a) * torch.linalg.norm(x))), 1e-4)
+        lc = torch.linalg.cholesky(a)
+        prow["cusolver_ms"] = timed_ms(
+            dev_t, lambda: torch.cholesky_solve(b, lc), 3)
+        say(f"  {label}: torch.cholesky_solve on the cuSOLVER factor "
+            f"{prow['cusolver_ms']:.2f} ms (mean of 3)")
+        dev.stop()
+        del a, lc, b, x
+    if dev_t.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ POTRF-T
+    N, nb = dims["potrf_t"]
+    nt = N // nb
+    with pt.Context(nb_workers=4) as ctx:
+        A = TwoDimBlockCyclic(N, N, nb, nb)
+        A.register(ctx, "A")
+        dev = new_dev(ctx, N * N * 4)
+        a_st = generate_spd_on_device(dev, A, seed=SEED)
+        label = f"POTRF-T N={N} NB={nb}"
+        row = run(label, build_potrf(ctx, A, dev=dev), dev, [A],
+                  nt + nt * (nt - 1) + nt * (nt - 1) * (nt - 2) // 6,
+                  potrf_flops(N), (nb, nb, 0))
+        row["residual"] = check_rel(f"{label} ||LL^T - A||_F / ||A||_F",
+                                    potrf_residual(dev, A, a_st), 1e-4)
+        with dev._on_stream():
+            a = assemble_dense(a_st, nt, nt, nb)
+        row["cusolver_ms"] = timed_ms(dev_t,
+                                      lambda: torch.linalg.cholesky(a), 3)
+        row["bound_ms"] = bound_ms(potrf_flops(N))
+        say(f"  {label}: torch.linalg.cholesky {row['cusolver_ms']:.1f} ms "
+            f"(mean of 3); the runtime {row['wall_ms']:.1f} ms; f32 bound "
+            f"{row['bound_ms']} ms")
+        dev.stop()
+        del a, a_st
+
+    # ------------------------------------------------------------ GETRF-P
+    N, nb = dims["getrf_p"]
+    nt = N // nb
+    with pt.Context(nb_workers=4) as ctx:
+        A = TwoDimBlockCyclic(N, N, N, nb)
+        A.register(ctx, "A")
+        dev = new_dev(ctx, N * N * 4)
+        with dev._on_stream():
+            # diagonally dominant, not symmetric
+            a = torch.randn(N, N, generator=gen, device=dev_t)
+            a.diagonal().add_(2.0 * N)
+            install_device_tiles(dev, A, as_tiles(a, N, nb))
+        label = f"GETRF-P N={N} NB={nb}"
+        row = run(label, build_getrf_panels(ctx, A, dev=dev), dev, [A],
+                  nt + nt * (nt - 1) // 2, getrf_flops(N), (N, nb, 0))
+        if row["stats"]["spec_hits"] != nt - 1 \
+                or row["stats"]["spec_misses"] != 0:
+            raise AssertionError(f"{label}: epilogue hits "
+                                 f"{row['stats']['spec_hits']}, misses "
+                                 f"{row['stats']['spec_misses']}, expected "
+                                 f"{nt - 1} and 0")
+        with dev._on_stream():
+            lu = assemble_dense(gather_device_tiles(dev, A), 1, nt, nb, N)
+            lo = torch.tril(lu, -1)
+            lo.diagonal().fill_(1.0)
+            # read on the device's stream, where it was computed
+            row["residual"] = check_rel(
+                f"{label} ||LU - A||_F / ||A||_F",
+                float(torch.linalg.norm(lo @ torch.triu(lu) - a)
+                      / torch.linalg.norm(a)), 1e-4)
+            del lo, lu
+        if dev_t.type == "cuda":  # no pivot-free LU on the CPU
+            row["cusolver_ms"] = timed_ms(
+                dev_t, lambda: torch.linalg.lu_factor_ex(a, pivot=False), 3)
+            say(f"  {label}: torch.linalg.lu_factor_ex(pivot=False) "
+                f"{row['cusolver_ms']:.1f} ms (mean of 3)")
+        dev.stop()
+        del a
+
+    # ------------------------------------- the tiled group at one (N, NB)
+    N, nb = dims["tiled"]
+    nt = N // nb
+    pairs, triples = nt * (nt - 1) // 2, nt * (nt - 1) * (nt - 2) // 6
+    squares = sum(j * j for j in range(nt))
+    eye = torch.eye(N, device=dev_t)
+    low = torch.tril(torch.randn(N, N, generator=gen, device=dev_t)) \
+        + 2.0 * N * eye
+    rhs = torch.randn(N, N, generator=gen, device=dev_t)
+    gauss = torch.randn(N, N, generator=gen, device=dev_t)
+    sync(dev_t)  # made on the default stream, read on the devices' own
+    shape = (nb, nb, 0)
+
+    def tiled(ctx, name):
+        """A registered N x N collection of nb x nb tiles (host zeros)."""
+        c = TwoDimBlockCyclic(N, N, nb, nb)
+        c.register(ctx, name)
+        return c
+
+    def host_dense(c):
+        return torch.from_numpy(c.to_dense()).to(dev_t)
+
+    with pt.Context(nb_workers=4) as ctx:
+        dev = new_dev(ctx, 6 * N * N * 4)
+        A, L, B, W, C, G = (tiled(ctx, n) for n in "ALBWCG")
+        a_st = generate_spd_on_device(dev, A, seed=SEED + 1)
+        with dev._on_stream():
+            install_device_tiles(dev, L, as_tiles(low, nb, nb))
+            install_device_tiles(dev, B, as_tiles(rhs, nb, nb))
+            install_device_tiles(dev, G, as_tiles(low + gauss, nb, nb))
+            a = assemble_dense(a_st, nt, nt, nb)
+
+        label = f"POTRF-T(solve) N={N} NB={nb}"
+        row = run(label, build_potrf(ctx, A, dev=dev,
+                                     trsm_via_inverse=False), dev, [A],
+                  nt + 2 * pairs + triples, potrf_flops(N), shape)
+        row["residual"] = check_rel(f"{label} ||LL^T - A||_F / ||A||_F",
+                                    potrf_residual(dev, A, a_st), 1e-4)
+
+        label = f"GETRF-T N={N} NB={nb}"
+        row = run(label, build_getrf_nopiv(ctx, G, dev=dev, name="G"), dev,
+                  [G], nt + 2 * pairs + squares, getrf_flops(N), shape)
+        with dev._on_stream():
+            lu = host_dense(G)
+            lo = torch.tril(lu, -1) + eye
+            g = low + gauss
+            row["residual"] = check_rel(
+                f"{label} ||LU - A||_F / ||A||_F",
+                float(torch.linalg.norm(lo @ torch.triu(lu) - g)
+                      / torch.linalg.norm(g)), 1e-4)
+            del lu, lo
+
+        label = f"TRSM N={N} NB={nb} nrhs={N}"
+        row = run(label, build_trsm(ctx, L, B, dev=dev), dev, [B],
+                  nt * nt + pairs * nt, float(N) ** 3, shape)
+        with dev._on_stream():
+            row["vs_torch"] = check_max(
+                f"{label} X vs torch.linalg.solve_triangular",
+                host_dense(B), torch.linalg.solve_triangular(
+                    low, rhs, upper=False), 1e-4)
+        row["torch_ms"] = timed_ms(dev_t, lambda: torch.linalg.
+                                   solve_triangular(low, rhs, upper=False),
+                                   3)
+
+        label = f"TRTRI N={N} NB={nb}"
+        row = run(label, build_trtri(ctx, L, W, dev=dev), dev, [W],
+                  nt + 2 * pairs + triples, N ** 3 / 3.0, shape)
+        with dev._on_stream():
+            winv = torch.linalg.solve_triangular(low, eye, upper=False)
+            w = torch.tril(host_dense(W))
+            row["vs_torch"] = check_max(
+                f"{label} W vs torch.linalg.solve_triangular(L, I)", w,
+                winv, 1e-4)
+        row["torch_ms"] = timed_ms(dev_t, lambda: torch.linalg.
+                                   solve_triangular(low, eye, upper=False),
+                                   3)
+        # LAUUM reads W's lower tiles as staged from the host
+        label = f"LAUUM N={N} NB={nb}"
+        row = run(label, build_lauum(ctx, W, C, dev=dev), dev, [C],
+                  nt * (nt + 1) * (nt + 2) // 6, N ** 3 / 3.0, shape)
+        with dev._on_stream():
+            row["vs_torch"] = check_max(
+                f"{label} C vs tril(W^T W) by torch.matmul",
+                torch.tril(host_dense(C)), torch.tril(w.mT @ w), 1e-4)
+        row["torch_ms"] = timed_ms(dev_t, lambda: torch.matmul(w.mT, w), 3)
+        del w, winv
+        dev.stop()
+
+    with pt.Context(nb_workers=4) as ctx:
+        dev = new_dev(ctx, 4 * N * N * 4)
+        A, W, C = (tiled(ctx, n) for n in "AWC")
+        a_st = generate_spd_on_device(dev, A, seed=SEED + 1)
+        label = f"POTRI N={N} NB={nb}"
+
+        class _Potri:  # run_potri runs and waits for its three pools
+            def run(self):
+                run_potri(ctx, A, W, C, dev=dev)
+
+            def wait(self):
+                pass
+        row = run(label, _Potri(), dev, [A, W, C],
+                  3 * (nt + 2 * pairs + triples), N ** 3, shape)
+        with dev._on_stream():
+            ainv = torch.linalg.inv(a)
+            row["vs_torch"] = check_max(
+                f"{label} lower(A^-1) vs torch.linalg.inv",
+                torch.tril(host_dense(C)), torch.tril(ainv), 1e-4)
+        row["torch_ms"] = timed_ms(dev_t, lambda: torch.linalg.inv(a), 3)
+        del ainv, a_st
+        dev.stop()
+
+    with pt.Context(nb_workers=4) as ctx:
+        dev = new_dev(ctx, 2 * N * N * 4)
+        Q = tiled(ctx, "Q")
+        with dev._on_stream():
+            install_device_tiles(dev, Q, as_tiles(gauss, nb, nb))
+        label = f"GEQRF N={N} NB={nb}"
+        row = run(label, build_geqrf(ctx, Q, dev=dev, name="Q"), dev, [Q],
+                  nt + 2 * pairs + squares, 4.0 * N ** 3 / 3.0, shape)
+        with dev._on_stream():
+            r_lib = torch.linalg.qr(gauss, mode="r")[1]
+            r = torch.triu(host_dense(Q))
+            # R is unique up to the sign of each row (LAPACK and
+            # cuSOLVER choose their Householder signs independently)
+            row["vs_torch"] = check_max(
+                f"{label} R vs torch.linalg.qr, rows sign-normalised",
+                r * torch.sign(r.diagonal())[:, None],
+                r_lib * torch.sign(r_lib.diagonal())[:, None], 1e-3)
+        row["torch_ms"] = timed_ms(dev_t, lambda: torch.linalg.qr(
+            gauss, mode="r"), 3)
+        dev.stop()
+    for name, ms in ((k, v.get("torch_ms")) for k, v in
+                     out["paths"].items()):
+        if ms is not None:
+            say(f"  {name}: one torch call {ms:.2f} ms (mean of 3), the "
+                f"runtime {out['paths'][name]['wall_ms']:.1f} ms")
+    return out
+
+
+def time_chores(dev_t, chores) -> None:
+    """Time one launch of each chore the dense path launched, at its
+    path's shape and mean lanes per launch, beside its bound and, where
+    one PyTorch call computes the same function, that call's time.
+    Fills each record of `chores` in place."""
+    import torch
+
+    import parsec_tpu_torch.algos as algos
+    mods = (algos.potrf, algos.lu, algos.trsm, algos.inverse, algos.qr)
+    # (a CPU rehearsal times the control flow only: no peaks there)
+    bw, f32_peak, _ = card_peaks(torch.cuda.get_device_name(dev_t))[1] \
+        if dev_t.type == "cuda" else (1.0, 1.0, 1.0)
+    for name, rec in sorted(chores.items()):
+        fn = next(getattr(m, name) for m in mods if hasattr(m, name))
+        n, nb, r = rec["shape"]
+        lanes = max(1, round(rec["path_lanes"]))
+        ins, lib = chore_inputs(name, lanes, nb, n, r, dev_t)
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        nbytes = sum(t[:1].nbytes if t.stride(0) == 0 else t.nbytes
+                     for t in ins) + sum(o.nbytes for o in outs)
+        flops = chore_flops(name, lanes, nb, n, r)
+        iters = 20 if flops < 1e10 else 5
+        rec.update(
+            lanes_timed=lanes,
+            ms=timed_ms(dev_t, lambda: fn(*ins), iters, 2),
+            library_ms=timed_ms(dev_t, lib, iters, 2) if lib else None,
+            bound_ms=max(nbytes / bw, flops / f32_peak) * 1e3,
+            bound_by="bytes" if nbytes / bw >= flops / f32_peak
+            else "operations")
+        log(f"  {name} [{lanes} lanes, {rec['path']}]: {rec['ms']:.4f} ms a "
+            f"launch, bound {rec['bound_ms']:.4f} ms ({rec['bound_by']}), "
+            f"library {rec['library_ms']} ms; {rec['launches']} launches "
+            f"({rec['lanes']} lanes) on the path")
+        del ins, outs
 
 
 def serve_oracle(model, req, dev_t, head64):
@@ -636,7 +1252,20 @@ def main() -> int:
         f"step wall p50 {serve['step_wall_p50_ms']:.1f} ms, TTFT p50/p99 "
         f"hi {serve['ttft_hi'][0]:.1f}/{serve['ttft_hi'][1]:.1f} ms, lo "
         f"{serve['ttft_lo'][0]:.1f}/{serve['ttft_lo'][1]:.1f} ms")
+
+    log("phase 6: dense linear algebra, Context -> Taskpool -> CudaDevice, "
+        "f32, matrices generated on the card")
+    # the dense chores are library calls, none a hand-written kernel;
+    # the counts are read all the same
+    kernels.reset_launches()
+    t = time.perf_counter()
+    dense = dense_la_path(dev_t)
+    log("  every chore of phase 6 at its path's shape (CUDA events):")
+    time_chores(dev_t, dense["chores"])
+    log(f"  DENSE phase {time.perf_counter() - t:.1f} s; hand-written "
+        f"kernel launches in it: {dict(kernels.LAUNCHES)}")
     log(smi.stdout.strip().splitlines()[0])
+    print(json.dumps({"dense_la": dense}))
 
     rows_out = []
     for name, r, err, repl in (

@@ -1,3 +1,3 @@
-from .collections import Collection, TwoDimBlockCyclic
+from .collections import Collection, TwoDimBlockCyclic, VectorCyclic
 
-__all__ = ["Collection", "TwoDimBlockCyclic"]
+__all__ = ["Collection", "TwoDimBlockCyclic", "VectorCyclic"]

@@ -3,12 +3,14 @@
 Reference analogs:
   - parsec_data_collection_t vtable  (parsec/include/parsec/data_distribution.h:26-66)
   - 2D block-cyclic                  (parsec/data_dist/matrix/two_dim_rectangle_cyclic.c)
+  - vector cyclic                   (parsec/data_dist/matrix/vector_two_dim_cyclic.c)
 
 A collection supplies rank_of(*idx) (owner-computes placement) and
 data_of(*idx) (the local datum).  Local tiles are numpy arrays; the CUDA
 device layer mirrors them into device tensors on demand.  Port of the
-TwoDimBlockCyclic part of parsec_tpu/data/collections.py; the other
-distributions come with the slices that use them.
+TwoDimBlockCyclic and VectorCyclic parts of
+parsec_tpu/data/collections.py; the other distributions come with the
+slices that use them.
 """
 from __future__ import annotations
 
@@ -133,3 +135,30 @@ class TwoDimBlockCyclic(Collection):
             d = self._ctx.data(self.key_of(m, n), self.tile(m, n))
             self._datas[key] = d
         return d
+
+
+class VectorCyclic(Collection):
+    """1-D cyclic distribution of vector segments (reference:
+    vector_two_dim_cyclic.c)."""
+
+    def __init__(self, N: int, nb: int, nodes: int = 1, myrank: int = 0,
+                 dtype=np.float32):
+        self.N, self.nb = N, nb
+        self.nt = (N + nb - 1) // nb
+        self.nodes, self.myrank = nodes, myrank
+        self.dtype = np.dtype(dtype)
+        self._segs: Dict[int, np.ndarray] = {}
+        self._datas: Dict[int, Data] = {}
+
+    def rank_of(self, k: int) -> int:
+        return k % self.nodes
+
+    def seg(self, k: int) -> np.ndarray:
+        if k not in self._segs:
+            self._segs[k] = np.zeros(self.nb, dtype=self.dtype)
+        return self._segs[k]
+
+    def data_of(self, k: int) -> Optional[Data]:
+        if k not in self._datas:
+            self._datas[k] = self._ctx.data(k, self.seg(k))
+        return self._datas[k]

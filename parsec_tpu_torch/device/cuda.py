@@ -22,6 +22,10 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
     enqueued; every host read of a device result synchronises with that
     stream first.  Overlapping h2d/exec/d2h on separate streams is left
     to a later change
+  - speculative epilogues (attach_epilogue): the lane of a wave whose
+    output is the next input of a declared consumer class runs that
+    class's kernel right after the wave's launch; the consumer task
+    then completes from the parked result, version-checked
 
 A failing kernel fails its tasks (ctx.task_fail) and so the pool: there
 is no silent fallback to another path.
@@ -70,6 +74,10 @@ class _DeviceBody:
         self.tc = tc
         self.tp = tp
         self.batch = batch  # kernel is elementwise over lanes
+        # speculative epilogue: this class is its source (epilogue) or
+        # its destination (spec_src); see CudaDevice.attach_epilogue
+        self.epilogue: Optional["_Epilogue"] = None
+        self.spec_src: Optional["_Epilogue"] = None
         # flows whose output deps include a memory writeback: their host
         # copy must be coherent at completion (release_deps may memcpy it)
         self.mem_out_flows = set()
@@ -81,6 +89,36 @@ class _DeviceBody:
 
     def make_view(self, task_ptr):
         return TaskView(task_ptr, self.tc, self.tp)
+
+
+class _Epilogue:
+    """Speculative cross-class fusion config, attached to the SOURCE
+    body (see CudaDevice.attach_epilogue)."""
+    __slots__ = ("dst_bkey", "kernel", "pick", "dst_params", "ops",
+                 "src_flow", "dst_in_flow")
+
+    def __init__(self, dst_bkey, kernel, pick, dst_params, ops,
+                 src_flow, dst_in_flow):
+        self.dst_bkey = dst_bkey
+        self.kernel = kernel
+        self.pick = pick
+        self.dst_params = dst_params
+        self.ops = ops
+        self.src_flow = src_flow
+        self.dst_in_flow = dst_in_flow
+
+
+def local_tile_index(coll) -> List[Tuple[int, int]]:
+    """Row-major (m, n) list of this rank's stored local tiles."""
+    out = []
+    for m in range(coll.mt):
+        for n in range(getattr(coll, "nt", 1)):
+            if coll.rank_of(m, n) != coll.myrank:
+                continue
+            if not coll.stored(m, n):
+                continue
+            out.append((m, n))
+    return out
 
 
 # live devices, for copy-handle coherence sync.  Mirror uids come from ONE
@@ -185,7 +223,15 @@ class CudaDevice:
                       "batches": 0, "batched_tasks": 0,
                       "invalidations": 0, "eager_gathers": 0,
                       "fused_flows": 0, "wb_tasks": 0, "f64_refused": 0,
-                      "h2d_stall_ns": 0, "cache_peak_bytes": 0}
+                      "h2d_stall_ns": 0, "cache_peak_bytes": 0,
+                      "d2d_bytes": 0,
+                      "spec_store": 0, "spec_hits": 0, "spec_misses": 0}
+        # chore name -> [launches, lanes]: one launch per kernel call of
+        # the manager (epilogues included), written under self._lock
+        self.launches: Dict[str, List[int]] = {}
+        # parked speculative results: (dst body key, dst key) ->
+        # (output stacks, src uid, src version); bounded by _spec_put
+        self._spec: Dict[tuple, tuple] = {}
         # native hooks, ONE callback per context fanning out to all its
         # devices (a per-device registration would overwrite the slot)
         if getattr(ctx, "_copy_release_cb", None) is None:
@@ -488,6 +534,71 @@ class CudaDevice:
         self.bodies[(id(tp), tc.id)] = body
         self._tp_by_ptr[tp._ptr] = tp
 
+    def attach_epilogue(self, src_tc: TaskClass, dst_tc: TaskClass, tp,
+                        src_flow: str, dst_in_flow: str, pick, dst_params,
+                        kernel: Callable, ops,
+                        const_flows: Sequence[str] = ()) -> None:
+        """Speculative cross-class fusion for factor chains: when a launch
+        of `src_tc` holds the lane whose `src_flow` output is the next
+        `dst_tc` task's `dst_in_flow` input, run `kernel` (the dst class's
+        chore) on that output row on the same stream right after the
+        launch, and park the result.  When the dst task arrives it
+        completes from the parked result with no launch, provided its
+        input copy is the (uid, version) the lane produced; otherwise the
+        miss is counted and the task launches normally.
+
+          pick(src_view)   -> dst key tuple if this lane feeds the next
+                              dst task, else None
+          dst_params(view) -> the same key computed on the dst side
+          ops(key)         -> the kernel's other operands, small numpy
+                              arrays (each enters as a [1, *shape] lane)
+
+        SINGLE-VARYING-INPUT CONTRACT: the parked result is computed from
+        the src lane's output and ops(key) alone, and the hit checks only
+        the `dst_in_flow` copy.  Every other read flow of `dst_tc` must be
+        constant over the pair's lifetime, folded into `ops`, and
+        DECLARED in `const_flows`; any other read flow raises ValueError.
+
+        Both classes must be attach()ed to this device first (a class
+        left on its host chore, e.g. refused float64, gets no epilogue).
+        PTC_DEVICE_EPILOGUE=0 turns the mechanism off."""
+        if os.environ.get("PTC_DEVICE_EPILOGUE", "1") == "0":
+            return
+        src = self.bodies.get((id(tp), src_tc.id))
+        dst = self.bodies.get((id(tp), dst_tc.id))
+        if src is None or dst is None:
+            return
+        uncovered = [f for f in dst.reads
+                     if f != dst_in_flow and f not in const_flows]
+        if uncovered:
+            raise ValueError(
+                f"attach_epilogue({src_tc.name} -> {dst_tc.name}): dst read "
+                f"flow(s) {uncovered} are neither dst_in_flow nor declared "
+                "in const_flows.  The parked result is computed from the "
+                "src lane and ops alone; a varying undeclared input would "
+                "complete dst tasks with stale data (single-varying-input "
+                "contract)")
+        epi = _Epilogue((id(tp), dst_tc.id), kernel, pick, dst_params, ops,
+                        src_flow, dst_in_flow)
+        src.epilogue = epi
+        dst.spec_src = epi
+
+    def stage_collection(self, coll) -> None:
+        """Pre-stage every local tile of a tiled collection: ONE h2d of
+        the stacked tiles, then each tile's mirror is a row of that
+        stack (clean: the host copy holds the same bytes)."""
+        tiles, keys = [], []
+        for m, n in local_tile_index(coll):
+            cptr = N.lib.ptc_data_host_copy(coll.data_of(m, n)._ptr)
+            keys.append((self._copy_uid(cptr), N.lib.ptc_copy_version(cptr)))
+            tiles.append(coll.tile(m, n))
+        if not tiles:
+            return
+        stack = self._h2d(np.stack(tiles))
+        for i, (uid, ver) in enumerate(keys):
+            self._cache_put(uid, ver, stack[i], tiles[i].nbytes,
+                            stack=stack, idx=i)
+
     # ------------------------------------------------------------ manager
     def _wb_loop(self):
         """Writeback lane: make the queued mirrors host-coherent, then
@@ -545,6 +656,7 @@ class CudaDevice:
                                                   self.qid)
             self._cache.clear()
             self._stacks.clear()
+            self._spec.clear()
             self._cache_used = 0
 
     def _manager(self):
@@ -591,17 +703,43 @@ class CudaDevice:
         cptr = N.lib.ptc_task_copy(view._ptr, body.tc.flow_index(flow))
         return cptr, self._copy_uid(cptr), N.lib.ptc_copy_version(cptr)
 
+    def _sibling_mirror(self, uid, ver, dtype, shape):
+        """A sibling device's current mirror of (uid, ver), ready to be
+        copied on this device's stream, or None.  The producing device
+        may hold the only current bytes (a dirty mirror: the host copy is
+        stale), so a consumer routed here must stage device to device
+        (reference: the CUDA peer stage-in, device_cuda_module.c:1261)."""
+        for sib in list(self.ctx._devices):
+            if sib is self:
+                continue
+            sarr = sib._cache_get_typed(uid, ver, dtype, shape)
+            if sarr is None:
+                continue
+            if self._stream is not None and sib._stream is not None:
+                # the sibling's producer may still run on its stream
+                self._stream.wait_stream(sib._stream)
+                sarr.record_stream(self._stream)
+            self._stats_add("d2d_bytes", sarr.nbytes)
+            return sarr
+        return None
+
     def _stage_in(self, view, body: _DeviceBody, flow):
         """The current device tile of one task's read flow: a cache hit,
-        or an h2d of its host copy (then cached)."""
+        a copy of a sibling device's mirror, or an h2d of its host copy
+        (then cached)."""
         _, uid, ver = self._flow_uid_ver(view, body, flow)
         shape = body.shapes.get(flow)
-        arr = self._cache_get_typed(uid, ver, body.dtypes[flow], shape)
+        dt = body.dtypes[flow]
+        arr = self._cache_get_typed(uid, ver, dt, shape)
         if arr is not None:
             self.stats["h2d_hits"] += 1
             return arr
-        host = view.data(flow, dtype=body.dtypes[flow], shape=shape,
-                         sync=False)
+        sarr = self._sibling_mirror(uid, ver, dt, shape)
+        if sarr is not None:
+            arr = sarr.to(self.device, copy=True, non_blocking=True)
+            self._cache_put(uid, ver, arr, arr.nbytes)
+            return arr
+        host = view.data(flow, dtype=dt, shape=shape, sync=False)
         arr = self._h2d(host)
         self._cache_put(uid, ver, arr, host.nbytes)
         return arr
@@ -645,15 +783,20 @@ class CudaDevice:
                 self.stats["h2d_hits"] += 1
                 out[i].copy_(arr)
                 continue
-            host = view.data(flow, dtype=dt, shape=shape, sync=False)
-            self._h2d(host, out[i])
-            self._cache_put(uid, ver, out[i], host.nbytes, stack=out, idx=i)
+            arr = self._sibling_mirror(uid, ver, dt, shape)
+            if arr is not None:
+                out[i].copy_(arr, non_blocking=True)
+            else:
+                host = view.data(flow, dtype=dt, shape=shape, sync=False)
+                self._h2d(host, out[i])
+            self._cache_put(uid, ver, out[i], out[i].nbytes, stack=out,
+                            idx=i)
         return out
 
     def _write_out(self, view, body: _DeviceBody, flow, ostack, i):
         """Install lane i of an output stack as the task's dirty mirror and
-        return its uid.  Host coherence is lazy (flush / sync_handle);
-        sync-mem-out flows ride the writeback lane."""
+        return (uid, its new version).  Host coherence is lazy (flush /
+        sync_handle); sync-mem-out flows ride the writeback lane."""
         cptr, uid, ver = self._flow_uid_ver(view, body, flow)
         host = view.data(flow, dtype=body.dtypes[flow],
                          shape=body.shapes.get(flow), sync=False)
@@ -662,7 +805,86 @@ class CudaDevice:
                         host=host, persistent=persistent, stack=ostack,
                         idx=i)
         self._invalidate_siblings(uid)
-        return uid
+        return uid, ver + 1
+
+    def _count_launch(self, kernel: Callable, lanes: int) -> None:
+        name = getattr(kernel, "__name__", repr(kernel))
+        with self._lock:
+            rec = self.launches.setdefault(name, [0, 0])
+            rec[0] += 1
+            rec[1] += lanes
+
+    def _spec_put(self, key, eouts, src) -> None:
+        """Park a speculative result.  Bounded: an entry nobody consumes
+        (its dst task ran on a sibling device) pins a whole output, so
+        only a handful may linger."""
+        self._spec[key] = (eouts, src[0], src[1])
+        self.stats["spec_store"] += 1
+        while len(self._spec) > 4:
+            self._spec.pop(next(iter(self._spec)))
+
+    def _try_spec(self, body: _DeviceBody, task) -> bool:
+        """Destination side of an epilogue: complete `task` from a parked
+        result when its `dst_in_flow` copy is the (uid, version) the
+        source lane produced.  Returns True when the task was disposed of
+        (completed, or failed on an exception); False sends it to a
+        normal launch (no parked result, or a counted miss)."""
+        spec = body.spec_src
+        view = body.make_view(task)
+        try:
+            rec = self._spec.pop((spec.dst_bkey, spec.dst_params(view)),
+                                 None)
+            if rec is None:
+                return False
+            arrs, suid, sver = rec
+            if len(arrs) != len(body.writes):
+                # a misconfigured epilogue kernel: a partial write would
+                # corrupt the flows it leaves out
+                self.stats["spec_misses"] += 1
+                sys.stderr.write(
+                    f"ptc [device]: epilogue kernel returned {len(arrs)} "
+                    f"output(s), {body.tc.name} writes {len(body.writes)}; "
+                    "ignoring the parked result\n")
+                return False
+            cptr = N.lib.ptc_task_copy(view._ptr,
+                                       body.tc.flow_index(spec.dst_in_flow))
+            if N.lib.ptc_copy_handle(cptr) != suid \
+                    or N.lib.ptc_copy_version(cptr) != sver:
+                self.stats["spec_misses"] += 1
+                return False
+            wb_uids = []
+            for f, arr in zip(body.writes, arrs):
+                uid, _ = self._write_out(view, body, f, arr, 0)
+                if f in body.mem_out_flows:
+                    wb_uids.append(uid)
+        except Exception:
+            traceback.print_exc()
+            self.ctx.task_fail(task)
+            return True
+        self.stats["spec_hits"] += 1
+        self.stats["tasks"] += 1
+        if wb_uids:
+            self._wb_q.put(("sync", [task], wb_uids))
+        else:
+            self.ctx.task_complete(task)
+        return True
+
+    def _run_epilogue(self, epi: _Epilogue, key, row: torch.Tensor,
+                      src) -> None:
+        """Run the dst chore on one output row (as a 1-lane stack) on this
+        device's stream and park its outputs for the dst task `key`."""
+        ops = [self._h2d(np.ascontiguousarray(o)).unsqueeze(0)
+               for o in epi.ops(key)]
+        e = epi.kernel(row.unsqueeze(0), *ops)
+        self._count_launch(epi.kernel, 1)
+        eouts = e if isinstance(e, tuple) else (e,)
+        for a in eouts:
+            if a.shape[0] != 1 or a.device != self.device:
+                raise ValueError(
+                    f"epilogue {getattr(epi.kernel, '__name__', '?')}: "
+                    f"output {tuple(a.shape)} on {a.device}, expected 1 "
+                    f"lane on {self.device}")
+        self._spec_put((epi.dst_bkey, key), eouts, src)
 
     def _dispatch_group(self, body: _DeviceBody, tasks: List):
         """One launch for a group of ready tasks of one class, split so
@@ -683,17 +905,31 @@ class CudaDevice:
         """Stage the lanes' inputs, launch the kernel once, install the
         outputs.  A task completes once its launch is enqueued (or, for
         sync-mem-out flows, from the writeback lane); any failure fails
-        every task of the launch — no fallback."""
+        every task of the launch — no fallback.  Every launch, of one task
+        or a group, comes here: an epilogue's destination tasks first try
+        their parked result, and its source lane runs the epilogue."""
+        if body.spec_src is not None:
+            tasks = [t for t in tasks if not self._try_spec(body, t)]
+            if not tasks:
+                return
         views = [body.make_view(t) for t in tasks]
         try:
             ins = [self._lanes_in(views, body, f) for f in body.reads]
             out = body.kernel(*ins)
+            self._count_launch(body.kernel, len(tasks))
             outs = out if isinstance(out, tuple) else (out,)
             if len(outs) != len(body.writes):
                 raise ValueError(
                     f"{body.tc.name}: kernel returned {len(outs)} "
                     f"output(s) for {len(body.writes)} write flow(s)")
-            wb_uids = []
+            epi, epi_lane, epi_key = body.epilogue, None, None
+            if epi is not None:
+                for i, view in enumerate(views):
+                    epi_key = epi.pick(view)
+                    if epi_key is not None:
+                        epi_lane = i
+                        break
+            wb_uids, epi_src = [], None
             for f, ostack in zip(body.writes, outs):
                 if ostack.shape[0] != len(tasks) \
                         or ostack.device != self.device:
@@ -702,9 +938,13 @@ class CudaDevice:
                         f"{tuple(ostack.shape)} on {ostack.device}, "
                         f"expected {len(tasks)} lanes on {self.device}")
                 for i, view in enumerate(views):
-                    uid = self._write_out(view, body, f, ostack, i)
+                    uid, ver = self._write_out(view, body, f, ostack, i)
                     if f in body.mem_out_flows:
                         wb_uids.append(uid)
+                    if i == epi_lane and f == epi.src_flow:
+                        epi_src = (uid, ver, ostack[i])
+            if epi_src is not None:
+                self._run_epilogue(epi, epi_key, epi_src[2], epi_src[:2])
             self.stats["tasks"] += len(tasks)
             if len(tasks) > 1:
                 self.stats["batches"] += 1

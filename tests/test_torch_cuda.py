@@ -231,6 +231,155 @@ def test_fold_chore_on_the_card_matches_host_fold(card, lanes):
     np.testing.assert_allclose(got.cpu().numpy(), acc, rtol=1e-5, atol=1e-5)
 
 
+def _panels(dense, nb):
+    from parsec_tpu_torch.data import TwoDimBlockCyclic
+    n = dense.shape[0]
+    c = TwoDimBlockCyclic(n, n, n, nb)
+    for j in range(c.nt):
+        c.tile(0, j)[...] = dense[:, j * nb:(j + 1) * nb]
+    return c
+
+
+def _panel_dense(c):
+    return np.concatenate([c.tile(0, j) for j in range(c.nt)], axis=1)
+
+
+def _spd(n, seed):
+    x = np.random.default_rng(seed).standard_normal((n, n))
+    return (x @ x.T + n * np.eye(n)).astype(np.float32)
+
+
+def test_panel_potrf_on_the_card_with_its_epilogue(card):
+    """build_potrf_panels at N=512, nb=64 on the card against float64
+    numpy at the reference's panel tolerance; the epilogue factors every
+    chained panel (7 stores, 7 hits, no miss)."""
+    from parsec_tpu_torch.algos import build_potrf_panels
+    spd = _spd(512, 40)
+    with pt.Context(nb_workers=2) as ctx:
+        A = _panels(spd, 64)
+        A.register(ctx, "A")
+        dev = CudaDevice(ctx)
+        tp = build_potrf_panels(ctx, A, dev=dev)
+        tp.run()
+        tp.wait()
+        dev.flush()
+        st = dict(dev.stats)
+        dev.stop()
+        got = np.tril(_panel_dense(A))
+    np.testing.assert_allclose(got, np.linalg.cholesky(spd.astype(
+        np.float64)), rtol=2e-3, atol=2e-3)
+    assert st["tasks"] == 8 + 28
+    assert st["spec_store"] == st["spec_hits"] == 7
+    assert st["spec_misses"] == 0
+
+
+@pytest.mark.parametrize("via_inverse", [True, False])
+def test_tiled_potrf_on_the_card(card, via_inverse):
+    from parsec_tpu_torch.algos import build_potrf
+    spd = _spd(256, 41)
+    with pt.Context(nb_workers=2) as ctx:
+        A = to_collection(spd, 64, 64)
+        A.register(ctx, "A")
+        dev = CudaDevice(ctx)
+        tp = build_potrf(ctx, A, dev=dev, trsm_via_inverse=via_inverse)
+        tp.run()
+        tp.wait()
+        dev.stop()
+        assert dev.stats["tasks"] == 4 + 6 + 6 + 4
+        got = np.tril(A.to_dense())
+    np.testing.assert_allclose(got, np.linalg.cholesky(spd.astype(
+        np.float64)), rtol=2e-3, atol=2e-3)
+
+
+def test_getrf_panels_on_the_card(card):
+    """No-pivot LU panels (cuSOLVER getrf without pivots in the factor)
+    against the float64 Doolittle oracle; the two-output epilogue hits
+    every chained factor."""
+    from parsec_tpu_torch.algos import (build_getrf_panels,
+                                        getrf_nopiv_reference)
+    n, nb = 384, 64
+    full = (np.random.default_rng(42).standard_normal((n, n))
+            + n * np.eye(n)).astype(np.float32)
+    with pt.Context(nb_workers=2) as ctx:
+        A = _panels(full, nb)
+        A.register(ctx, "A")
+        dev = CudaDevice(ctx)
+        tp = build_getrf_panels(ctx, A, dev=dev)
+        tp.run()
+        tp.wait()
+        dev.flush()
+        st = dict(dev.stats)
+        dev.stop()
+        got = _panel_dense(A)
+    np.testing.assert_allclose(got, getrf_nopiv_reference(full), rtol=5e-3,
+                               atol=5e-3)
+    assert st["spec_hits"] == 5 and st["spec_misses"] == 0
+
+
+def test_geqrf_on_the_card(card):
+    """Tiled QR: R upper triangular with R^T R = A^T A in float64 (Q's
+    signs are cuSOLVER's own, so R is compared through its Gram)."""
+    from parsec_tpu_torch.algos import build_geqrf
+    a0 = np.random.default_rng(43).standard_normal((256, 256)) \
+        .astype(np.float32)
+    with pt.Context(nb_workers=2) as ctx:
+        A = to_collection(a0, 64, 64)
+        A.register(ctx, "A")
+        dev = CudaDevice(ctx)
+        tp = build_geqrf(ctx, A, dev=dev)
+        tp.run()
+        tp.wait()
+        dev.stop()
+        assert dev.stats["tasks"] == 4 + 6 + 6 + 14
+        r = A.to_dense().astype(np.float64)
+    np.testing.assert_allclose(np.tril(r, -1), 0, atol=2e-4)
+    a = a0.astype(np.float64)
+    np.testing.assert_allclose(r.T @ r, a.T @ a, rtol=2e-3, atol=2e-3)
+
+
+def test_generators_on_the_card_agree_block_for_block(card):
+    from parsec_tpu_torch.data import TwoDimBlockCyclic
+    from parsec_tpu_torch.device import bench_utils as bu
+    n, nb = 256, 64
+    dense = []
+    with pt.Context(nb_workers=1) as ctx:
+        for i, panels in enumerate((False, True)):
+            A = TwoDimBlockCyclic(n, n, n if panels else nb, nb)
+            A.register(ctx, f"A{i}")
+            dev = CudaDevice(ctx)
+            st = (bu.generate_spd_panels_on_device if panels
+                  else bu.generate_spd_on_device)(dev, A, seed=5)
+            dense.append(bu.assemble_dense(st, A.mt, A.nt, nb, A.mb)
+                         .cpu().numpy())
+            dev.stop()
+    assert dense[0].tobytes() == dense[1].tobytes()
+    np.testing.assert_array_equal(dense[0], dense[0].T)
+
+
+def test_dense_chores_refuse_tf32(card):
+    """A context that turned TF32 on is refused: the chore raises, and a
+    taskpool whose chore raises fails (no fallback)."""
+    import torch
+    from parsec_tpu_torch.algos import build_potrf
+    from parsec_tpu_torch.algos.potrf import k_potrf
+    spd = _spd(128, 44)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="TF32"):
+            k_potrf(torch.from_numpy(spd).to(card).unsqueeze(0))
+        with pt.Context(nb_workers=2) as ctx:
+            A = to_collection(spd, 64, 64)
+            A.register(ctx, "A")
+            dev = CudaDevice(ctx)
+            tp = build_potrf(ctx, A, dev=dev)
+            tp.run()
+            with pytest.raises(RuntimeError, match="aborted"):
+                tp.wait()
+            dev.stop()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def test_serving_engine_on_the_card_matches_float64_oracle(card):
     """Two requests at d=512, 4 heads through Server -> InferenceEngine
     -> CudaDevice: every output within 1e-4 / 1e-5 of the float64 oracle
