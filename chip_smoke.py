@@ -29,9 +29,17 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      tiled spotrf's solve dataflow at N=8192, NB=512; each checked by its
      residual or against one PyTorch call on the card, spotrf also timed
      against torch.linalg.cholesky (cuSOLVER); then every chore the phase
-     launched is timed at its path's shape beside its bound
-Then print the dense-LA line (JSON), the kernels line (JSON) and, last,
-the device line (JSON).
+     launched is timed at its path's shape beside its bound, and
+     POTRF-P's flush is printed in GB/s
+  7. drive the device pipeline (pipeline_path): phase 4's NORM with the
+     prefetch lane off and on, three runs each in turns, every output
+     held to the plain version and to the first run's bits, the lane's
+     hits required; then GEMM at N=8192 in 1024^2 tiles resident and
+     out-of-core at half its tile set (spills required, C against
+     torch.matmul), and NORM out-of-core at half its O, bit-identical
+Then print the dense-LA line, the pipeline line and the kernels line
+(JSON; the kernels' launches are phase 4's and phase 7's) and, last, the
+device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
@@ -458,6 +466,7 @@ def _dense_paths(dev_t, dims, observe, say) -> dict:
                 wait_device_tiles(dev, c)
             sync(dev_t)
             walls["run"] = time.perf_counter() - t
+            walls["d2h0"] = dev.stats["d2h_bytes"]
             dev.flush()
             sync(dev_t)
             walls["flush"] = time.perf_counter() - t
@@ -465,8 +474,12 @@ def _dense_paths(dev_t, dims, observe, say) -> dict:
         st = dict(dev.stats)
         ran = st["tasks"] - st0["tasks"]
         # this run's counts (the device may have run earlier pools)
+        flush_s = walls["flush"] - walls["run"]
         row = {"wall_ms": walls["run"] * 1e3,
                "wall_flush_ms": walls["flush"] * 1e3, "tasks": ran,
+               "flush_bytes": st["d2h_bytes"] - walls["d2h0"],
+               "flush_gbps": (st["d2h_bytes"] - walls["d2h0"]) / flush_s
+               / 1e9 if flush_s > 0 else None,
                "stats": {k: st[k] - st0[k] for k in (
                    "batches", "batched_tasks", "h2d_bytes", "d2h_bytes",
                    "d2d_bytes", "h2d_hits", "eager_gathers", "evictions",
@@ -489,7 +502,10 @@ def _dense_paths(dev_t, dims, observe, say) -> dict:
                 rec["lanes"] += lanes - l0
         row["launches"] = launches
         say(f"  {label}: {row['wall_ms']:.1f} ms to final device values, "
-            f"{row['wall_flush_ms']:.1f} ms with the flush; tasks={ran} "
+            f"{row['wall_flush_ms']:.1f} ms with the flush ("
+            f"{row['flush_bytes']} B"
+            + (f" at {row['flush_gbps']:.2f} GB/s" if row["flush_gbps"]
+               else "") + f"); tasks={ran} "
             + (f"{row['gflops']:.1f} GFLOP/s; " if flops else "")
             + f"{row['stats']}; launches [count, lanes] {launches}")
         if ran != ntasks:
@@ -823,6 +839,195 @@ def time_chores(dev_t, chores) -> None:
             f"library {rec['library_ms']} ms; {rec['launches']} launches "
             f"({rec['lanes']} lanes) on the path")
         del ins, outs
+
+
+# phase 7 sizes: NORM as phase 4 runs it, X and O 32768 x 4096 f32 tiled
+# (1024, 4096), 32 tasks in waves of PIPE["batch"]; GEMM (N, NB) for the
+# out-of-core leg
+PIPE = {"norm": (32768, 4096, 1024), "batch": 4, "reps": 3,
+        "gemm": (8192, 1024)}
+
+
+def pipeline_path(dev_t, dims=None, observe=None, ooc=True) -> dict:
+    """Phase 7: the device pipeline through Context -> Taskpool ->
+    CudaDevice.  7a: NORM with the prefetch lane off and on, `reps` runs
+    of each in turns (off, on, on, off, ...), every O held to the plain
+    version at 2e-5 and to the first run's O bit for bit, and the lane's
+    hits required.  7b (ooc=True): GEMM resident, then out-of-core at half
+    its tile set (C against torch.matmul at 1e-4 / 1e-3, spills required,
+    residency at the end within the tile set), then NORM out-of-core at
+    half its O, bit-identical to 7a.  Host data from seed SEED + 7: the
+    out-of-core legs stage from host data, never from matrices generated
+    on the device (a spilled or evicted clean mirror of those would be
+    staged again from zero host tiles).  observe(label, fn) runs each
+    taskpool run and its flush (a profiler may wrap it).  Returns the
+    numbers the smoke prints, with the hand-written kernels' launches
+    summed over the phase's runs under "launches"."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.algos import build_gemm
+    from parsec_tpu_torch.convert import to_collection, to_tensor
+    from parsec_tpu_torch.device import CudaDevice
+    rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
+    if observe is None:
+        def observe(label, fn):
+            fn()
+    dims = dims or PIPE
+    rows, d, T = dims["norm"]
+    rng = np.random.default_rng(SEED + 7)
+    xn = rng.standard_normal((rows, d), dtype=np.float32)
+    wn = rng.standard_normal((1, d), dtype=np.float32)
+    out = {"launches": {}, "runs": {}}
+    keys = ("h2d_bytes", "h2d_stall_ns", "prefetch_staged", "prefetch_hits",
+            "prefetch_misses", "prefetch_wasted", "prefetch_h2d_ns",
+            "reserve_fails", "evictions", "spills", "spill_bytes",
+            "ooc_waits", "d2h_bytes", "batches", "tasks", "overlap_ratio",
+            "cache_peak_bytes")
+
+    def run(label, build, prefetch, cache_bytes=None, batch=None):
+        """One taskpool run on a new context and device: wall from
+        tp.run() to the pool's end (the device synchronised), then with
+        the flush; the pipeline counters, the residency at the end, the
+        kernels' launches.  Returns (the result read on the host, the
+        row).  Fails on a prefetch lane exception."""
+        with pt.Context(nb_workers=4) as ctx:
+            dev = CudaDevice(ctx, device=dev_t, prefetch=prefetch,
+                             cache_bytes=cache_bytes)
+            if batch is not None:
+                dev.batch_max = batch
+            tp, result = build(ctx, dev)
+            walls = {}
+
+            def go():
+                sync(dev_t)
+                t = time.perf_counter()
+                tp.run()
+                tp.wait()
+                sync(dev_t)
+                walls["run"] = time.perf_counter() - t
+                dev.flush()
+                sync(dev_t)
+                walls["total"] = time.perf_counter() - t
+            kernels.reset_launches()
+            observe(label, go)
+            got = dict(kernels.LAUNCHES)
+            st = ctx.device_stats()
+            used = dev._cache_used
+            err = dev.prefetch_error
+            dev.stop()
+            host = result()
+        if err is not None:
+            raise AssertionError(f"{label}: prefetch lane exception {err!r}")
+        for k, n in got.items():
+            out["launches"][k] = out["launches"].get(k, 0) + n
+        row = {"run_ms": walls["run"] * 1e3, "total_ms": walls["total"] * 1e3,
+               "end_residency": used, "launches": got,
+               **{k: st[k] for k in keys}}
+        log(f"  {label}: {row['run_ms']:.1f} ms to the pool's end, "
+            f"{row['total_ms']:.1f} ms with the flush; h2d stall "
+            f"{st['h2d_stall_ns'] / 1e6:.1f} ms, lane h2d "
+            f"{st['prefetch_h2d_ns'] / 1e6:.1f} ms, overlap_ratio "
+            f"{st['overlap_ratio']}; prefetch staged/hits/misses/wasted "
+            f"{st['prefetch_staged']}/{st['prefetch_hits']}/"
+            f"{st['prefetch_misses']}/{st['prefetch_wasted']}; "
+            f"reserve_fails {st['reserve_fails']} evictions "
+            f"{st['evictions']} spills {st['spills']} ({st['spill_bytes']} "
+            f"B) ooc_waits {st['ooc_waits']}; cache peak "
+            f"{st['cache_peak_bytes']} B, {used} B at the end; tasks "
+            f"{st['tasks']} in {st['batches']} batched launches; kernel "
+            f"launches {got}")
+        out["runs"][label] = row
+        return host, row
+
+    def norm(ctx, dev):
+        Xc, Wc = to_collection(xn, T, d), to_collection(wn, 1, d)
+        Oc = to_collection(np.zeros_like(xn), T, d)
+        return (rn_mod.build_rms_norm(ctx, Xc, Wc, Oc, EPS, dev=dev),
+                Oc.to_dense)
+
+    # ------------------------------------------ 7a: prefetch off and on
+    want = rn_mod.rms_norm_plain(to_tensor(xn, dev_t),
+                                 to_tensor(wn[0], dev_t), EPS)
+    o_ref, checked, hits = None, set(), 0
+    order = [False, True, True, False, False, True][:2 * dims["reps"]]
+    for i, prefetch in enumerate(order):
+        label = (f"NORM {rows}x{d} f32, T={T}, batch {dims['batch']}, "
+                 f"prefetch {'on' if prefetch else 'off'} #{i + 1}")
+        o, row = run(label, norm, prefetch, batch=dims["batch"])
+        # (a CPU rehearsal runs the plain version: no launch to count)
+        if dev_t.type == "cuda" and row["launches"]["rms_norm"] <= 0:
+            raise AssertionError(f"{label}: the rms_norm kernel never ran")
+        if prefetch:
+            hits += row["prefetch_hits"]
+        if prefetch not in checked:  # once for each mode: 2e-5, as phase 4
+            checked.add(prefetch)
+            check_close(f"{label} O vs plain", to_tensor(o, dev_t), want,
+                        2e-5, 2e-5)
+        if o_ref is None:
+            o_ref = o
+        elif not np.array_equal(o, o_ref):
+            raise AssertionError(f"{label}: O differs from run 1's bits")
+    del want
+    log(f"  NORM: O bit-identical over the {len(order)} runs, prefetch on "
+        "and off")
+    if hits <= 0:
+        raise AssertionError("NORM prefetch on: prefetch_hits == 0")
+    if not ooc:
+        return out
+
+    # ---------------------------------------------- 7b: out-of-core legs
+    n, nb = dims["gemm"]
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    b = rng.standard_normal((n, n), dtype=np.float32)
+    tile_set = 3 * n * n * 4
+
+    def gemm(ctx, dev):
+        A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
+        C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+        for name, c in zip("ABC", (A, B, C)):
+            c.register(ctx, name)
+        return build_gemm(ctx, A, B, C, dev), C.to_dense
+
+    want = torch.matmul(to_tensor(a, dev_t), to_tensor(b, dev_t))
+    # resident: a budget that also holds every wave's gathered lane
+    # stacks (4.5 GB at the default 4 GiB evicted, on the H100)
+    label = f"GEMM {n}^2 f32, {nb}^2 tiles, resident"
+    c, res = run(label, gemm, True, 16 << 30)
+    if res["evictions"] or res["spills"]:
+        raise AssertionError(f"{label}: evictions or spills")
+    check_close(f"{label} C vs torch.matmul", to_tensor(c, dev_t), want,
+                1e-4, 1e-3)
+    label = (f"GEMM {n}^2 f32, {nb}^2 tiles, out-of-core at "
+             f"{tile_set // 2 >> 20} MiB of a {tile_set >> 20} MiB tile set")
+    c, row = run(label, gemm, True, tile_set // 2)
+    check_close(f"{label} C vs torch.matmul", to_tensor(c, dev_t), want,
+                1e-4, 1e-3)
+    if row["spills"] <= 0:
+        raise AssertionError(f"{label}: no spill")
+    if row["end_residency"] > tile_set:
+        raise AssertionError(f"{label}: {row['end_residency']} B resident "
+                             f"at the end, over the {tile_set} B tile set")
+    log(f"  GEMM out-of-core {row['run_ms']:.1f} ms ({row['total_ms']:.1f} "
+        f"with the flush) against resident {res['run_ms']:.1f} ms "
+        f"({res['total_ms']:.1f}): spills {row['spills']}, spill_bytes "
+        f"{row['spill_bytes']}, ooc_waits {row['ooc_waits']}, reserve_fails "
+        f"{row['reserve_fails']}")
+    del a, b, c, want
+    # NORM out-of-core: half of O, so that O's dirty mirrors must spill
+    budget = rows * d * 4 // 2
+    label = (f"NORM {rows}x{d} f32, T={T}, out-of-core at "
+             f"{budget >> 20} MiB")
+    o, row = run(label, norm, True, budget, dims["batch"])
+    if row["spills"] <= 0:
+        raise AssertionError(f"{label}: no spill")
+    if dev_t.type == "cuda" and row["launches"]["rms_norm"] <= 0:
+        raise AssertionError(f"{label}: the rms_norm kernel never ran")
+    if not np.array_equal(o, o_ref):
+        raise AssertionError(f"{label}: O differs from the resident run's")
+    log(f"  {label}: O bit-identical to the resident runs")
+    return out
 
 
 def serve_oracle(model, req, dev_t, head64):
@@ -1264,8 +1469,24 @@ def main() -> int:
     time_chores(dev_t, dense["chores"])
     log(f"  DENSE phase {time.perf_counter() - t:.1f} s; hand-written "
         f"kernel launches in it: {dict(kernels.LAUNCHES)}")
+    for label, row in dense["paths"].items():
+        if label.startswith("POTRF-P"):
+            log(f"  {label} flush: {row['flush_bytes']} B in "
+                f"{row['wall_flush_ms'] - row['wall_ms']:.1f} ms = "
+                f"{row['flush_gbps']:.2f} GB/s (stacked d2h on the d2h "
+                "stream into pinned staging, then the host tiles)")
+
+    log("phase 7: the device pipeline, Context -> Taskpool -> CudaDevice: "
+        "prefetch lane off and on, out-of-core spill")
+    t = time.perf_counter()
+    pipe = pipeline_path(dev_t)
+    for name, n in pipe["launches"].items():
+        launches[name] += n
+    log(f"  PIPELINE phase {time.perf_counter() - t:.1f} s; hand-written "
+        f"kernel launches in it: {pipe['launches']}")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
+    print(json.dumps({"pipeline": pipe["runs"]}))
 
     rows_out = []
     for name, r, err, repl in (

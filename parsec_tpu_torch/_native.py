@@ -180,10 +180,18 @@ _sigs = {
     "ptc_device_queue_new": (C.c_int32, [C.c_void_p]),
     "ptc_device_queue_depth": (C.c_int64, [C.c_void_p, C.c_int32]),
     "ptc_device_pop": (C.c_void_p, [C.c_void_p, C.c_int32, C.c_int32]),
+    # ready-peek span of the prefetch lane: every emitted copy is
+    # retained and must be unpinned exactly once (parsec_core.h:355-362)
+    "ptc_peek_ready": (C.c_int64, [C.c_void_p, C.c_int32,
+                                   C.POINTER(C.c_int64), C.c_int64,
+                                   C.c_int32]),
+    "ptc_copy_unpin": (None, [C.c_void_p, C.c_void_p]),
     "ptc_device_set_data_owner": (None, [C.c_void_p, C.c_int64, C.c_int32,
                                          C.c_int32]),
     "ptc_device_clear_data_owner": (None, [C.c_void_p, C.c_int64,
                                            C.c_int32]),
+    "ptc_device_get_data_owner": (C.c_int32, [C.c_void_p, C.c_int64,
+                                              C.POINTER(C.c_int32)]),
     "ptc_device_set_affinity_skew": (None, [C.c_void_p, C.c_double]),
     "ptc_profile_enable": (None, [C.c_void_p, C.c_int32]),
     "ptc_profile_set_ring": (None, [C.c_void_p, C.c_int64]),
@@ -198,3 +206,26 @@ for _name, (_res, _args) in _sigs.items():
     fn = getattr(lib, _name)
     fn.restype = _res
     fn.argtypes = _args
+
+
+def peek_buffer(max_tasks: int):
+    """A span buffer that holds ptc_peek_ready's records for max_tasks
+    tasks."""
+    return (C.c_int64 * (max_tasks * (2 + 4 * MAX_FLOWS)))()
+
+
+def peek_ready(ctx_ptr, qid: int, buf, max_tasks: int) -> list:
+    """The ready tasks queued on a device queue, not popped:
+    [(task_ref, [(copy_ptr, data_ptr, size, version), ...]), ...], one
+    record per read flow (the span: per task task_ref, n_copies, then
+    four words per copy).  Every copy_ptr returned is retained and must
+    be unpinned exactly once (ptc_copy_unpin)."""
+    n = lib.ptc_peek_ready(ctx_ptr, qid, buf, len(buf), max_tasks)
+    out, w = [], 0
+    while w + 2 <= n:
+        tref, nc = buf[w], buf[w + 1]
+        w += 2
+        out.append((tref, [tuple(buf[w + 4 * i:w + 4 * i + 4])
+                           for i in range(nc)]))
+        w += 4 * nc
+    return out

@@ -190,15 +190,26 @@ class Context:
 
     def device_stats(self) -> dict:
         """Counters aggregated across this context's devices (the keys
-        of the device module's stats), plus each device's info object
-        under "devices"."""
+        of the device module's stats, the pipeline's included: prefetch
+        hits/misses/staged bytes, reserve failures, spill traffic,
+        dispatch-time h2d stall), the counter-level overlap ratio — the
+        share of h2d nanoseconds spent on the prefetch lane, overlapping
+        compute, rather than stalling a dispatch — and each device's
+        info object under "devices"."""
         devs = [dev.info() for dev in self._devices]
         keys = ("tasks", "batches", "batched_tasks", "h2d_hits",
                 "h2d_bytes", "d2h_bytes", "h2d_stall_ns", "evictions",
                 "dead_drops", "invalidations", "eager_gathers",
                 "fused_flows", "wb_tasks", "f64_refused",
-                "cache_peak_bytes")
+                "cache_peak_bytes",
+                "prefetch_staged", "prefetch_bytes", "prefetch_hits",
+                "prefetch_misses", "prefetch_wasted", "reserve_fails",
+                "spills", "spill_bytes", "prefetch_h2d_ns", "ooc_waits",
+                "prefetch_wakeups")
         agg = {k: sum(d["stats"][k] for d in devs) for k in keys}
+        moved = agg["prefetch_h2d_ns"] + agg["h2d_stall_ns"]
+        agg["overlap_ratio"] = (
+            round(agg["prefetch_h2d_ns"] / moved, 4) if moved else 0.0)
         agg["devices"] = devs
         return agg
 
@@ -398,8 +409,38 @@ class Context:
                 dev._drop_mirror(h)
             N.lib.ptc_device_clear_data_owner(self._ptr, h, -1)
 
+    def device_set_data_owner(self, handle: int, qid: int, version: int):
+        """Stamp which device queue holds a current mirror of the copy
+        with this handle (data-affinity routing; reference:
+        parsec_get_best_device's owner pass, device.c:100-117)."""
+        N.lib.ptc_device_set_data_owner(self._ptr, handle, qid, version)
+
+    def device_get_data_owner(self, handle: int):
+        """(qid, version) of the stamped mirror owner, or (-1, 0)."""
+        ver = C.c_int32(0)
+        q = N.lib.ptc_device_get_data_owner(self._ptr, handle, C.byref(ver))
+        return q, ver.value
+
     def device_pop(self, qid: int, timeout_ms: int = 100):
         return N.lib.ptc_device_pop(self._ptr, qid, timeout_ms)
+
+    def device_peek(self, qid: int, max_tasks: int = 64) -> list:
+        """Observational snapshot of the ready tasks queued on a device
+        queue (native ptc_peek_ready): [(task_ref, [(handle, size,
+        version), ...]), ...], one record per read flow.  A probe for
+        tests and tooling: the peek pins are released before returning,
+        so records must not be dereferenced; the prefetch lane consumes
+        the span directly and holds its pins across the staging copy."""
+        tasks = N.peek_ready(self._ptr, qid, N.peek_buffer(max_tasks),
+                             max_tasks)
+        try:
+            return [(tref, [(N.lib.ptc_copy_handle(cptr), size, ver)
+                            for cptr, _, size, ver in recs])
+                    for tref, recs in tasks]
+        finally:
+            for _, recs in tasks:
+                for cptr, *_ in recs:
+                    N.lib.ptc_copy_unpin(self._ptr, cptr)
 
     def task_complete(self, task_ptr):
         N.lib.ptc_task_complete(self._ptr, task_ptr)

@@ -12,7 +12,7 @@ generated stack until every tile of it has been consumed — an evicted
 clean row would be staged again from the host.  Size `cache_bytes`
 from the card's memory, as the smoke does.
 
-Everything here runs on the device's stream, the one its manager
+Everything here runs on the device's exec stream, the one its manager
 launches on, so generation is ordered before the first chore and a
 residual after the last.
 """
@@ -118,12 +118,14 @@ def install_device_segments(dev: CudaDevice, vcoll, stacked: torch.Tensor):
 
 def device_tiles(dev: CudaDevice, coll):
     """(m, n), current device value of each local tile, in row-major
-    order (a tile with no current mirror is staged from its host copy)."""
+    order (a tile with no current mirror is staged from its host copy).
+    Read it on the device's exec stream."""
+    shape = (coll.mb, coll.nb)
     for m, n in local_tile_index(coll):
         uid, ver = _tile_key(dev, coll, m, n)
-        ent = dev._cache_ent(uid, ver)
-        yield (m, n), (ent.arr if ent is not None
-                       else dev._h2d(coll.tile(m, n)))
+        t = dev._cache_get_typed(uid, ver, coll.dtype, shape)
+        yield (m, n), (t if t is not None
+                       else dev._h2d(coll.tile(m, n))[0])
 
 
 def gather_device_tiles(dev: CudaDevice, coll) -> torch.Tensor:
@@ -135,7 +137,7 @@ def gather_device_tiles(dev: CudaDevice, coll) -> torch.Tensor:
 
 def wait_device_tiles(dev: CudaDevice, coll) -> None:
     """Block until every local tile's current device value is final:
-    every chore runs on the device's one stream, in order, so that is
+    every chore runs on the device's exec stream, in order, so that is
     the stream's end."""
     if dev._stream is not None:
         dev._stream.synchronize()

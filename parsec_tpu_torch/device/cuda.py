@@ -14,14 +14,25 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
   - device-resident dataflow: results stay on the card as dirty mirrors
     in a uid-keyed, versioned LRU; successors consume them from device
     memory.  The host copy is written (a) by the writeback lane for
-    flows declared sync_mem_out, (b) at flush(), (c) on a host read
-    (TaskView.data and the native copy-sync callback), or (d) never, if
-    the copy dies first
-  - one CUDA stream per device carries the h2d copies, the kernels and
-    the d2h copies in order.  A task completes once its kernel is
-    enqueued; every host read of a device result synchronises with that
-    stream first.  Overlapping h2d/exec/d2h on separate streams is left
-    to a later change
+    flows declared sync_mem_out, one stacked d2h per launch's output
+    stack, (b) at flush(), same-shape mirrors grouped into stacked d2h
+    copies, (c) on a host read (TaskView.data and the native copy-sync
+    callback), (d) by an out-of-core spill, or (e) never, if the copy
+    dies first
+  - three CUDA streams per device, ordered by events: h2d copies run on
+    the h2d stream, kernels on the exec stream, d2h copies on the d2h
+    stream.  Every cache entry carries the event after which its bytes
+    are valid (the h2d copy's, or the launch's that wrote it); a launch
+    waits on the events of the entries it reads, and every d2h on its
+    producer's.  A tensor allocated on one stream and used on another
+    is record_stream()ed for the user, so the caching allocator cannot
+    hand its memory out while that stream still reads it.  A task
+    completes once its kernel is enqueued
+  - the prefetch lane (device/prefetch.py) peeks the ready tasks still
+    queued and stages their inputs on the h2d stream while the current
+    wave runs; the residency planner reserves budget for it, prefers to
+    evict tiles outside the lookahead, and, when dirty mirrors exceed
+    the budget, spills them through the writeback lane (out-of-core)
   - speculative epilogues (attach_epilogue): the lane of a wave whose
     output is the next input of a declared consumer class runs that
     class's kernel right after the wave's launch; the consumer task
@@ -32,7 +43,8 @@ is no silent fallback to another path.
 
 `CudaDevice(ctx)` runs on the card and raises where there is none;
 `CudaDevice(ctx, device="cpu")` runs the same module with torch CPU
-tensors, where each kernel wrapper takes its plain PyTorch version.
+tensors, where each kernel wrapper takes its plain PyTorch version and
+the streams are None.
 """
 from __future__ import annotations
 
@@ -43,7 +55,7 @@ import sys
 import threading
 import time
 import traceback
-from collections import OrderedDict
+from collections import OrderedDict, deque
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -53,6 +65,8 @@ from .. import _native as N
 from ..core.context import Context
 from ..core.taskclass import Mem, TaskClass, TaskView
 from ..core.taskpool import Taskpool
+from ..utils import params as _knobs
+from .prefetch import _PrefetchLane
 
 _NP_TO_TORCH = {
     np.dtype(np.float32): torch.float32, np.dtype(np.float64): torch.float64,
@@ -60,6 +74,11 @@ _NP_TO_TORCH = {
     np.dtype(np.int64): torch.int64, np.dtype(np.int16): torch.int16,
     np.dtype(np.int8): torch.int8, np.dtype(np.uint8): torch.uint8,
 }
+
+# largest stacked d2h of one flush/spill chunk: two chunks are in flight
+# (one on the copy engine, one landing in its host buffers), so this
+# bounds the pinned staging and the device gather stack a write-back holds
+_D2H_CHUNK = 256 << 20
 
 
 class _DeviceBody:
@@ -130,6 +149,22 @@ _UID_LOCK = threading.Lock()
 _UID_STATE = {"next": 1 << 40}
 
 
+# one exec, one h2d and one d2h stream per card, shared by the devices
+# built on it: the caching allocator keeps freed device blocks per stream,
+# so a device built later on the card reuses its predecessors' memory
+# instead of allocating (cudaMalloc) anew
+_STREAMS: Dict[int, tuple] = {}
+
+
+def _card_streams(dev: torch.device) -> tuple:
+    with _UID_LOCK:
+        streams = _STREAMS.get(dev.index)
+        if streams is None:
+            streams = tuple(torch.cuda.Stream(device=dev) for _ in range(3))
+            _STREAMS[dev.index] = streams
+        return streams
+
+
 def _next_uid() -> int:
     with _UID_LOCK:
         u = _UID_STATE["next"]
@@ -155,13 +190,15 @@ def maybe_sync_copy(cptr) -> None:
 
 
 class _CacheEnt:
-    __slots__ = ("version", "arr", "nbytes", "dirty", "host", "persistent",
-                 "stack", "idx")
+    __slots__ = ("uid", "version", "arr", "nbytes", "dirty", "host",
+                 "persistent", "stack", "idx", "raw", "event", "pf",
+                 "spilling")
 
-    def __init__(self, version, arr, nbytes, dirty=False, host=None,
-                 persistent=True, stack=None, idx=0):
+    def __init__(self, uid, version, arr, nbytes, dirty=False, host=None,
+                 persistent=True, stack=None, idx=0, raw=False, event=None):
+        self.uid = uid
         self.version = version
-        self.arr = arr  # device tensor of the tile's shape
+        self.arr = arr  # device tensor of the tile's shape (raw: flat uint8)
         self.nbytes = nbytes
         self.dirty = dirty  # device newer than host; host view kept to flush
         self.host = host
@@ -172,14 +209,32 @@ class _CacheEnt:
         # accounted, once per stack) until its last row entry dies
         self.stack = stack
         self.idx = idx
+        # raw: staged by the prefetch lane as flat uint8 bytes; the first
+        # typed read reinterprets it to the consumer's dtype and shape
+        self.raw = raw
+        # CUDA event after which the bytes are valid on the card (the h2d
+        # copy's, or the launch's that wrote them); None on the CPU
+        self.event = event
+        # pf: staged ahead by the prefetch lane, not consumed yet (cleared,
+        # and counted as a prefetch hit, at the first stage-in)
+        self.pf = False
+        # spilling: picked by the residency planner for an out-of-core
+        # write-back + evict; whoever lands its d2h evicts it in the same
+        # locked step, if it is still THIS object in the cache
+        self.spilling = False
 
 
 class CudaDevice:
     """One CUDA card (or, with device="cpu", the plain versions on the
-    host) with a manager thread and a writeback lane."""
+    host) with a manager thread, a writeback lane and a prefetch lane.
+
+    autostart=False leaves the threads unstarted until start(): tasks
+    routed here stay queued (observable with ctx.device_peek).
+    prefetch=None reads the device.prefetch knob."""
 
     def __init__(self, ctx: Context, device="cuda",
-                 cache_bytes: Optional[int] = None):
+                 cache_bytes: Optional[int] = None, autostart: bool = True,
+                 prefetch: Optional[bool] = None):
         dev = torch.device(device)
         if dev.type == "cuda":
             if not torch.cuda.is_available():
@@ -188,9 +243,11 @@ class CudaDevice:
                     "device='cpu' to run the plain versions on the host")
             if dev.index is None:
                 dev = torch.device("cuda", torch.cuda.current_device())
-            self._stream = torch.cuda.Stream(device=dev)
+            # exec (kernels), h2d and d2h: three streams ordered by events
+            self._stream, self._h2d_stream, self._d2h_stream = \
+                _card_streams(dev)
         elif dev.type == "cpu":
-            self._stream = None
+            self._stream = self._h2d_stream = self._d2h_stream = None
         else:
             raise ValueError(f"CudaDevice: unsupported device {device!r}")
         self.device = dev
@@ -207,7 +264,6 @@ class CudaDevice:
         # so freed/reused ptc_copy addresses can't alias — ABA guard)
         self._cache: "OrderedDict[int, _CacheEnt]" = OrderedDict()
         if cache_bytes is None:
-            from ..utils import params as _knobs
             cache_bytes = int(_knobs.get("device.cache_bytes")) or 4 << 30
         self._cache_bytes = cache_bytes
         self._cache_used = 0
@@ -215,6 +271,34 @@ class CudaDevice:
         self._stacks: Dict[int, list] = {}
         self._lock = threading.Lock()
         self._stop = threading.Event()
+        # ---- device pipeline (prefetch lane + residency planner) ----
+        if prefetch is None:
+            prefetch = bool(_knobs.get("device.prefetch"))
+        self._pf_enabled = prefetch
+        self._pf_depth = max(1, int(_knobs.get("device.prefetch_depth")))
+        self._pf_slots_max = max(1, int(_knobs.get("device.staging_slots")))
+        self._ooc = bool(_knobs.get("device.out_of_core"))
+        self._overcommit = max(1.0, float(_knobs.get("device.overcommit")))
+        # uids of the current ready-task lookahead: eviction under
+        # pressure prefers tiles OUTSIDE this set (they are not about to
+        # be consumed), and the planner never spills into it
+        self._pf_pin: set = set()
+        # bytes the lane has reserved but not installed yet: reservations
+        # keep it from staging the cache past budget and thrashing tiles
+        # the executing wave still needs
+        self._pf_reserved = 0
+        self._pf_lane: Optional[_PrefetchLane] = None  # once started
+        # wakes the lane's idle wait now instead of at its poll interval
+        # (the comm engine's deliveries will set it; tests set it)
+        self._pf_wake = threading.Event()
+        # chain prefetch hints [(collection name, idx)] of the wave
+        # compiler, which is not ported: it stays empty and the lane
+        # stages the peeked lookahead only
+        self._pf_chain_hints: list = []
+        # bumped by every host-side overwrite of a mirrored copy: a lane
+        # stage that began before one is discarded (it may have copied
+        # the bytes being replaced)
+        self._host_epoch = 0
         # every key pre-populated: the dict never resizes after init, so a
         # concurrent info() copy cannot hit a changed-size error.  Names
         # follow the reference device module's stats.
@@ -225,7 +309,14 @@ class CudaDevice:
                       "fused_flows": 0, "wb_tasks": 0, "f64_refused": 0,
                       "h2d_stall_ns": 0, "cache_peak_bytes": 0,
                       "d2d_bytes": 0,
-                      "spec_store": 0, "spec_hits": 0, "spec_misses": 0}
+                      "spec_store": 0, "spec_hits": 0, "spec_misses": 0,
+                      # device pipeline (prefetch lane + residency planner)
+                      "prefetch_staged": 0, "prefetch_bytes": 0,
+                      "prefetch_hits": 0, "prefetch_misses": 0,
+                      "prefetch_wasted": 0, "reserve_fails": 0,
+                      "spills": 0, "spill_bytes": 0,
+                      "prefetch_h2d_ns": 0, "ooc_waits": 0,
+                      "prefetch_wakeups": 0}
         # chore name -> [launches, lanes]: one launch per kernel call of
         # the manager (epilogues included), written under self._lock
         self.launches: Dict[str, List[int]] = {}
@@ -263,57 +354,147 @@ class CudaDevice:
         _ALL_DEVICES.append(self)
         # writeback lane (reference: the CUDA stage-out stream,
         # device_cuda_module.c:2197): host coherence of sync-mem-out flows
-        # runs here, not in the dispatch loop; the tasks complete from
-        # this lane once their host bytes are coherent
+        # and out-of-core spills run here, not in the dispatch loop; the
+        # tasks complete from this lane once their host bytes are coherent
         self._wb_q: "queue.Queue" = queue.Queue()
-        self._thread = threading.Thread(target=self._manager, daemon=True,
-                                        name="ptc-cuda-manager")
-        self._wb_thread = threading.Thread(target=self._wb_loop,
-                                           daemon=True,
-                                           name="ptc-cuda-writeback")
-        self._thread.start()
-        self._wb_thread.start()
+        self._thread: Optional[threading.Thread] = None
+        self._wb_thread: Optional[threading.Thread] = None
+        if autostart:
+            self.start()
 
     # ------------------------------------------------------------ streams
     def _on_stream(self):
-        """Context that makes this device's stream current (no-op on the
-        CPU): kernels launch on the current stream, and host copies taken
-        inside it are ordered after every launch before them."""
+        """Context that makes this device's exec stream current (no-op on
+        the CPU): kernels launch on the current stream."""
         if self._stream is None:
             return contextlib.nullcontext()
         return torch.cuda.stream(self._stream)
 
-    def _h2d(self, host: np.ndarray, out: Optional[torch.Tensor] = None):
-        """Copy one host tile (a view over native memory) to the device.
-        The bytes go through an OWNED buffer first (pinned on the card):
-        an asynchronous copy from the native view could read it after
-        the copy died at its last consumer's completion."""
-        t0 = time.perf_counter_ns()
-        if self._stream is not None:
-            src = torch.empty(host.shape, dtype=_NP_TO_TORCH[host.dtype],
-                              pin_memory=True)
-            src.numpy()[...] = host
-            with self._on_stream():
-                if out is None:
-                    out = src.to(self.device, non_blocking=True)
-                else:
-                    out.copy_(src.view(out.shape), non_blocking=True)
-        elif out is None:
-            out = torch.from_numpy(np.array(host, copy=True))
-        else:
-            out.copy_(torch.from_numpy(host).view(out.shape))
-        stall = time.perf_counter_ns() - t0
-        self.stats["h2d_stall_ns"] += stall
-        self._stats_add("h2d_bytes", host.nbytes)
-        return out
+    def _device_ctx(self):
+        """Context that makes this device's card current (for the lanes'
+        threads; no-op on the CPU)."""
+        if self._stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.device(self.device)
 
-    def _host_write(self, ent: _CacheEnt) -> int:
-        """Write a device mirror into its bound host buffer; blocks until
-        the bytes have landed.  Returns the bytes written."""
-        dst = torch.from_numpy(ent.host).view(-1)
-        with self._on_stream():
-            dst.copy_(ent.arr.reshape(-1))
-        return int(ent.host.nbytes)
+    def _record(self, stream=None) -> Optional["torch.cuda.Event"]:
+        """An event at the current end of `stream` (the exec stream by
+        default); None on the CPU."""
+        if self._stream is None:
+            return None
+        ev = torch.cuda.Event()
+        ev.record(stream or self._stream)
+        return ev
+
+    def _await(self, *events) -> None:
+        """Make the current stream wait on each event (no-op on the CPU
+        and for None)."""
+        if self._stream is None:
+            return
+        cur = torch.cuda.current_stream()
+        seen = set()
+        for ev in events:
+            if ev is not None and id(ev) not in seen:
+                seen.add(id(ev))
+                cur.wait_event(ev)
+
+    def _pinned(self, shape, dtype) -> torch.Tensor:
+        """A host staging buffer: pinned on a card (the caching host
+        allocator hands a block out again only after the copies recorded
+        on it have completed), plain memory on the CPU."""
+        return torch.empty(shape, dtype=dtype,
+                           pin_memory=self._stream is not None)
+
+    def _h2d_async(self, src: torch.Tensor):
+        """Start the copy of a host tensor to the device on the h2d stream
+        and return (device tensor, the copy's event).  The bytes go
+        through an OWNED pinned buffer first: an asynchronous copy from a
+        view over native memory could read it after the copy died at its
+        last consumer's completion.  The device tensor is allocated on the
+        h2d stream and record_stream()ed for the exec stream, its reader.
+        On the CPU: (an owned clone, None)."""
+        if self._stream is None:
+            return src.clone(), None
+        stage = self._pinned(src.shape, src.dtype)
+        stage.copy_(src)
+        with torch.cuda.stream(self._h2d_stream):
+            out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
+            out.copy_(stage, non_blocking=True)
+            ev = self._record(self._h2d_stream)
+        out.record_stream(self._stream)
+        return out, ev
+
+    def _h2d(self, host: np.ndarray):
+        """Copy one host array to the device for the exec stream: the copy
+        runs on the h2d stream and the exec stream waits on its event.
+        Returns (device tensor, event); the time to enqueue it is counted
+        as an h2d stall."""
+        t0 = time.perf_counter_ns()
+        out, ev = self._h2d_async(torch.from_numpy(host))
+        if ev is not None:
+            self._stream.wait_event(ev)
+        self._stats_add("h2d_stall_ns", time.perf_counter_ns() - t0)
+        self._stats_add("h2d_bytes", host.nbytes)
+        return out, ev
+
+    def _d2h_async(self, arrs: Sequence[torch.Tensor], events: Sequence):
+        """Start ONE d2h of same-sized device tensors on the d2h stream,
+        after each producer's event, into a pinned host stack; returns
+        (host [len(arrs), n] tensor, the copy's event; None on the CPU).
+        Several tensors are first gathered into one device stack there."""
+        if self._stream is None:
+            return torch.stack([a.reshape(-1) for a in arrs]), None
+        with torch.cuda.stream(self._d2h_stream):
+            self._await(*events)
+            for a in arrs:
+                a.record_stream(self._d2h_stream)
+            src = arrs[0].reshape(1, -1) if len(arrs) == 1 else \
+                torch.stack([a.reshape(-1) for a in arrs])
+            host = self._pinned(src.shape, src.dtype)
+            host.copy_(src, non_blocking=True)
+            return host, self._record(self._d2h_stream)
+
+    def _land(self, ent: _CacheEnt, row: torch.Tensor) -> None:
+        """Write one landed d2h row (host uint8) into the entry's host
+        buffer and mark the entry clean; an entry picked for a spill
+        leaves the cache in the same locked step (so no eviction can take
+        it clean in between and the spill go uncounted).  A torch copy,
+        on the intra-op threads: a first write into fresh host pages is
+        bound by their page faults, which threads take in parallel."""
+        torch.from_numpy(ent.host.reshape(-1).view(np.uint8)).copy_(row)
+        with self._lock:
+            self.stats["d2h_bytes"] += row.numel()
+            ent.dirty = False
+            if ent.spilling:
+                self._spilled_locked(ent)
+
+    def _land_chunk(self, ents, host: torch.Tensor, ev) -> None:
+        if ev is not None:
+            ev.synchronize()
+        rows = host.reshape(len(ents), -1).view(torch.uint8)
+        for e, row in zip(ents, rows):
+            self._land(e, row)
+
+    def _write_back(self, ents: Sequence[_CacheEnt]) -> None:
+        """Make dirty mirrors host-coherent: same-size mirrors grouped
+        into stacked d2h copies of at most _D2H_CHUNK bytes, double-
+        buffered (a chunk lands in its host buffers while the next one is
+        on the copy engine)."""
+        groups: Dict[tuple, list] = {}
+        for e in ents:
+            groups.setdefault((e.arr.dtype, e.arr.numel()), []).append(e)
+        chunks = []
+        for g in groups.values():
+            per = max(1, _D2H_CHUNK // max(1, g[0].arr.nbytes))
+            chunks += [g[i:i + per] for i in range(0, len(g), per)]
+        inflight: deque = deque()
+        for c in chunks:
+            inflight.append((c, *self._d2h_async([e.arr for e in c],
+                                                 [e.event for e in c])))
+            if len(inflight) > 1:
+                self._land_chunk(*inflight.popleft())
+        while inflight:
+            self._land_chunk(*inflight.popleft())
 
     # ------------------------------------------------------------ cache
     def _stats_add(self, key: str, n: int = 1) -> None:
@@ -362,6 +543,7 @@ class CudaDevice:
         """Drop a mirror whose HOST bytes were just overwritten by the
         runtime (the host is authoritative now)."""
         with self._lock:
+            self._host_epoch += 1
             ent = self._cache.pop(uid, None)
             if ent is not None:
                 self._uncharge(ent)
@@ -375,36 +557,174 @@ class CudaDevice:
                 self.stats["dead_drops"] += 1
         N.lib.ptc_device_clear_data_owner(self.ctx._ptr, handle, -1)
 
+    def _evict_locked(self, evict) -> None:
+        """Drop the (uid, entry) pairs the caller already uncharged
+        (caller holds self._lock)."""
+        for k, _ in evict:
+            del self._cache[k]
+            self.stats["evictions"] += 1
+            N.lib.ptc_device_clear_data_owner(self.ctx._ptr, k, self.qid)
+
     def _cache_put(self, uid, version, arr, nbytes, dirty=False, host=None,
-                   persistent=True, stack=None, idx=0):
+                   persistent=True, stack=None, idx=0, event=None):
+        spill = []
         with self._lock:
             old = self._cache.pop(uid, None)
             if old is not None:
                 self._uncharge(old)
-            ent = _CacheEnt(version, arr, nbytes, dirty, host, persistent,
-                            stack, idx)
+            ent = _CacheEnt(uid, version, arr, nbytes, dirty, host,
+                            persistent, stack, idx, event=event)
             self._cache[uid] = ent
             self._charge(ent)
             # affinity stamp: consumers of this copy at this version route
             # here (reference: parsec_get_best_device, device.c:100-117)
             N.lib.ptc_device_set_data_owner(self.ctx._ptr, uid,
                                             self.qid, version)
-            # evict clean entries under pressure, oldest first; dirty
-            # entries never evict (their device bytes are the only truth)
-            if self._cache_used > self._cache_bytes:
+            # evict under pressure, oldest first: clean tiles OUTSIDE the
+            # prefetch lookahead, then clean lookahead tiles (about to be
+            # consumed: they would be staged again at once); dirty entries
+            # never evict here (their device bytes are the only truth)
+            for only_unpinned in (True, False):
+                if self._cache_used <= self._cache_bytes:
+                    break
                 evict = []
                 for k, e in self._cache.items():
                     if self._cache_used <= self._cache_bytes:
                         break
                     if e.dirty or k == uid:
                         continue
-                    evict.append(k)
+                    if only_unpinned and k in self._pf_pin:
+                        continue
+                    evict.append((k, e))
                     self._uncharge(e)
-                for k in evict:
-                    del self._cache[k]
-                    self.stats["evictions"] += 1
-                    N.lib.ptc_device_clear_data_owner(self.ctx._ptr, k,
-                                                      self.qid)
+                self._evict_locked(evict)
+            if self._ooc and self._cache_used > self._cache_bytes:
+                spill = self._spill_pick_locked(uid)
+        if spill:
+            # out-of-core: the dirty mirrors are written back through the
+            # writeback lane (host authoritative, mirror evicted, staged
+            # again on demand) instead of pinning memory past the budget
+            # until the card runs out (the panel-cyclic residency of the
+            # TPU distributed-LA paper, arXiv:2112.09017)
+            self._wb_q.put(("spill", [], spill))
+
+    def _spill_pick_locked(self, new_uid: int) -> list:
+        """Residency planner, out-of-core leg (caller holds self._lock):
+        pick dirty mirrors to spill through the writeback lane until the
+        projected usage is back under budget.  Only persistent
+        (collection-backed) entries qualify — an arena host buffer can be
+        freed by its last consumer while the d2h is in flight — and
+        lookahead tiles are skipped (they are about to be consumed).  The
+        picked entries are marked `spilling`, so one pressure wave cannot
+        queue them twice.  A row of a lane stack frees nothing until its
+        stack's last row goes (the stack is charged once), so it does not
+        lower the projection, but it is spilled all the same."""
+        picked, projected = [], self._cache_used
+        for k, e in self._cache.items():
+            if projected <= self._cache_bytes:
+                break
+            if (not e.dirty or e.spilling or not e.persistent
+                    or e.host is None or k == new_uid
+                    or k in self._pf_pin):
+                continue
+            e.spilling = True
+            picked.append(k)
+            projected -= e.nbytes if e.stack is None else 0
+        return picked
+
+    def _spilled_locked(self, ent: _CacheEnt) -> None:
+        """Evict a host-coherent spill pick if it is still the cache's
+        entry for its uid (a put of a newer version since the pick is
+        left to its own pressure wave).  Caller holds self._lock."""
+        if self._cache.get(ent.uid) is not ent:
+            return
+        del self._cache[ent.uid]
+        self._uncharge(ent)
+        self.stats["spills"] += 1
+        self.stats["spill_bytes"] += int(ent.nbytes)
+        N.lib.ptc_device_clear_data_owner(self.ctx._ptr, ent.uid, self.qid)
+
+    def _spill(self, uids) -> None:
+        """Writeback-lane half of the spill: write the picked mirrors back
+        (grouped d2h); each is evicted as it lands (_land).  A pick made
+        clean meanwhile (a flush) is evicted at once."""
+        with self._lock:
+            ents = [e for u in uids
+                    if (e := self._cache.get(u)) is not None and e.spilling]
+            for e in ents:
+                if not e.dirty:
+                    self._spilled_locked(e)
+        self._write_back([e for e in ents if e.dirty])
+
+    # ------------------------------------------------- prefetch lane seam
+    def _prefetch_reserve(self, nbytes: int) -> bool:
+        """Reserve budget BEFORE the lane stages a lookahead tile (the
+        reserve half of the reserve/evict protocol): evicts clean tiles
+        outside the lookahead if needed, never dirty ones, never the
+        lookahead and never an unconsumed prefetch.  False: the working
+        set does not fit, the lane skips the tile and it is staged on
+        demand at dispatch instead of thrashing."""
+        with self._lock:
+            budget = self._cache_bytes - self._pf_reserved - nbytes
+            if self._cache_used <= budget:
+                self._pf_reserved += nbytes
+                return True
+            evict = []
+            for k, e in self._cache.items():
+                if self._cache_used <= budget:
+                    break
+                if e.dirty or e.pf or k in self._pf_pin:
+                    continue
+                evict.append((k, e))
+                self._uncharge(e)
+            self._evict_locked(evict)
+            if self._cache_used <= budget:
+                self._pf_reserved += nbytes
+                return True
+            self.stats["reserve_fails"] += 1
+            return False
+
+    def _prefetch_unreserve(self, nbytes: int) -> None:
+        with self._lock:
+            self._pf_reserved = max(0, self._pf_reserved - nbytes)
+
+    def _cache_put_prefetch(self, uid, version, arr, nbytes, event,
+                            epoch: int) -> bool:
+        """Install a prefetched raw (flat uint8) mirror and release its
+        reservation.  NEVER displaces an existing entry: the wave in
+        flight may be reading it, and a dirty entry is newer than the
+        host bytes this was staged from.  Also refused when a host-side
+        overwrite happened since the stage began (`epoch`), or when some
+        device holds a mirror of this version or a newer one (its bytes,
+        not the host's, are current).  Returns False on a refusal (a
+        wasted stage, counted)."""
+        with self._lock:
+            self._pf_reserved = max(0, self._pf_reserved - nbytes)
+            q, v = self.ctx.device_get_data_owner(uid)
+            if uid in self._cache or epoch != self._host_epoch \
+                    or (q >= 0 and v >= version):
+                self.stats["prefetch_wasted"] += 1
+                return False
+            ent = _CacheEnt(uid, version, arr, nbytes, persistent=False,
+                            raw=True, event=event)
+            ent.pf = True
+            self._cache[uid] = ent
+            self._charge(ent)
+            self.stats["prefetch_staged"] += 1
+            self.stats["prefetch_bytes"] += int(nbytes)
+            N.lib.ptc_device_set_data_owner(self.ctx._ptr, uid, self.qid,
+                                            version)
+        return True
+
+    def _consume_pf(self, uid: int) -> bool:
+        """First stage-in of a prefetched tile: clear the flag (so the hit
+        counts once and its staging slot can recycle) and report."""
+        with self._lock:
+            ent = self._cache.get(uid)
+            if ent is not None and ent.pf:
+                ent.pf = False
+                return True
+        return False
 
     def _cache_ent(self, uid, version) -> Optional[_CacheEnt]:
         with self._lock:
@@ -416,15 +736,27 @@ class CudaDevice:
 
     def _cache_get_typed(self, uid, version, dtype, shape):
         """The current mirror of (uid, version) as a tensor of the
-        consumer's shape, or None."""
-        ent = self._cache_ent(uid, version)
-        if ent is None:
-            return None
-        if ent.arr.dtype != _NP_TO_TORCH[np.dtype(dtype)]:
+        consumer's dtype and shape, or None; the current stream waits on
+        the entry's event.  A raw prefetched mirror is reinterpreted (a
+        view of the same bytes, no copy) and the typed view memoized."""
+        with self._lock:
+            ent = self._cache.get(uid)
+            if ent is None or ent.version != version:
+                return None
+            self._cache.move_to_end(uid)
+            arr, raw = ent.arr, ent.raw
+        self._await(ent.event)
+        tdt = _NP_TO_TORCH[np.dtype(dtype)]
+        if raw:
+            arr = arr.view(tdt)
+            with self._lock:
+                if ent.raw:
+                    ent.arr, ent.raw = arr, False
+        elif arr.dtype != tdt:
             raise TypeError(
-                f"device mirror {uid} holds {ent.arr.dtype}, consumer "
+                f"device mirror {uid} holds {arr.dtype}, consumer "
                 f"reads {np.dtype(dtype)}")
-        return ent.arr if shape is None else ent.arr.reshape(shape)
+        return arr if shape is None else arr.reshape(shape)
 
     def _invalidate_siblings(self, uid: int) -> None:
         """Writer-side invalidation: after this device produces a new
@@ -441,22 +773,28 @@ class CudaDevice:
                                                       sib.qid)
 
     def set_cache_budget(self, nbytes: int) -> None:
-        """Retarget the device byte budget; the LRU reacts at the next
-        insert."""
+        """Retarget the device byte budget; the residency planner reacts
+        at the next insert (evicts, or spills out-of-core)."""
         with self._lock:
             self._cache_bytes = int(nbytes)
 
     def sync_handle(self, uid: int) -> None:
         """Coherence pull for ONE copy: if its device mirror is dirty,
-        write it back to the host buffer and clear the dirty bit."""
+        write it back to the host buffer (d2h stream) and clear the dirty
+        bit."""
         with self._lock:
             ent = self._cache.get(uid)
             if ent is None or not ent.dirty:
                 return
-        nbytes = self._host_write(ent)
-        with self._lock:
-            self.stats["d2h_bytes"] += nbytes
-            ent.dirty = False
+        self._write_back([ent])
+
+    @property
+    def prefetch_error(self) -> Optional[BaseException]:
+        """The prefetch lane's last exception, or None.  The lane is
+        advisory: a failed stage leaves its tile to dispatch-time
+        staging, so the run goes on; callers that must know read this."""
+        lane = self._pf_lane
+        return None if lane is None else lane.error
 
     def info(self) -> dict:
         """Device info object: identity, capacity, live cache state."""
@@ -480,20 +818,18 @@ class CudaDevice:
         }
 
     def flush(self):
-        """Write every dirty device mirror back to its host copy.  Call
-        before bulk host reads (to_dense etc.); per-copy coherence for
-        CPU chores is automatic via sync_handle()."""
+        """Write every dirty device mirror back to its host copy: same-
+        size mirrors move as stacked d2h copies on the d2h stream, into
+        pinned staging, then into the host tiles.  Call before bulk host
+        reads (to_dense etc.); per-copy coherence for CPU chores is
+        automatic via sync_handle()."""
         self._wb_barrier()
         with self._lock:
             # only persistent (user-Data-backed) hosts are written: arena
             # buffers can be freed concurrently by the last consumer
             dirty = [e for e in self._cache.values()
                      if e.dirty and e.persistent]
-        for ent in dirty:
-            nbytes = self._host_write(ent)
-            with self._lock:
-                self.stats["d2h_bytes"] += nbytes
-                ent.dirty = False
+        self._write_back(dirty)
 
     # ------------------------------------------------------------ attach
     def attach(self, tc: TaskClass, tp: Taskpool, kernel: Callable,
@@ -524,7 +860,7 @@ class CudaDevice:
             sys.stderr.write(
                 f"ptc [device]: not attaching {tc.name}: float64 flows "
                 "stay on the host chore\n")
-            self.stats["f64_refused"] += 1
+            self._stats_add("f64_refused")
             return
         tc.body_device(self.qid, device="cuda")
         body = _DeviceBody(kernel, reads, writes, shapes, dtypes, tc, tp,
@@ -594,40 +930,88 @@ class CudaDevice:
             tiles.append(coll.tile(m, n))
         if not tiles:
             return
-        stack = self._h2d(np.stack(tiles))
+        stack, ev = self._h2d(np.stack(tiles))
         for i, (uid, ver) in enumerate(keys):
             self._cache_put(uid, ver, stack[i], tiles[i].nbytes,
-                            stack=stack, idx=i)
+                            stack=stack, idx=i, event=ev)
 
     # ------------------------------------------------------------ manager
+    def start(self):
+        """Start the manager, the writeback lane and (device.prefetch)
+        the prefetch lane; idempotent."""
+        if self._thread is not None:
+            return
+        self._thread = threading.Thread(target=self._manager, daemon=True,
+                                        name="ptc-cuda-manager")
+        self._wb_thread = threading.Thread(target=self._wb_loop,
+                                           daemon=True,
+                                           name="ptc-cuda-writeback")
+        # the writeback lane first: a manager draining it (_wb_barrier)
+        # before it runs would find it not alive and not wait
+        self._wb_thread.start()
+        self._thread.start()
+        if self._pf_enabled:
+            self._pf_lane = _PrefetchLane(self, depth=self._pf_depth,
+                                          slots=self._pf_slots_max)
+            self._pf_lane.start()
+
     def _wb_loop(self):
         """Writeback lane: make the queued mirrors host-coherent, then
-        complete their tasks (coherence before release_deps)."""
-        while True:
-            item = self._wb_q.get()
-            if item is None:
-                return
-            if item[0] == "barrier":
-                item[1].set()
-                continue
-            _, tasks, uids = item
-            try:
-                for uid in uids:
-                    self.sync_handle(uid)
-            except Exception:
-                traceback.print_exc()
+        complete their tasks (coherence before release_deps).  A launch's
+        whole output stack moves as ONE d2h ("stack" items); "spill"
+        items are the residency planner's write-back + evict; "sync"
+        items pull single copies."""
+        with self._device_ctx():
+            while True:
+                item = self._wb_q.get()
+                if item is None:
+                    return
+                if item[0] == "barrier":
+                    item[1].set()
+                    continue
+                kind, tasks, payload = item
+                try:
+                    if kind == "stack":
+                        for ostack, uids, ev in payload:
+                            host, hev = self._d2h_async([ostack], [ev])
+                            if hev is not None:
+                                hev.synchronize()
+                            rows = host.reshape(len(uids), -1) \
+                                .view(torch.uint8)
+                            for i, uid in enumerate(uids):
+                                self._wb_write(uid, ostack, i, rows[i])
+                    elif kind == "spill":
+                        self._spill(payload)
+                    else:
+                        for uid in payload:
+                            self.sync_handle(uid)
+                except Exception:
+                    traceback.print_exc()
+                    for t in tasks:
+                        self.ctx.task_fail(t)
+                    continue
+                self._stats_add("wb_tasks", len(tasks))
                 for t in tasks:
-                    self.ctx.task_fail(t)
-                continue
-            self._stats_add("wb_tasks", len(tasks))
-            for t in tasks:
-                self.ctx.task_complete(t)
+                    self.ctx.task_complete(t)
+
+    def _wb_write(self, uid, ostack, i, row: torch.Tensor) -> None:
+        """Land row i of a launch's output stack if the cache entry is
+        still that row and dirty; anything put or evicted since goes
+        through the per-copy sync."""
+        with self._lock:
+            ent = self._cache.get(uid)
+            hit = (ent is not None and ent.dirty and ent.stack is ostack
+                   and ent.idx == i)
+        if hit:
+            self._land(ent, row)
+        else:
+            self.sync_handle(uid)
 
     def _wb_barrier(self, timeout: float = 300.0):
         """Block until every queued writeback retired.  A timeout is a
         hard error: proceeding would report mirrors coherent that the
         lane may still be writing."""
-        if not self._wb_thread.is_alive():
+        if self._wb_thread is None or not self._wb_thread.is_alive():
             return
         ev = threading.Event()
         self._wb_q.put(("barrier", ev))
@@ -637,17 +1021,25 @@ class CudaDevice:
                 f"{timeout:.0f}s; dirty mirrors are NOT coherent")
 
     def stop(self):
-        """Flush dirty mirrors and stop the manager (idempotent)."""
+        """Flush dirty mirrors and stop the lanes and the manager
+        (idempotent).  The prefetch lane object stays, stopped, so that
+        prefetch_error can still be read."""
         if self._stop.is_set():
             return
+        # the prefetch lane first: it peeks the native queue and pins
+        # copies, so it must be quiet before the context can tear down
+        if self._pf_lane is not None:
+            self._pf_lane.stop()
         self.flush()
         self._stop.set()
-        self._thread.join(timeout=30)
+        if self._thread is not None:
+            self._thread.join(timeout=30)
         # second flush AFTER the join: a task completing between the first
         # flush's dirty snapshot and manager exit is not lost
         self.flush()
-        self._wb_q.put(None)
-        self._wb_thread.join(timeout=30)
+        if self._wb_thread is not None:
+            self._wb_q.put(None)
+            self._wb_thread.join(timeout=30)
         if self in _ALL_DEVICES:
             _ALL_DEVICES.remove(self)
         with self._lock:
@@ -667,6 +1059,15 @@ class CudaDevice:
                 task = self.ctx.device_pop(self.qid, timeout_ms=50)
                 if not task:
                     continue
+                if self._ooc and self._cache_used > \
+                        self._cache_bytes * self._overcommit:
+                    # out-of-core hard cap: spills ride the writeback
+                    # lane, so usage may overshoot the budget for a
+                    # while; past overcommit * budget the manager drains
+                    # the lane between waves (an unlocked read: an
+                    # approximate trigger will do, the barrier is exact)
+                    self._stats_add("ooc_waits")
+                    self._wb_barrier()
                 batch = [task]
                 while len(batch) < self.batch_max:
                     t2 = self.ctx.device_pop(self.qid, timeout_ms=0)
@@ -723,6 +1124,22 @@ class CudaDevice:
             return sarr
         return None
 
+    def _hit(self, uid) -> None:
+        """Count a stage-in served by the cache (and a prefetch hit at a
+        prefetched tile's first read)."""
+        self._stats_add("h2d_hits")
+        if self._consume_pf(uid):
+            self._stats_add("prefetch_hits")
+
+    def _stage_from_host(self, view, body: _DeviceBody, flow):
+        """Dispatch-time h2d of one flow's host copy (a prefetch miss when
+        the lane runs)."""
+        host = view.data(flow, dtype=body.dtypes[flow],
+                         shape=body.shapes.get(flow), sync=False)
+        if self._pf_lane is not None:
+            self._stats_add("prefetch_misses")
+        return self._h2d(host)
+
     def _stage_in(self, view, body: _DeviceBody, flow):
         """The current device tile of one task's read flow: a cache hit,
         a copy of a sibling device's mirror, or an h2d of its host copy
@@ -732,16 +1149,15 @@ class CudaDevice:
         dt = body.dtypes[flow]
         arr = self._cache_get_typed(uid, ver, dt, shape)
         if arr is not None:
-            self.stats["h2d_hits"] += 1
+            self._hit(uid)
             return arr
         sarr = self._sibling_mirror(uid, ver, dt, shape)
         if sarr is not None:
             arr = sarr.to(self.device, copy=True, non_blocking=True)
-            self._cache_put(uid, ver, arr, arr.nbytes)
+            self._cache_put(uid, ver, arr, arr.nbytes, event=self._record())
             return arr
-        host = view.data(flow, dtype=dt, shape=shape, sync=False)
-        arr = self._h2d(host)
-        self._cache_put(uid, ver, arr, host.nbytes)
+        arr, ev = self._stage_from_host(view, body, flow)
+        self._cache_put(uid, ver, arr, arr.nbytes, event=ev)
         return arr
 
     def _lanes_in(self, views, body: _DeviceBody, flow) -> torch.Tensor:
@@ -749,23 +1165,24 @@ class CudaDevice:
           - every lane reads the same tile: that tile, lane stride 0
           - every lane's tile is a row of ONE cached stack: a slice of it
             (or one index_select when the rows are not in lane order)
-          - otherwise: a new stack, rows copied from the cache or staged
-            h2d straight into place (staged rows are then cached)"""
+          - otherwise: a new stack, rows copied from the cache, a sibling
+            or a fresh h2d (staged rows are then cached as rows of it)"""
         n = len(views)
         shape = tuple(body.shapes[flow])
         keys = [self._flow_uid_ver(v, body, flow)[1:] for v in views]
         if all(k == keys[0] for k in keys):
             if n > 1:
-                self.stats["fused_flows"] += 1
-                self.stats["h2d_hits"] += n - 1
+                self._stats_add("fused_flows")
+                self._stats_add("h2d_hits", n - 1)
             t = self._stage_in(views[0], body, flow)
             return t.unsqueeze(0).expand(n, *shape)
         ents = [self._cache_ent(uid, ver) for uid, ver in keys]
         stack = ents[0].stack if ents[0] is not None else None
         if stack is not None and all(
                 e is not None and e.stack is stack for e in ents):
-            self.stats["fused_flows"] += 1
-            self.stats["h2d_hits"] += n
+            self._await(*(e.event for e in ents))
+            self._stats_add("fused_flows")
+            self._stats_add("h2d_hits", n)
             idxs = [e.idx for e in ents]
             if idxs == list(range(idxs[0], idxs[0] + n)):
                 rows = stack[idxs[0]:idxs[0] + n]
@@ -773,37 +1190,39 @@ class CudaDevice:
                 rows = stack.index_select(
                     0, torch.tensor(idxs, device=stack.device))
             return rows.reshape(n, *shape)
-        self.stats["eager_gathers"] += 1
+        self._stats_add("eager_gathers")
         dt = body.dtypes[flow]
         out = torch.empty((n, *shape), dtype=_NP_TO_TORCH[np.dtype(dt)],
                           device=self.device)
+        staged = []
         for i, (view, (uid, ver)) in enumerate(zip(views, keys)):
             arr = self._cache_get_typed(uid, ver, dt, shape)
             if arr is not None:
-                self.stats["h2d_hits"] += 1
-                out[i].copy_(arr)
-                continue
-            arr = self._sibling_mirror(uid, ver, dt, shape)
-            if arr is not None:
-                out[i].copy_(arr, non_blocking=True)
+                self._hit(uid)
             else:
-                host = view.data(flow, dtype=dt, shape=shape, sync=False)
-                self._h2d(host, out[i])
+                arr = self._sibling_mirror(uid, ver, dt, shape)
+                if arr is None:
+                    arr, _ = self._stage_from_host(view, body, flow)
+                staged.append((i, uid, ver))
+            out[i].copy_(arr.reshape(shape), non_blocking=True)
+        ev = self._record() if staged else None
+        for i, uid, ver in staged:
             self._cache_put(uid, ver, out[i], out[i].nbytes, stack=out,
-                            idx=i)
+                            idx=i, event=ev)
         return out
 
-    def _write_out(self, view, body: _DeviceBody, flow, ostack, i):
-        """Install lane i of an output stack as the task's dirty mirror and
-        return (uid, its new version).  Host coherence is lazy (flush /
-        sync_handle); sync-mem-out flows ride the writeback lane."""
+    def _write_out(self, view, body: _DeviceBody, flow, ostack, i, event):
+        """Install lane i of an output stack as the task's dirty mirror,
+        valid after `event`, and return (uid, its new version).  Host
+        coherence is lazy (flush / sync_handle / a spill); sync-mem-out
+        flows ride the writeback lane."""
         cptr, uid, ver = self._flow_uid_ver(view, body, flow)
         host = view.data(flow, dtype=body.dtypes[flow],
                          shape=body.shapes.get(flow), sync=False)
         persistent = bool(N.lib.ptc_copy_is_persistent(cptr))
         self._cache_put(uid, ver + 1, ostack[i], host.nbytes, dirty=True,
                         host=host, persistent=persistent, stack=ostack,
-                        idx=i)
+                        idx=i, event=event)
         self._invalidate_siblings(uid)
         return uid, ver + 1
 
@@ -819,7 +1238,7 @@ class CudaDevice:
         (its dst task ran on a sibling device) pins a whole output, so
         only a handful may linger."""
         self._spec[key] = (eouts, src[0], src[1])
-        self.stats["spec_store"] += 1
+        self._stats_add("spec_store")
         while len(self._spec) > 4:
             self._spec.pop(next(iter(self._spec)))
 
@@ -840,7 +1259,7 @@ class CudaDevice:
             if len(arrs) != len(body.writes):
                 # a misconfigured epilogue kernel: a partial write would
                 # corrupt the flows it leaves out
-                self.stats["spec_misses"] += 1
+                self._stats_add("spec_misses")
                 sys.stderr.write(
                     f"ptc [device]: epilogue kernel returned {len(arrs)} "
                     f"output(s), {body.tc.name} writes {len(body.writes)}; "
@@ -850,19 +1269,21 @@ class CudaDevice:
                                        body.tc.flow_index(spec.dst_in_flow))
             if N.lib.ptc_copy_handle(cptr) != suid \
                     or N.lib.ptc_copy_version(cptr) != sver:
-                self.stats["spec_misses"] += 1
+                self._stats_add("spec_misses")
                 return False
+            # the parked kernel ran on this stream before now
+            ev = self._record()
             wb_uids = []
             for f, arr in zip(body.writes, arrs):
-                uid, _ = self._write_out(view, body, f, arr, 0)
+                uid, _ = self._write_out(view, body, f, arr, 0, ev)
                 if f in body.mem_out_flows:
                     wb_uids.append(uid)
         except Exception:
             traceback.print_exc()
             self.ctx.task_fail(task)
             return True
-        self.stats["spec_hits"] += 1
-        self.stats["tasks"] += 1
+        self._stats_add("spec_hits")
+        self._stats_add("tasks")
         if wb_uids:
             self._wb_q.put(("sync", [task], wb_uids))
         else:
@@ -873,7 +1294,7 @@ class CudaDevice:
                       src) -> None:
         """Run the dst chore on one output row (as a 1-lane stack) on this
         device's stream and park its outputs for the dst task `key`."""
-        ops = [self._h2d(np.ascontiguousarray(o)).unsqueeze(0)
+        ops = [self._h2d(np.ascontiguousarray(o))[0].unsqueeze(0)
                for o in epi.ops(key)]
         e = epi.kernel(row.unsqueeze(0), *ops)
         self._count_launch(epi.kernel, 1)
@@ -904,9 +1325,10 @@ class CudaDevice:
     def _run_lanes(self, body: _DeviceBody, tasks: List):
         """Stage the lanes' inputs, launch the kernel once, install the
         outputs.  A task completes once its launch is enqueued (or, for
-        sync-mem-out flows, from the writeback lane); any failure fails
-        every task of the launch — no fallback.  Every launch, of one task
-        or a group, comes here: an epilogue's destination tasks first try
+        sync-mem-out flows, from the writeback lane, after the launch's
+        output stack has landed on the host); any failure fails every
+        task of the launch — no fallback.  Every launch, of one task or a
+        group, comes here: an epilogue's destination tasks first try
         their parked result, and its source lane runs the epilogue."""
         if body.spec_src is not None:
             tasks = [t for t in tasks if not self._try_spec(body, t)]
@@ -917,6 +1339,7 @@ class CudaDevice:
             ins = [self._lanes_in(views, body, f) for f in body.reads]
             out = body.kernel(*ins)
             self._count_launch(body.kernel, len(tasks))
+            ev = self._record()
             outs = out if isinstance(out, tuple) else (out,)
             if len(outs) != len(body.writes):
                 raise ValueError(
@@ -929,7 +1352,7 @@ class CudaDevice:
                     if epi_key is not None:
                         epi_lane = i
                         break
-            wb_uids, epi_src = [], None
+            wb_stacks, epi_src = [], None
             for f, ostack in zip(body.writes, outs):
                 if ostack.shape[0] != len(tasks) \
                         or ostack.device != self.device:
@@ -937,18 +1360,20 @@ class CudaDevice:
                         f"{body.tc.name}.{f}: kernel output "
                         f"{tuple(ostack.shape)} on {ostack.device}, "
                         f"expected {len(tasks)} lanes on {self.device}")
+                uids = []
                 for i, view in enumerate(views):
-                    uid, ver = self._write_out(view, body, f, ostack, i)
-                    if f in body.mem_out_flows:
-                        wb_uids.append(uid)
+                    uid, ver = self._write_out(view, body, f, ostack, i, ev)
+                    uids.append(uid)
                     if i == epi_lane and f == epi.src_flow:
                         epi_src = (uid, ver, ostack[i])
+                if f in body.mem_out_flows:
+                    wb_stacks.append((ostack, uids, ev))
             if epi_src is not None:
                 self._run_epilogue(epi, epi_key, epi_src[2], epi_src[:2])
-            self.stats["tasks"] += len(tasks)
+            self._stats_add("tasks", len(tasks))
             if len(tasks) > 1:
-                self.stats["batches"] += 1
-                self.stats["batched_tasks"] += len(tasks)
+                self._stats_add("batches")
+                self._stats_add("batched_tasks", len(tasks))
         except Exception:
             # a failed kernel must NOT complete its tasks: successors would
             # consume garbage and the pool would "succeed"
@@ -956,8 +1381,8 @@ class CudaDevice:
             for t in tasks:
                 self.ctx.task_fail(t)
             return
-        if wb_uids:
-            self._wb_q.put(("sync", list(tasks), wb_uids))
+        if wb_stacks:
+            self._wb_q.put(("stack", list(tasks), wb_stacks))
             return
         for t in tasks:
             self.ctx.task_complete(t)

@@ -6,10 +6,12 @@ priority
 Environment spelling: PTC_MCA_<name with '.' -> '_'>.  The config file is
 ./ptc.conf ("name = value" lines, '#' comments).  Registered: runtime.*,
 sched.*, serve.* (the reference's, read by nothing yet there either),
-the control.spec_* knobs of the serving engine, device.cache_bytes and
-device.affinity_skew.  The runtime.* hooks whose modules are not ported
-yet (pins, live, metrics_port, watchdog, journal) are registered so that
-setting one is refused loudly by Context instead of ignored.
+the control.spec_* knobs of the serving engine, device.cache_bytes,
+device.affinity_skew and the device pipeline's knobs (device.prefetch,
+prefetch_depth, staging_slots, out_of_core, overcommit).  The runtime.*
+hooks whose modules are not ported yet (pins, live, metrics_port,
+watchdog, journal) are registered so that setting one is refused loudly
+by Context instead of ignored.
 """
 import os
 from typing import Any, Callable, Dict, Optional
@@ -207,3 +209,33 @@ register("device.affinity_skew", 4.0, float,
          "holding a current mirror of a task's flow wins over pure load "
          "unless its load exceeds skew * the least-loaded candidate; "
          "<=0 disables the affinity pass")
+register("device.prefetch", True, bool,
+         "device prefetch lane: a dedicated thread walks the runtime's "
+         "ready-task lookahead (ptc_peek_ready) and stages the NEXT "
+         "wave's h2d while the manager computes the current one; a wave "
+         "whose inputs were all prefetched dispatches with zero "
+         "synchronous h2d (reference analog: the CUDA stage-in stream "
+         "overlapping the exec stream, device_cuda_module.c:2197)")
+register("device.prefetch_depth", 64, int,
+         "max ready tasks the prefetch lane peeks per sweep (the "
+         "lookahead window fed to ptc_peek_ready)")
+register("device.staging_slots", 2, int,
+         "bounded in-flight prefetch wave buffers: the lane stages at "
+         "most this many waves (of batch_max tasks each) beyond the one "
+         "executing, double-buffered so prefetch writes never collide "
+         "with in-flight reads; a slot frees when its wave's tiles have "
+         "been consumed or invalidated")
+register("device.out_of_core", True, bool,
+         "degrade to panel-cyclic out-of-core execution when the "
+         "working set exceeds the device byte budget: dirty mirrors of "
+         "persistent (collection-backed) tiles spill through the "
+         "writeback lane — d2h, host becomes authoritative, mirror "
+         "evicted, re-staged on demand — instead of pinning HBM until "
+         "the pool OOMs (reference: the reserve/evict protocol of "
+         "parsec_gpu_data_reserve_device_space, device_cuda_module.c:864)")
+register("device.overcommit", 1.5, float,
+         "hard residency cap as a multiple of cache_bytes: when spills "
+         "are in flight the manager may transiently run the cache past "
+         "budget, but at overcommit * cache_bytes it drains the "
+         "writeback lane between waves (bounded memory under "
+         "out-of-core pressure); <= 1 drains at any overrun")

@@ -415,3 +415,134 @@ def test_serving_engine_on_the_card_matches_float64_oracle(card):
             assert tok == int(top2.indices[t, 0]) or float(
                 top2.values[t, 0] - top2.values[t, 1]) <= 1e-4
     assert st["tasks"] > 0 and st["h2d_hits"] > 0
+
+
+def _scale_pool(ctx, src, dst, tb):
+    """A pool of one task per tile of src (collection T), reading it and
+    updating the same tile of dst (collection O); the caller attaches the
+    chore."""
+    ctx.register_linear_collection("T", src, elem_size=tb)
+    ctx.register_linear_collection("O", dst, elem_size=tb)
+    ctx.register_arena("t", tb)
+    tp = pt.Taskpool(ctx, globals={"NT": src.shape[0] - 1})
+    k = pt.L("k")
+    tc = tp.task_class("Scale")
+    tc.param("k", 0, pt.G("NT"))
+    tc.flow("X", "R", pt.In(pt.Mem("T", k)), arena="t")
+    tc.flow("Y", "RW", pt.In(pt.Mem("O", k)), pt.Out(pt.Mem("O", k)),
+            arena="t")
+    return tp, tc
+
+
+def test_device_holds_three_distinct_streams(card):
+    """h2d copies, kernels and d2h copies each have a stream of their own,
+    none of them the default stream."""
+    import torch
+    with pt.Context(nb_workers=1) as ctx:
+        dev = CudaDevice(ctx)
+        ids = {s.cuda_stream for s in (dev._stream, dev._h2d_stream,
+                                       dev._d2h_stream)}
+        dev.stop()
+    assert len(ids) == 3, ids
+    assert torch.cuda.default_stream(card).cuda_stream not in ids
+
+
+def test_prefetched_tile_behind_a_slow_h2d_is_read_correctly(card):
+    """The lane's copies are queued behind a long sleep on the h2d stream,
+    so they are still pending when the manager launches: the exec stream
+    must wait on each entry's copy event, or the kernel reads memory the
+    copy has not filled yet."""
+    import torch
+    from parsec_tpu_torch.device.prefetch import _PrefetchLane
+    n, elems = 8, 1 << 20
+    src = np.random.default_rng(13).standard_normal((n, elems)) \
+        .astype(np.float32)
+    dst = np.zeros_like(src)
+    with pt.Context(nb_workers=2) as ctx:
+        dev = CudaDevice(ctx, autostart=False, prefetch=True)
+        dev.batch_max = 4
+        tp, tc = _scale_pool(ctx, src, dst, elems * 4)
+        dev.attach(tc, tp, kernel=lambda x, y: x * 2.0 + y,
+                   reads=["X", "Y"], writes=["Y"],
+                   shapes={"X": (elems,), "Y": (elems,)})
+        tp.run()
+        import time
+        deadline = time.monotonic() + 30
+        while ctx.device_queue_depth(dev.qid) < n:
+            assert time.monotonic() < deadline
+            time.sleep(0.01)
+        with torch.cuda.stream(dev._h2d_stream):
+            torch.cuda._sleep(1 << 30)  # about half a second
+        assert _PrefetchLane(dev, depth=64, slots=2)._sweep()
+        with dev._lock:
+            pending = [e for e in dev._cache.values() if e.pf]
+        assert pending and not any(e.event.query() for e in pending)
+        dev.start()
+        tp.wait()
+        dev.flush()
+        hits = dev.stats["prefetch_hits"]
+        dev.stop()
+    assert hits > 0
+    np.testing.assert_array_equal(dst, src * 2.0)
+
+
+def test_flush_right_after_a_wave_returns_the_launch_bytes(card):
+    """The wave's kernel sleeps on the exec stream before it writes: a
+    flush issued as soon as the pool completes must wait on the launch's
+    event on the d2h stream and land the kernel's bytes, not the
+    output's unwritten memory."""
+    import torch
+    n, elems = 8, 1 << 20
+    src = np.random.default_rng(14).standard_normal((n, elems)) \
+        .astype(np.float32)
+    dst = np.zeros_like(src)
+
+    def slow_scale(x, y):
+        torch.cuda._sleep(1 << 28)
+        return x * 3.0 + y
+
+    with pt.Context(nb_workers=2) as ctx:
+        dev = CudaDevice(ctx)
+        tp, tc = _scale_pool(ctx, src, dst, elems * 4)
+        dev.attach(tc, tp, kernel=slow_scale, reads=["X", "Y"],
+                   writes=["Y"], shapes={"X": (elems,), "Y": (elems,)})
+        tp.run()
+        tp.wait()
+        dev.flush()
+        np.testing.assert_array_equal(dst, src * 3.0)
+        dev.stop()
+
+
+def test_norm_out_of_core_bit_identical_to_resident(card):
+    """NORM through the RMSNorm kernel, resident and with a budget of
+    half its O (dirty mirrors spill through the writeback lane): the same
+    bits, and within 2e-5 of the plain version."""
+    import torch
+    from parsec_tpu_torch.ops import build_rms_norm
+    rows, d, T = 4096, 1024, 256
+    x = np.random.default_rng(15).standard_normal((rows, d)) \
+        .astype(np.float32)
+    w = np.random.default_rng(16).standard_normal((1, d)).astype(np.float32)
+    outs, spills = [], []
+    for budget in (None, rows * d * 2):
+        Xc, Wc = to_collection(x, T, d), to_collection(w, 1, d)
+        Oc = to_collection(np.zeros_like(x), T, d)
+        with pt.Context(nb_workers=2) as ctx:
+            kw = {} if budget is None else {"cache_bytes": budget}
+            dev = CudaDevice(ctx, **kw)
+            dev.batch_max = 4
+            kernels.reset_launches()
+            tp = build_rms_norm(ctx, Xc, Wc, Oc, dev=dev)
+            tp.run()
+            tp.wait()
+            dev.flush()
+            spills.append(dev.stats["spills"])
+            dev.stop()
+            assert kernels.LAUNCHES["rms_norm"] >= 1
+        outs.append(Oc.to_dense())
+    assert spills[0] == 0 and spills[1] > 0, spills
+    np.testing.assert_array_equal(outs[0], outs[1])
+    want = rms_norm_plain(torch.from_numpy(x).to(card),
+                          torch.from_numpy(w[0]).to(card), 1e-6)
+    np.testing.assert_allclose(outs[0], want.cpu().numpy(), rtol=2e-5,
+                               atol=2e-5)

@@ -157,7 +157,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "serve/server.py", "profiling/scope.py",
                 "profiling/metrics.py", "algos/_util.py", "algos/potrf.py",
                 "algos/trsm.py", "algos/lu.py", "algos/inverse.py",
-                "algos/qr.py", "device/bench_utils.py"):
+                "algos/qr.py", "device/bench_utils.py",
+                "device/prefetch.py"):
         assert os.path.join("parsec_tpu_torch", sub) in walked, sub
     for path in files:
         with open(path) as f:
