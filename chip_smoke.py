@@ -37,9 +37,19 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      hits required; then GEMM at N=8192 in 1024^2 tiles resident and
      out-of-core at half its tile set (spills required, C against
      torch.matmul), and NORM out-of-core at half its O, bit-identical
-Then print the dense-LA line, the pipeline line and the kernels line
-(JSON; the kernels' launches are phase 4's and phase 7's) and, last, the
-device line (JSON).
+  8. drive the DSL front ends on phase 4's data (dsl_path), each in a
+     fresh context: GEMM as 512 DTD device tasks (INOUT chains of 8 on
+     each C tile), NORM and FATT as 32 DTD device tasks each (one
+     kernel launch a task, required), NORM as a JDF class with a
+     BODY [type=CUDA] (batched) compiled with dev=, and a host DTD body
+     reading a device task's tile; before each DTD run phase 4's PTG pool
+     of the path runs again, warm, as its yardstick; each held to its
+     plain version at phase 4's tolerance, NORM also beside phase 4's
+     PTG output bit for bit; each run's wall, tasks and kernel launches
+     printed
+Then print the dense-LA line, the pipeline line, the DSL line and the
+kernels line (JSON; the kernels' launches are phase 4's, phase 7's and
+phase 8's) and, last, the device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
@@ -142,11 +152,12 @@ def check_close(what: str, got, want, rtol: float, atol: float) -> float:
     return err
 
 
-def main_path(rng, dev_t, drive) -> None:
+def main_path(rng, dev_t, drive) -> np.ndarray:
     """The port's main path at full width: GEMM, NORM and FATT taskpools
     through Context -> Taskpool -> CudaDevice, each run by
     drive(label, tp, dev, ntasks) -> launch counts of that run, then
-    checked against the plain computation on the card."""
+    checked against the plain computation on the card.  Returns NORM's
+    O (host), which phase 8 holds its DSL runs of NORM against."""
     import torch
 
     import parsec_tpu_torch as pt
@@ -195,7 +206,8 @@ def main_path(rng, dev_t, drive) -> None:
                     dev, rows // T)
         if got["rms_norm"] <= 0:
             raise AssertionError("NORM: the rms_norm kernel never ran")
-        check_close("NORM O vs plain", to_tensor(Oc.to_dense(), dev_t),
+        norm_o = Oc.to_dense()
+        check_close("NORM O vs plain", to_tensor(norm_o, dev_t),
                     rn_mod.rms_norm_plain(to_tensor(xn, dev_t),
                                           to_tensor(wn[0], dev_t), EPS),
                     2e-5, 2e-5)
@@ -225,6 +237,7 @@ def main_path(rng, dev_t, drive) -> None:
         check_close("FATT O vs plain", to_tensor(Oc.to_dense(), dev_t)
                     .reshape(H, L, D), want, 2e-5, 2e-5)
         dev.stop()
+    return norm_o
 
 
 # phase 6 sizes: (N, NB) per path; the tiled group shares one (N, NB).
@@ -1030,6 +1043,377 @@ def pipeline_path(dev_t, dims=None, observe=None, ooc=True) -> dict:
     return out
 
 
+# phase 8 sizes, phase 4's: GEMM (N, NB), NORM (rows, d, T), FATT (heads,
+# L, D)
+DSL = {"gemm": (4096, 512), "norm": (8 * 4096, 4096, 1024),
+       "fatt": (32, 4096, 128)}
+
+# phase 8's JDF program: NORM as one class whose device incarnation calls
+# the RMSNorm op on the wave's [lanes, T, d] stacks (a batched body: one
+# launch for a wave); its host incarnation must not run
+NORM_JDF = """
+R [ type = "int" ]
+
+NORM(r)
+r = 0 .. R
+: X( r, 0 )
+
+READ X <- X( r, 0 )
+READ W <- W( 0, 0 )
+RW   O <- O( r, 0 )
+       -> O( r, 0 )
+
+BODY [type=CUDA reads=X,W writes=O]
+{
+O = rms_norm(X, W[0, 0], eps)
+}
+END
+
+BODY
+{
+raise RuntimeError("NORM ran its host incarnation")
+}
+END
+"""
+
+
+def dsl_path(dev_t, rng, dims=None, ptg_norm_o=None) -> dict:
+    """Phase 8: the DSL front ends, each run in a fresh
+    Context(nb_workers=4) with CudaDevice(ctx, device=dev_t), on phase
+    4's data (`rng` replays main_path's draws: GEMM's A and B, NORM's X
+    and W, FATT's Q, K and V, in that order):
+      DTD-GEMM  C += A @ B as insert_cuda_task calls, k_gemm = c + a @ b
+                (a plain product, as the PTG chore k_gemm_nn); each C
+                tile an INOUT chain of N/NB tasks; C at 1e-4 / 1e-3 of
+                torch.matmul
+      DTD-NORM  one device task per X row tile through the RMSNorm op;
+                O at 2e-5 of the plain version, and beside phase 4's PTG
+                NORM O (`ptg_norm_o`: bit identity expected, the largest
+                difference printed)
+      DTD-FATT  one device task per query head through the flash op, K
+                and V one shared tile each; O at 2e-5 of the plain
+                attention
+      JDF-NORM  NORM_JDF compiled with compile_jdf(..., dev=dev); held
+                as DTD-NORM
+      MIXED     a host insert_task body reads the tile a device task
+                has just written, in one DTD pool: it must see the
+                device's bytes
+    Before each DTD run, phase 4's PTG pool of the same path runs on the
+    same data (PTG-GEMM, PTG-NORM, PTG-FATT), held as phase 4 holds it:
+    the per-task DTD dispatch against PTG's lane groups, both warm (phase
+    4's runs are each path's first in the process).  Each run's wall is
+    from its first insert (PTG and JDF: building the pool and run())
+    through wait(), dev.flush() and a synchronize, printed with the task
+    count and the hand-written kernels' launches in the run; on a card
+    the DTD runs must launch their kernel once a task.  Returns {"runs":
+    {label: row}, "launches": the kernels' launches summed}."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.algos import build_gemm
+    from parsec_tpu_torch.convert import to_collection, to_tensor
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.dsl.dtd import DtdTaskpool
+    from parsec_tpu_torch.dsl.jdf import compile_jdf
+    fa_mod = importlib.import_module("parsec_tpu_torch.ops.flash_attention")
+    rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
+    dims = dims or DSL
+    n, nb = dims["gemm"]
+    rows, d, T = dims["norm"]
+    H, L, D = dims["fatt"]
+    out = {"runs": {}, "launches": {name: 0 for name in kernels.LAUNCHES}}
+
+    def run(label, ctx, go, ntasks):
+        """Run go() (the inserts and the wait) on a new CudaDevice of
+        `ctx`, then flush and synchronize; check the task count and
+        record the run.  Returns (the device, this run's launches)."""
+        dev = CudaDevice(ctx, device=dev_t)
+        kernels.reset_launches()
+        sync(dev_t)
+        t = time.perf_counter()
+        go(dev)
+        dev.flush()
+        sync(dev_t)
+        wall = (time.perf_counter() - t) * 1e3
+        got = dict(kernels.LAUNCHES)
+        st = dict(dev.stats)
+        chores = {k: v[0] for k, v in dev.launches.items()}
+        log(f"  {label}: {wall:.1f} ms wall (through the flush, "
+            f"synchronized), tasks={st['tasks']} batches={st['batches']} "
+            f"h2d_bytes={st['h2d_bytes']} d2h_bytes={st['d2h_bytes']} "
+            f"prefetch hits/staged {st['prefetch_hits']}/"
+            f"{st['prefetch_staged']}; chore launches {chores}; "
+            f"hand-written kernel launches {got}")
+        if st["tasks"] != ntasks:
+            raise AssertionError(f"{label}: {st['tasks']} device tasks, "
+                                 f"expected {ntasks}")
+        if dev.prefetch_error is not None:
+            raise AssertionError(f"{label}: prefetch lane exception "
+                                 f"{dev.prefetch_error!r}")
+        for k, v in got.items():
+            out["launches"][k] += v
+        out["runs"][label] = {"wall_ms": wall, "tasks": st["tasks"],
+                              "batches": st["batches"], "launches": got,
+                              "chore_launches": chores,
+                              "h2d_bytes": st["h2d_bytes"],
+                              "d2h_bytes": st["d2h_bytes"]}
+        return dev, got
+
+    def need(label, got, name, count):
+        if dev_t.type == "cuda" and got[name] != count:
+            raise AssertionError(f"{label}: {got[name]} {name} launches, "
+                                 f"expected {count}")
+
+    def vs_ptg(label, o):
+        if ptg_norm_o is None:
+            return
+        diff = float(np.abs(o - ptg_norm_o).max())
+        same = bool(np.array_equal(o, ptg_norm_o))
+        log(f"  {label} O vs phase 4's PTG NORM O: bit-identical {same}, "
+            f"max_abs_diff={diff:.3e}")
+        out["runs"][label]["ptg_bit_identical"] = same
+
+    # ------------------------------------------------- PTG-, DTD-GEMM
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    b = rng.standard_normal((n, n), dtype=np.float32)
+    want = torch.matmul(to_tensor(a, dev_t), to_tensor(b, dev_t))
+    nt = n // nb
+
+    def gemm_colls(ctx):
+        A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
+        C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+        return A, B, C
+
+    with pt.Context(nb_workers=4) as ctx:
+        A, B, C = gemm_colls(ctx)
+
+        def gemm_ptg(dev):
+            tp = build_gemm(ctx, A, B, C, dev)
+            tp.run()
+            tp.wait()
+
+        dev, _ = run(f"PTG-GEMM {n}^2 f32, {nb}^2 tiles", ctx, gemm_ptg,
+                     nt ** 3)
+        dev.stop()
+        check_close("PTG-GEMM C vs torch.matmul",
+                    to_tensor(C.to_dense(), dev_t), want, 1e-4, 1e-3)
+
+    with pt.Context(nb_workers=4) as ctx:
+        A, B, C = gemm_colls(ctx)
+        dtd = DtdTaskpool(ctx)
+
+        def k_gemm(a, b, c):
+            return c + a @ b
+
+        def gemm(dev):
+            shapes = {i: (nb, nb) for i in range(3)}
+            for m in range(nt):
+                for j in range(nt):
+                    for k in range(nt):
+                        dtd.insert_cuda_task(
+                            dev, k_gemm, (dtd.tile_of(A, m, k), "INPUT"),
+                            (dtd.tile_of(B, k, j), "INPUT"),
+                            (dtd.tile_of(C, m, j), "INOUT"), shapes=shapes)
+            dtd.wait()
+
+        dev, _ = run(f"DTD-GEMM {n}^2 f32, {nb}^2 tiles", ctx, gemm,
+                     nt ** 3)
+        dev.stop()
+        dtd.destroy()
+        # f32 products, sums of n terms in another order
+        check_close("DTD-GEMM C vs torch.matmul",
+                    to_tensor(C.to_dense(), dev_t), want, 1e-4, 1e-3)
+    del a, b, A, B, C, want
+
+    # ------------------------------------------------------- DTD-NORM
+    xn = rng.standard_normal((rows, d), dtype=np.float32)
+    wn = rng.standard_normal((1, d), dtype=np.float32)
+    want = rn_mod.rms_norm_plain(to_tensor(xn, dev_t),
+                                 to_tensor(wn[0], dev_t), EPS)
+    R = rows // T
+
+    def norm_colls(ctx):
+        X, W = to_collection(xn, T, d), to_collection(wn, 1, d)
+        O = to_collection(np.zeros_like(xn), T, d)
+        for name, coll in (("X", X), ("W", W), ("O", O)):
+            coll.register(ctx, name)
+        return X, W, O
+
+    with pt.Context(nb_workers=4) as ctx:
+        X, W, O = norm_colls(ctx)
+
+        def norm_ptg(dev):
+            tp = rn_mod.build_rms_norm(ctx, X, W, O, EPS, dev=dev)
+            tp.run()
+            tp.wait()
+
+        label = f"PTG-NORM {rows}x{d} f32, T={T}"
+        dev, got = run(label, ctx, norm_ptg, R)
+        dev.stop()
+        o = O.to_dense()
+        check_close("PTG-NORM O vs plain", to_tensor(o, dev_t), want,
+                    2e-5, 2e-5)
+        vs_ptg(label, o)
+
+    with pt.Context(nb_workers=4) as ctx:
+        X, W, O = norm_colls(ctx)
+        dtd = DtdTaskpool(ctx)
+
+        def k_norm(x, w):
+            # x [T, d], w [1, d]: one task's tiles
+            return rn_mod.rms_norm(x, w[0], EPS)
+
+        def norm(dev):
+            shapes = {0: (T, d), 1: (1, d), 2: (T, d)}
+            for r in range(R):
+                dtd.insert_cuda_task(dev, k_norm,
+                                     (dtd.tile_of(X, r, 0), "INPUT"),
+                                     (dtd.tile_of(W, 0, 0), "INPUT"),
+                                     (dtd.tile_of(O, r, 0), "OUTPUT"),
+                                     shapes=shapes)
+            dtd.wait()
+
+        label = f"DTD-NORM {rows}x{d} f32, T={T}"
+        dev, got = run(label, ctx, norm, R)
+        dev.stop()
+        dtd.destroy()
+        need(label, got, "rms_norm", R)
+        o = O.to_dense()
+        check_close("DTD-NORM O vs plain", to_tensor(o, dev_t), want,
+                    2e-5, 2e-5)
+        vs_ptg(label, o)
+    del X, O, o
+
+    # ------------------------------------------------------- JDF-NORM
+    with pt.Context(nb_workers=4) as ctx:
+        X, W, O = norm_colls(ctx)
+        holder = {}
+
+        def jdf(dev):
+            bld = compile_jdf(NORM_JDF, ctx, globals={"R": R - 1},
+                              dtype=np.float32,
+                              shapes={"X": (T, d), "W": (1, d),
+                                      "O": (T, d)}, dev=dev)
+            bld.scope.update(rms_norm=rn_mod.rms_norm, eps=EPS)
+            tp = bld.run()
+            tp.wait()
+            holder["tp"] = tp
+
+        label = f"JDF-NORM {rows}x{d} f32, T={T}, BODY [type=CUDA] batched"
+        dev, got = run(label, ctx, jdf, R)
+        dev.stop()
+        if dev_t.type == "cuda" and got["rms_norm"] <= 0:
+            raise AssertionError("JDF-NORM: the rms_norm kernel never ran")
+        o = O.to_dense()
+        check_close("JDF-NORM O vs plain", to_tensor(o, dev_t), want,
+                    2e-5, 2e-5)
+        vs_ptg(label, o)
+    del X, O, o, want
+
+    # ----------------------------------------------------------- MIXED
+    with pt.Context(nb_workers=4) as ctx:
+        tile = xn[:T].copy()
+        seen = {}
+        dtd = DtdTaskpool(ctx)
+        t = dtd.tile_of(ctx.data(1, tile))
+
+        def k_scale(x):
+            return x * 2 + 1
+
+        def host_read(view):
+            seen["x"] = view.data(0, np.float32, (T, d)).copy()
+
+        def mixed(dev):
+            dtd.insert_cuda_task(dev, k_scale, (t, "INOUT"),
+                                 shapes={0: (T, d)})
+            dtd.insert_task(host_read, (t, "INPUT"))
+            dtd.insert_cuda_task(dev, k_scale, (t, "INOUT"),
+                                 shapes={0: (T, d)})
+            dtd.wait()
+
+        dev, _ = run(f"MIXED device, host, device on one ({T}, {d}) tile",
+                     ctx, mixed, 2)
+        dev.stop()
+        dtd.destroy()
+        x1 = xn[:T] * np.float32(2) + np.float32(1)
+        if not np.array_equal(seen["x"], x1):
+            raise AssertionError("MIXED: the host body did not read the "
+                                 "device task's bytes")
+        if not np.array_equal(tile, x1 * np.float32(2) + np.float32(1)):
+            raise AssertionError("MIXED: the tile does not hold the second "
+                                 "device task's bytes")
+        log("  MIXED: the host body read the device task's bytes, and "
+            "the next device task read them")
+    del xn, wn
+
+    # ------------------------------------------------------- DTD-FATT
+    qn = rng.standard_normal((H * L, D), dtype=np.float32)
+    kn = rng.standard_normal((L, D), dtype=np.float32)
+    vn = rng.standard_normal((L, D), dtype=np.float32)
+    scale = D ** -0.5
+    kt, vt = to_tensor(kn, dev_t), to_tensor(vn, dev_t)
+    want = fa_mod.attention_reference(
+        to_tensor(qn, dev_t).reshape(H, L, D),
+        kt.unsqueeze(0).expand(H, L, D), vt.unsqueeze(0).expand(H, L, D),
+        False, scale)
+
+    def fatt_colls(ctx):
+        Q, K, V = (to_collection(qn, L, D), to_collection(kn, L, D),
+                   to_collection(vn, L, D))
+        O = to_collection(np.zeros_like(qn), L, D)
+        for name, coll in (("Q", Q), ("K", K), ("V", V), ("O", O)):
+            coll.register(ctx, name)
+        return Q, K, V, O
+
+    with pt.Context(nb_workers=4) as ctx:
+        Q, K, V, O = fatt_colls(ctx)
+
+        def fatt_ptg(dev):
+            tp = fa_mod.build_flash_attention(ctx, Q, K, V, O, dev=dev)
+            tp.run()
+            tp.wait()
+
+        dev, _ = run(f"PTG-FATT {H}x{L}x{D} f32, shared K/V", ctx,
+                     fatt_ptg, H)
+        dev.stop()
+        check_close("PTG-FATT O vs plain",
+                    to_tensor(O.to_dense(), dev_t).reshape(H, L, D), want,
+                    2e-5, 2e-5)
+
+    with pt.Context(nb_workers=4) as ctx:
+        Q, K, V, O = fatt_colls(ctx)
+        dtd = DtdTaskpool(ctx)
+
+        def k_fatt(qb, kb, vb):
+            # one head's [L, D] blocks through the flash op as 1 lane
+            return fa_mod.flash_fwd(qb[None], kb[None], vb[None], False,
+                                    scale)[0]
+
+        def fatt(dev):
+            shapes = {i: (L, D) for i in range(4)}
+            for h in range(H):
+                dtd.insert_cuda_task(dev, k_fatt,
+                                     (dtd.tile_of(Q, h, 0), "INPUT"),
+                                     (dtd.tile_of(K, 0, 0), "INPUT"),
+                                     (dtd.tile_of(V, 0, 0), "INPUT"),
+                                     (dtd.tile_of(O, h, 0), "OUTPUT"),
+                                     shapes=shapes)
+            dtd.wait()
+
+        label = f"DTD-FATT {H}x{L}x{D} f32, shared K/V"
+        dev, got = run(label, ctx, fatt, H)
+        dev.stop()
+        dtd.destroy()
+        need(label, got, "flash_attention", H)
+        check_close("DTD-FATT O vs plain",
+                    to_tensor(O.to_dense(), dev_t).reshape(H, L, D), want,
+                    2e-5, 2e-5)
+    return out
+
+
 def serve_oracle(model, req, dev_t, head64):
     """The request's outputs and logits recomputed on the engine's own
     token stream (teacher-forced): per step, q of the query token and
@@ -1442,7 +1826,9 @@ def main() -> int:
             raise AssertionError(f"{label}: no batched launch")
         return got
 
-    main_path(rng, dev_t, drive)
+    # phase 8 replays phase 4's draws from this state
+    phase4_rng = rng.bit_generator.state
+    norm_o = main_path(rng, dev_t, drive)
 
     log("phase 5: the serving path, Context -> Server -> InferenceEngine "
         "-> CudaDevice, at Llama-2-7B attention widths")
@@ -1484,9 +1870,22 @@ def main() -> int:
         launches[name] += n
     log(f"  PIPELINE phase {time.perf_counter() - t:.1f} s; hand-written "
         f"kernel launches in it: {pipe['launches']}")
+
+    log("phase 8: the DSL front ends on the card: DTD device tasks and a "
+        "JDF BODY [type=CUDA] -> CudaDevice, on phase 4's data")
+    t = time.perf_counter()
+    rng8 = np.random.default_rng()
+    rng8.bit_generator.state = phase4_rng
+    dsl = dsl_path(dev_t, rng8, ptg_norm_o=norm_o)
+    del norm_o
+    for name, n in dsl["launches"].items():
+        launches[name] += n
+    log(f"  DSL phase {time.perf_counter() - t:.1f} s; hand-written "
+        f"kernel launches in it: {dsl['launches']}")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
+    print(json.dumps({"dsl": dsl["runs"]}))
 
     rows_out = []
     for name, r, err, repl in (

@@ -39,6 +39,9 @@ FLOW_CTL = 4
 MAX_LOCALS = 20
 MAX_FLOWS = 20
 
+# element kinds of a cast datatype (native ptc_register_datatype_cast)
+ELEM_KINDS = {"float32": 0, "float64": 1, "int32": 2, "int64": 3, "uint8": 4}
+
 BODY_NOOP = 0
 BODY_CB = 1
 BODY_DEVICE = 2
@@ -139,6 +142,20 @@ _sigs = {
     "ptc_register_arena": (C.c_int32, [C.c_void_p, C.c_int64]),
     "ptc_register_datatype": (C.c_int32, [C.c_void_p, C.c_int64, C.c_int64,
                                           C.c_int64]),
+    "ptc_register_datatype_indexed": (C.c_int32, [C.c_void_p,
+                                                  C.POINTER(C.c_int64),
+                                                  C.POINTER(C.c_int64),
+                                                  C.c_int32]),
+    "ptc_register_datatype_cast": (C.c_int32, [C.c_void_p, C.c_int32,
+                                               C.c_int32, C.c_int64]),
+    "ptc_ctx_reshape_stats": (None, [C.c_void_p, C.POINTER(C.c_int64),
+                                     C.POINTER(C.c_int64)]),
+    # the collection tool ABI (ptg_to_dtd reaches natively registered
+    # collections through it)
+    "ptc_dc_data_of": (C.c_void_p, [C.c_void_p, C.c_int32,
+                                    C.POINTER(C.c_int64), C.c_int32]),
+    "ptc_dc_rank_of": (C.c_int32, [C.c_void_p, C.c_int32,
+                                   C.POINTER(C.c_int64), C.c_int32]),
     "ptc_tp_new": (C.c_void_p, [C.c_void_p, C.c_int32, C.POINTER(C.c_int64)]),
     "ptc_tp_destroy": (None, [C.c_void_p]),
     "ptc_tp_add_class": (C.c_int32, [C.c_void_p, C.c_char_p,
@@ -154,6 +171,7 @@ _sigs = {
     "ptc_tp_global": (C.c_int64, [C.c_void_p, C.c_int32]),
     "ptc_tp_id": (C.c_int32, [C.c_void_p]),
     "ptc_tp_set_scope": (None, [C.c_void_p, C.c_int64]),
+    "ptc_tp_set_open": (None, [C.c_void_p, C.c_int32]),
     "ptc_clock_ns": (C.c_int64, []),
     "ptc_task_fail": (None, [C.c_void_p, C.c_void_p]),
     "ptc_data_new": (C.c_void_p, [C.c_int64, C.c_void_p, C.c_int64]),
@@ -193,6 +211,22 @@ _sigs = {
     "ptc_device_get_data_owner": (C.c_int32, [C.c_void_p, C.c_int64,
                                               C.POINTER(C.c_int32)]),
     "ptc_device_set_affinity_skew": (None, [C.c_void_p, C.c_double]),
+    # DTD: tracked tiles, task insertion (one at a time or as a batched
+    # spec stream) and the per-task tag that keys a device task's body
+    "ptc_dtile_new": (C.c_void_p, [C.c_void_p, C.c_void_p]),
+    "ptc_dtile_destroy": (None, [C.c_void_p, C.c_void_p]),
+    "ptc_dtile_set_owner": (None, [C.c_void_p, C.c_uint32]),
+    "ptc_dtask_begin": (C.c_void_p, [C.c_void_p, C.c_int32, C.c_int64,
+                                     C.c_int32]),
+    "ptc_dtask_arg": (C.c_int32, [C.c_void_p, C.c_void_p, C.c_int32]),
+    "ptc_dtask_submit": (C.c_int32, [C.c_void_p, C.c_void_p, C.c_int64]),
+    "ptc_dtask_insert_batch": (C.c_int64, [C.c_void_p, C.c_void_p,
+                                           C.POINTER(C.c_int64), C.c_int64,
+                                           C.c_int64]),
+    "ptc_dtask_nb_flows": (C.c_int32, [C.c_void_p]),
+    "ptc_dtask_set_rank": (None, [C.c_void_p, C.c_int32]),
+    "ptc_task_set_tag": (None, [C.c_void_p, C.c_int64]),
+    "ptc_task_get_tag": (C.c_int64, [C.c_void_p]),
     "ptc_profile_enable": (None, [C.c_void_p, C.c_int32]),
     "ptc_profile_set_ring": (None, [C.c_void_p, C.c_int64]),
     "ptc_flight_set_dump_path": (None, [C.c_void_p, C.c_char_p]),

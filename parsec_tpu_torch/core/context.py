@@ -107,6 +107,8 @@ class Context:
         self.arenas: Dict[str, int] = {}
         self.arena_sizes: Dict[str, int] = {}  # name -> elem bytes
         self.datatypes: Dict[str, int] = {}
+        # name -> payload bytes of a datatype (None: the whole copy)
+        self.datatype_bytes: Dict[str, Optional[int]] = {}
         self._destroyed = False
 
     # ------------------------------------------------------------ lifecycle
@@ -383,7 +385,59 @@ class Context:
                 f"stride={stride_bytes} (need elem>0, count>0, "
                 "stride>=elem)")
         self.datatypes[name] = did
+        self.datatype_bytes[name] = elem_bytes * count
         return did
+
+    def register_datatype_indexed(self, name: str, segments) -> int:
+        """Indexed datatype: explicit (offset_bytes, len_bytes) segments —
+        the MPI_Type_indexed analog (expresses triangles etc.).  Usable as
+        a wire type (pack/scatter the segments) or as a dep's LOCAL
+        reshape type (In/Out ltype= or JDF `[type = name]`): the dep's
+        data is routed through a new datacopy holding only the selected
+        bytes, memoized per (source copy, type) — the reference's
+        datacopy-future reshape chain (parsec/parsec_reshape.c,
+        parsec/utils/parsec_datacopy_future.c)."""
+        n = len(segments)
+        offs = (C.c_int64 * n)(*[int(o) for o, _ in segments])
+        lens = (C.c_int64 * n)(*[int(ln) for _, ln in segments])
+        did = N.lib.ptc_register_datatype_indexed(self._ptr, offs, lens, n)
+        if did < 0:
+            raise ValueError(
+                f"bad indexed datatype {name!r}: need >=1 segment, "
+                "offsets >= 0, lens > 0")
+        self.datatypes[name] = did
+        self.datatype_bytes[name] = sum(int(ln) for _, ln in segments)
+        return did
+
+    def register_datatype_cast(self, name: str, from_dtype, to_dtype,
+                               count: int = -1) -> int:
+        """Element-cast datatype: contiguous `count` elements (-1 = the
+        whole copy) converted from_dtype -> to_dtype.  As a local reshape
+        type this is the arbitrary type->type promise of the reference's
+        reshape machinery; on a Mem write-back dep the conversion
+        reverses (reference: parsec_reshape.c type conversion futures)."""
+        kinds = N.ELEM_KINDS
+        fk = kinds.get(np.dtype(from_dtype).name)
+        tk = kinds.get(np.dtype(to_dtype).name)
+        if fk is None or tk is None:
+            raise ValueError(
+                f"cast datatype {name!r}: unsupported element type "
+                f"(supported: {sorted(kinds)})")
+        did = N.lib.ptc_register_datatype_cast(self._ptr, fk, tk, count)
+        if did < 0:
+            raise ValueError(f"bad cast datatype {name!r}")
+        self.datatypes[name] = did
+        self.datatype_bytes[name] = (
+            None if count < 0 else count * np.dtype(to_dtype).itemsize)
+        return did
+
+    def reshape_stats(self):
+        """(conversions, hits): local-reshape futures triggered vs
+        memoized/identity reuses (avoidable-reshape accounting)."""
+        conv = C.c_int64(0)
+        hits = C.c_int64(0)
+        N.lib.ptc_ctx_reshape_stats(self._ptr, C.byref(conv), C.byref(hits))
+        return conv.value, hits.value
 
     # ------------------------------------------------------------ devices
     def device_queue_depth(self, qid: int) -> int:

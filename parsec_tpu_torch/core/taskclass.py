@@ -25,8 +25,11 @@ from .expr import Compr, CompileCtx, ExprLike, Range, compile_expr
 
 # directories whose frames are builder plumbing, not authorship: the
 # source location of a dep/class is the first frame OUTSIDE these (the
-# algos/ops module or user code that called In()/Out()/task_class())
-_PLUMBING_DIRS = (os.path.dirname(os.path.abspath(__file__)),)
+# algos/ops/dsl module or user code that called In()/Out()/task_class();
+# the JDF front end stamps its own file:line locations)
+_PLUMBING_DIRS = (os.path.dirname(os.path.abspath(__file__)),
+                  os.path.join(os.path.dirname(os.path.dirname(
+                      os.path.abspath(__file__))), "dsl"))
 
 
 def _srcloc() -> Optional[str]:

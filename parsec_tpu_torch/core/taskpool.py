@@ -1,8 +1,8 @@
 """Taskpool: a DAG of task classes sharing globals (reference:
 parsec_taskpool_t, parsec/parsec_internal.h:119-161).
 
-Port of parsec_tpu/core/taskpool.py without the DTD open/drain controls
-and the static-analysis hooks (not ported yet: plan() raises)."""
+Port of parsec_tpu/core/taskpool.py without DTD's drain and the
+static-analysis hooks (not ported yet: plan() raises)."""
 from __future__ import annotations
 
 import ctypes as C
@@ -179,6 +179,11 @@ class Taskpool:
         tasks that will never become ready, tests/dsl/ptg/choice).  Returns
         the new count."""
         return N.lib.ptc_tp_addto_nb_tasks(self._ptr, delta)
+
+    def set_open(self, open_: bool):
+        """Hold the pool open (DTD insertion): it cannot complete while
+        open, however many of its tasks have run."""
+        N.lib.ptc_tp_set_open(self._ptr, 1 if open_ else 0)
 
     def on_complete(self, fn: Callable[[], None]):
         """Fire fn() exactly once when this taskpool completes (reference:

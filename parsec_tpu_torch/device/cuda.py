@@ -65,6 +65,7 @@ from .. import _native as N
 from ..core.context import Context
 from ..core.taskclass import Mem, TaskClass, TaskView
 from ..core.taskpool import Taskpool
+from ..dsl.dtd import DtdView
 from ..utils import params as _knobs
 from .prefetch import _PrefetchLane
 
@@ -82,9 +83,16 @@ _D2H_CHUNK = 256 << 20
 
 
 class _DeviceBody:
+    """A device chore: the kernel and its flows.  A PTG class body (`tc`
+    set) is keyed by (pool, class) and its flows are named; a DTD task's
+    body (`tc` None) is keyed by the task's tag, its flows are argument
+    indices (`nb_flows` of them), its kernel takes and returns single
+    tiles, and it runs one task per launch."""
+
     def __init__(self, kernel: Callable, reads: Sequence,
                  writes: Sequence, shapes: Dict, dtypes: Dict,
-                 tc: TaskClass, tp: Taskpool, batch: bool = True):
+                 tc: Optional[TaskClass], tp: Optional[Taskpool],
+                 nb_flows: int = 0, batch: bool = True):
         self.kernel = kernel
         self.reads = list(reads)
         self.writes = list(writes)
@@ -92,6 +100,7 @@ class _DeviceBody:
         self.dtypes = dtypes
         self.tc = tc
         self.tp = tp
+        self.nb_flows = nb_flows
         self.batch = batch  # kernel is elementwise over lanes
         # speculative epilogue: this class is its source (epilogue) or
         # its destination (spec_src); see CudaDevice.attach_epilogue
@@ -100,14 +109,26 @@ class _DeviceBody:
         # flows whose output deps include a memory writeback: their host
         # copy must be coherent at completion (release_deps may memcpy it)
         self.mem_out_flows = set()
-        for fl in tc.flows:
-            if fl.name in self.writes:
-                for d in fl.deps:
-                    if d.direction == 1 and isinstance(d.target, Mem):
-                        self.mem_out_flows.add(fl.name)
+        if tc is not None:
+            for fl in tc.flows:
+                if fl.name in self.writes:
+                    for d in fl.deps:
+                        if d.direction == 1 and isinstance(d.target, Mem):
+                            self.mem_out_flows.add(fl.name)
+
+    @property
+    def name(self) -> str:
+        if self.tc is not None:
+            return self.tc.name
+        return f"dtd:{getattr(self.kernel, '__name__', 'kernel')}"
+
+    def flow_index(self, f) -> int:
+        return f if isinstance(f, int) else self.tc.flow_index(f)
 
     def make_view(self, task_ptr):
-        return TaskView(task_ptr, self.tc, self.tp)
+        if self.tc is not None:
+            return TaskView(task_ptr, self.tc, self.tp)
+        return DtdView(task_ptr, self.nb_flows)
 
 
 class _Epilogue:
@@ -259,6 +280,9 @@ class CudaDevice:
         self.batch_max_bytes = int(
             os.environ.get("PTC_DEVICE_BATCH_BYTES", str(2 << 30)))
         self.bodies: Dict[Tuple[int, int], _DeviceBody] = {}
+        # DTD device tasks' bodies by task tag (register_dtd_task); each
+        # is popped at its task's dispatch
+        self._dtd_bodies: Dict[int, _DeviceBody] = {}
         self._tp_by_ptr: Dict[int, Taskpool] = {}
         # device-copy LRU keyed by uid (stamped into the native copy handle,
         # so freed/reused ptc_copy addresses can't alias — ABA guard)
@@ -1049,6 +1073,7 @@ class CudaDevice:
             self._cache.clear()
             self._stacks.clear()
             self._spec.clear()
+            self._dtd_bodies.clear()
             self._cache_used = 0
 
     def _manager(self):
@@ -1094,15 +1119,63 @@ class CudaDevice:
                     else:
                         self._dispatch_group(body, ts)
 
+    def register_dtd_task(self, task_ptr, kernel: Callable,
+                          reads: Sequence[int], writes: Sequence[int],
+                          shapes: Dict[int, tuple], dtype, nb_flows: int,
+                          tp: Taskpool) -> int:
+        """The body of one DTD device task (dsl/dtd.py insert_cuda_task),
+        consumed at its dispatch.  Keyed by a process-unique tag stamped
+        on the task, never by its heap address, which a later task can
+        reuse (the ABA hazard the copy cache's uids guard too).  Returns
+        the tag."""
+        dtypes = {i: np.dtype(dtype) for i in range(nb_flows)}
+        body = _DeviceBody(kernel, reads, writes, shapes, dtypes, None, tp,
+                           nb_flows, batch=False)
+        with self._lock:
+            tag = _next_uid()
+            N.lib.ptc_task_set_tag(task_ptr, tag)
+            self._dtd_bodies[tag] = body
+        return tag
+
+    def drop_dtd_tasks(self, tp: Taskpool, tag: Optional[int] = None) -> None:
+        """Forget DTD bodies that will never dispatch: the one of `tag`
+        (an insertion the pool refused), or every one of the pool `tp`
+        still held (its wait() returned: they are tasks an abort
+        dropped)."""
+        with self._lock:
+            if tag is not None:
+                self._dtd_bodies.pop(tag, None)
+                return
+            for t in [t for t, b in self._dtd_bodies.items() if b.tp is tp]:
+                del self._dtd_bodies[t]
+
     def _body_for(self, task) -> Optional[_DeviceBody]:
+        """A DTD task's body by its tag (popped: a tag dispatches once),
+        else its pool's class body."""
+        tag = N.lib.ptc_task_get_tag(task)
+        if tag:
+            with self._lock:
+                body = self._dtd_bodies.pop(tag, None)
+            if body is not None:
+                return body
         tp = self._tp_by_ptr.get(N.lib.ptc_task_taskpool(task))
         if tp is None:
             return None
         return self.bodies.get((id(tp), N.lib.ptc_task_class(task)))
 
     def _flow_uid_ver(self, view, body, flow):
-        cptr = N.lib.ptc_task_copy(view._ptr, body.tc.flow_index(flow))
+        cptr = N.lib.ptc_task_copy(view._ptr, body.flow_index(flow))
         return cptr, self._copy_uid(cptr), N.lib.ptc_copy_version(cptr)
+
+    def _flow_shape(self, view, body: _DeviceBody, flow) -> tuple:
+        """A flow's tile shape: the declared one, else (a DTD argument
+        given no shape) the whole copy as a vector of its dtype."""
+        shape = body.shapes.get(flow)
+        if shape is not None:
+            return tuple(shape)
+        cptr = N.lib.ptc_task_copy(view._ptr, body.flow_index(flow))
+        return (N.lib.ptc_copy_size(cptr)
+                // np.dtype(body.dtypes[flow]).itemsize,)
 
     def _sibling_mirror(self, uid, ver, dtype, shape):
         """A sibling device's current mirror of (uid, ver), ready to be
@@ -1168,7 +1241,7 @@ class CudaDevice:
           - otherwise: a new stack, rows copied from the cache, a sibling
             or a fresh h2d (staged rows are then cached as rows of it)"""
         n = len(views)
-        shape = tuple(body.shapes[flow])
+        shape = self._flow_shape(views[0], body, flow)
         keys = [self._flow_uid_ver(v, body, flow)[1:] for v in views]
         if all(k == keys[0] for k in keys):
             if n > 1:
@@ -1262,11 +1335,11 @@ class CudaDevice:
                 self._stats_add("spec_misses")
                 sys.stderr.write(
                     f"ptc [device]: epilogue kernel returned {len(arrs)} "
-                    f"output(s), {body.tc.name} writes {len(body.writes)}; "
+                    f"output(s), {body.name} writes {len(body.writes)}; "
                     "ignoring the parked result\n")
                 return False
             cptr = N.lib.ptc_task_copy(view._ptr,
-                                       body.tc.flow_index(spec.dst_in_flow))
+                                       body.flow_index(spec.dst_in_flow))
             if N.lib.ptc_copy_handle(cptr) != suid \
                     or N.lib.ptc_copy_version(cptr) != sver:
                 self._stats_add("spec_misses")
@@ -1337,14 +1410,20 @@ class CudaDevice:
         views = [body.make_view(t) for t in tasks]
         try:
             ins = [self._lanes_in(views, body, f) for f in body.reads]
-            out = body.kernel(*ins)
+            if body.tc is None:
+                # a DTD kernel takes one task's tiles, not lane stacks
+                out = body.kernel(*(t[0] for t in ins))
+            else:
+                out = body.kernel(*ins)
             self._count_launch(body.kernel, len(tasks))
             ev = self._record()
             outs = out if isinstance(out, tuple) else (out,)
             if len(outs) != len(body.writes):
                 raise ValueError(
-                    f"{body.tc.name}: kernel returned {len(outs)} "
+                    f"{body.name}: kernel returned {len(outs)} "
                     f"output(s) for {len(body.writes)} write flow(s)")
+            if body.tc is None:
+                outs = tuple(o.unsqueeze(0) for o in outs)
             epi, epi_lane, epi_key = body.epilogue, None, None
             if epi is not None:
                 for i, view in enumerate(views):
@@ -1357,7 +1436,7 @@ class CudaDevice:
                 if ostack.shape[0] != len(tasks) \
                         or ostack.device != self.device:
                     raise ValueError(
-                        f"{body.tc.name}.{f}: kernel output "
+                        f"{body.name}.{f}: kernel output "
                         f"{tuple(ostack.shape)} on {ostack.device}, "
                         f"expected {len(tasks)} lanes on {self.device}")
                 uids = []

@@ -8,7 +8,8 @@ Environment spelling: PTC_MCA_<name with '.' -> '_'>.  The config file is
 sched.*, serve.* (the reference's, read by nothing yet there either),
 the control.spec_* knobs of the serving engine, device.cache_bytes,
 device.affinity_skew and the device pipeline's knobs (device.prefetch,
-prefetch_depth, staging_slots, out_of_core, overcommit).  The runtime.*
+prefetch_depth, staging_slots, out_of_core, overcommit), and the DTD
+front end's dtd.window_size and dtd.insert_batch.  The runtime.*
 hooks whose modules are not ported yet (pins, live, metrics_port,
 watchdog, journal) are registered so that setting one is refused loudly
 by Context instead of ignored.
@@ -170,6 +171,13 @@ register("runtime.metrics_port", 0, int,
          "Prometheus endpoint (not ported: refused)")
 register("runtime.watchdog", "", str, "health watchdog (not ported: refused)")
 register("runtime.journal", "", str, "event journal (not ported: refused)")
+register("dtd.window_size", 8000, int,
+         "DTD discovery window (reference: parsec_dtd_window_size)")
+register("dtd.insert_batch", 256, int,
+         "tasks per native crossing for DtdTaskpool.insert_tasks: the "
+         "batched spec stream is chunked at this size so the window "
+         "throttle still engages mid-batch and the spec buffer stays "
+         "bounded; <= 1 degenerates to one crossing per task")
 register("sched.bypass", True, bool,
          "same-worker ready-task bypass: a worker completing a task "
          "executes its highest-priority ready successor directly")

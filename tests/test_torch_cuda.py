@@ -546,3 +546,144 @@ def test_norm_out_of_core_bit_identical_to_resident(card):
                           torch.from_numpy(w[0]).to(card), 1e-6)
     np.testing.assert_allclose(outs[0], want.cpu().numpy(), rtol=2e-5,
                                atol=2e-5)
+
+
+# ------------------------------------------------ the DSLs on the card
+def _dtd_norm_fatt(card, kernel_norm, kernel_fatt):
+    """NORM and FATT as DTD device tasks on CudaDevice(ctx), 3 tasks
+    each; returns (O norm, O fatt, inputs, launches in the run)."""
+    from parsec_tpu_torch.dsl.dtd import DtdTaskpool
+    R, T, d = 3, 256, 512
+    H, L, D = 3, 128, 64
+    rng = np.random.default_rng(31)
+    x = rng.standard_normal((R * T, d), dtype=np.float32)
+    w = rng.standard_normal((1, d), dtype=np.float32)
+    q = rng.standard_normal((H * L, D), dtype=np.float32)
+    k = rng.standard_normal((L, D), dtype=np.float32)
+    v = rng.standard_normal((L, D), dtype=np.float32)
+    colls = {"X": to_collection(x, T, d), "W": to_collection(w, 1, d),
+             "O": to_collection(np.zeros_like(x), T, d),
+             "Q": to_collection(q, L, D), "K": to_collection(k, L, D),
+             "V": to_collection(v, L, D),
+             "P": to_collection(np.zeros_like(q), L, D)}
+    with pt.Context(nb_workers=2) as ctx:
+        for name, c in colls.items():
+            c.register(ctx, name)
+        dev = CudaDevice(ctx)
+        dtd = DtdTaskpool(ctx)
+        kernels.reset_launches()
+        tile = dtd.tile_of
+        for r in range(R):
+            dtd.insert_cuda_task(dev, kernel_norm,
+                                 (tile(colls["X"], r, 0), "INPUT"),
+                                 (tile(colls["W"], 0, 0), "INPUT"),
+                                 (tile(colls["O"], r, 0), "OUTPUT"),
+                                 shapes={0: (T, d), 1: (1, d), 2: (T, d)})
+        for h in range(H):
+            dtd.insert_cuda_task(dev, kernel_fatt,
+                                 (tile(colls["Q"], h, 0), "INPUT"),
+                                 (tile(colls["K"], 0, 0), "INPUT"),
+                                 (tile(colls["V"], 0, 0), "INPUT"),
+                                 (tile(colls["P"], h, 0), "OUTPUT"),
+                                 shapes={i: (L, D) for i in range(4)})
+        try:
+            dtd.wait()
+        finally:
+            dev.flush()
+            launches = dict(kernels.LAUNCHES)
+            dev.stop()
+            dtd.destroy()
+    return (colls["O"].to_dense(), colls["P"].to_dense(), (x, w, q, k, v),
+            launches)
+
+
+def test_dtd_device_tasks_launch_each_kernel(card):
+    """A DTD device task on CudaDevice(ctx) launches the RMSNorm kernel,
+    another the flash kernel, once a task; each output matches its plain
+    version at 2e-5."""
+    import torch
+    from parsec_tpu_torch.ops.flash_attention import flash_fwd
+    from parsec_tpu_torch.ops.rms_norm import rms_norm
+
+    def k_norm(xb, wb):
+        return rms_norm(xb, wb[0], 1e-6)
+
+    def k_fatt(qb, kb, vb):
+        return flash_fwd(qb[None], kb[None], vb[None], False, 0.125)[0]
+
+    o, p, (x, w, q, k, v), launches = _dtd_norm_fatt(card, k_norm, k_fatt)
+    assert launches == {"rms_norm": 3, "flash_attention": 3}
+    want = rms_norm_plain(torch.from_numpy(x).to(card),
+                          torch.from_numpy(w[0]).to(card), 1e-6)
+    np.testing.assert_allclose(o, want.cpu().numpy(), rtol=2e-5, atol=2e-5)
+    kt = torch.from_numpy(k).to(card).expand(3, 128, 64)
+    vt = torch.from_numpy(v).to(card).expand(3, 128, 64)
+    att = attention_reference(torch.from_numpy(q).to(card)
+                              .reshape(3, 128, 64), kt, vt, False, 0.125)
+    np.testing.assert_allclose(p, att.reshape(-1, 64).cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_dtd_device_task_that_cannot_launch_raises(card):
+    """A kernel the wrapper cannot launch (the flash kernel has no head
+    dim 48) fails the pool: nothing falls back to the plain version, and
+    no flash launch is counted."""
+    from parsec_tpu_torch.ops.flash_attention import flash_attention_cuda
+    from parsec_tpu_torch.ops.rms_norm import rms_norm
+
+    def k_norm(xb, wb):
+        return rms_norm(xb, wb[0], 1e-6)
+
+    def k_bad(qb, kb, vb):
+        return flash_attention_cuda(qb[None, :, :48], kb[None, :, :48],
+                                    vb[None, :, :48], False, 0.125)[0]
+
+    with pytest.raises(RuntimeError, match="aborted"):
+        _dtd_norm_fatt(card, k_norm, k_bad)
+    assert kernels.LAUNCHES["flash_attention"] == 0
+
+
+def test_jdf_cuda_body_launches_the_rms_norm_kernel(card):
+    """A JDF class whose BODY [type=CUDA] calls the RMSNorm op on its
+    wave's stacks launches the kernel; O matches the plain version."""
+    import torch
+    from parsec_tpu_torch.dsl.jdf import compile_jdf
+    from parsec_tpu_torch.ops.rms_norm import rms_norm
+    src = """
+R [ type = "int" ]
+NORM(r)
+r = 0 .. R
+: X( r, 0 )
+READ X <- X( r, 0 )
+READ W <- W( 0, 0 )
+RW   O <- O( r, 0 )
+       -> O( r, 0 )
+BODY [type=CUDA reads=X,W writes=O]
+{
+O = rms_norm(X, W[0, 0], 1e-6)
+}
+END
+"""
+    R, T, d = 4, 256, 512
+    rng = np.random.default_rng(37)
+    x = rng.standard_normal((R * T, d), dtype=np.float32)
+    w = rng.standard_normal((1, d), dtype=np.float32)
+    X, W = to_collection(x, T, d), to_collection(w, 1, d)
+    O = to_collection(np.zeros_like(x), T, d)
+    with pt.Context(nb_workers=2) as ctx:
+        for name, c in (("X", X), ("W", W), ("O", O)):
+            c.register(ctx, name)
+        dev = CudaDevice(ctx)
+        kernels.reset_launches()
+        b = compile_jdf(src, ctx, globals={"R": R - 1}, dtype=np.float32,
+                        shapes={"X": (T, d), "W": (1, d), "O": (T, d)},
+                        dev=dev)
+        b.scope["rms_norm"] = rms_norm
+        b.run().wait()
+        dev.flush()
+        dev.stop()
+    assert kernels.LAUNCHES["rms_norm"] >= 1
+    want = rms_norm_plain(torch.from_numpy(x).to(card),
+                          torch.from_numpy(w[0]).to(card), 1e-6)
+    np.testing.assert_allclose(O.to_dense(), want.cpu().numpy(),
+                               rtol=2e-5, atol=2e-5)

@@ -151,14 +151,17 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     found = []
     files = _port_files()
     assert len(files) > 10
-    # the walk reaches every subpackage, the serving path's included
+    # the walk reaches every subpackage, the serving path's and the DSL
+    # front ends' included
     walked = {os.path.relpath(p, REPO) for p in files}
     for sub in ("ops/paged_attention.py", "serve/engine.py",
                 "serve/server.py", "profiling/scope.py",
                 "profiling/metrics.py", "algos/_util.py", "algos/potrf.py",
                 "algos/trsm.py", "algos/lu.py", "algos/inverse.py",
                 "algos/qr.py", "device/bench_utils.py",
-                "device/prefetch.py"):
+                "device/prefetch.py", "dsl/__init__.py", "dsl/dtd.py",
+                "dsl/jdf.py", "dsl/ptg_to_dtd.py", "analysis/__init__.py",
+                "analysis/dtdlint.py", "analysis/flowgraph.py"):
         assert os.path.join("parsec_tpu_torch", sub) in walked, sub
     for path in files:
         with open(path) as f:
