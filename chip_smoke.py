@@ -47,9 +47,21 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      plain version at phase 4's tolerance, NORM also beside phase 4's
      PTG output bit for bit; each run's wall, tasks and kernel launches
      printed
-Then print the dense-LA line, the pipeline line, the DSL line and the
-kernels line (JSON; the kernels' launches are phase 4's, phase 7's and
-phase 8's) and, last, the device line (JSON).
+  9. drive the rest of the one-rank runtime (runtime_path) and read its
+     own trace: phase 4's GEMM, NORM and FATT pools traced at level 2,
+     the DEVICE_DISPATCH and DEVICE_H2D spans held to the device's
+     stats and the kernels' launches, the trace saved and loaded back,
+     per class its dispatch time and stall, critical path and lost
+     time, NORM's wall traced and untraced in turns; a recursive
+     Cholesky of one 8192^2 tile over 512^2 sub-tiles on the card; a
+     composed potrf, trtri, lauum against run_potri; POTRF-T's
+     device-dirty factor regridded, cast to float16 and column-reduced
+     on the host; two devices on the card routed by affinity and by
+     weight
+Then print the dense-LA line, the pipeline line, the DSL line, the
+runtime line and the kernels line (JSON; the kernels' launches are
+phase 4's, phase 7's, phase 8's and phase 9's) and, last, the device
+line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
@@ -60,6 +72,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -1414,6 +1427,556 @@ def dsl_path(dev_t, rng, dims=None, ptg_norm_o=None) -> dict:
     return out
 
 
+# phase 9 sizes: 9a phase 4's paths (GEMM (N, NB), NORM (rows, d, T),
+# FATT (heads, L, D)) and the NORM walls traced and untraced (runs of
+# each); 9b one (N, N) tile recursing into (NB, NB) sub-tiles; 9c the
+# tiled group's (N, NB); 9d POTRF-T's (N, NB), regridded to NB / 2; 9e the
+# chain's square tile side, and GEMM's (N, NB) over two devices
+RUNTIME = {"gemm": (4096, 512), "norm": (8 * 4096, 4096, 1024),
+           "fatt": (32, 4096, 128), "norm_walls": 3,
+           "recursive": (8192, 512), "compose": (8192, 512),
+           "reshape": (16384, 1024), "chain": 1024, "gemm2": (4096, 512)}
+
+
+def trace_summary(tr, kernel_launches=None) -> dict:
+    """The device's own spans in one pool's trace: the window from the
+    first event to the last, the host time in RELEASE_DEPS spans (a
+    device task's release runs on the manager thread) and in the lane's
+    DEVICE_H2D spans, dispatch begins and ends, lanes, DEVICE_H2D bytes
+    (dispatch lane 0 and off-path lane 1) and the ends' stall aux; per
+    task class (DTD bodies: class -1) its dispatch spans, their summed
+    host time and stall; the pool's critical path and lost time."""
+    from parsec_tpu_torch.profiling import (KEY_DEVICE, KEY_H2D,
+                                            KEY_RELEASE, critical_path,
+                                            lost_time)
+    ev = tr.events
+    beg = ev[:, 1] == 0
+    d, h = ev[:, 0] == KEY_DEVICE, ev[:, 0] == KEY_H2D
+    per = {}
+    busy = {"release_ms": 0.0, "lane_h2d_ms": 0.0}
+    for (_, _, key, cid, l0, _, aux, t0, t1) in tr.spans():
+        if key == KEY_RELEASE:
+            busy["release_ms"] += (t1 - t0) / 1e6
+        elif key == KEY_H2D and aux == 1:
+            busy["lane_h2d_ms"] += (t1 - t0) / 1e6
+        if key != KEY_DEVICE:
+            continue
+        row = per.setdefault(tr._cname(cid), {"spans": 0, "lanes": 0,
+                                              "dispatch_ms": 0.0,
+                                              "stall_ms": 0.0})
+        row["spans"] += 1
+        row["lanes"] += l0
+        row["dispatch_ms"] += (t1 - t0) / 1e6
+        row["stall_ms"] += aux / 1e6
+    try:
+        cp = critical_path(tr)
+        cp = {"nodes": cp["nodes"], "edges": cp["edges"],
+              "total_ms": cp["total_ns"] / 1e6,
+              "classes": sorted({p[0] for p in cp["path"]})}
+    except ValueError as e:
+        # an EDGE names a task by its class and first two locals: a class
+        # of three (GEMM's m, n, k) folds its k-chain into self-loops
+        cp = {"error": str(e)}
+    lt = lost_time(tr)["totals"]
+    return {"window_ms": float(ev[:, 7].max() - ev[:, 7].min()) / 1e6
+            if len(ev) else 0.0, **busy,
+            "dispatch_begins": int((d & beg).sum()),
+            "dispatch_ends": int((d & ~beg).sum()),
+            "lanes": int(ev[d & beg, 3].sum()),
+            "h2d_bytes": int(ev[h & beg, 3].sum()),
+            "h2d_lane_bytes": int(ev[h & beg & (ev[:, 6] == 1), 3].sum()),
+            "stall_ns": int(ev[d & ~beg, 6].sum()),
+            "per_class": per,
+            "critical_path": cp,
+            "lost_time_ms": {k: v / 1e6 for k, v in lt.items()}}
+
+
+def runtime_path(dev_t, rng, dims=None, ptg_norm_o=None,
+                 trace_dir=None) -> dict:
+    """Phase 9: the rest of the one-rank runtime and its own trace.
+      9a  phase 4's GEMM, NORM and FATT pools (`rng` replays main_path's
+          draws) and phase 8's DTD-GEMM in one Context(nb_workers=4),
+          each warm (an untraced run first), then traced at level 2 on a
+          fresh CudaDevice: the
+          DEVICE_DISPATCH begins and ends pair, their lanes sum to the
+          device's tasks, NORM's and FATT's spans equal their kernel's
+          launches, the DEVICE_H2D bytes sum to stats["h2d_bytes"], the
+          ends' aux to stats["h2d_stall_ns"], and the trace saved with
+          Trace.save (under trace_dir) loads back with the same events;
+          per class the dispatch host time, launches and stall, the
+          critical path and lost time; then NORM's wall untraced and
+          traced, norm_walls runs of each in turns (no bound asserted)
+      9b  one host task over one (N, N) tile recursing (recursive_call)
+          into build_potrf over a SubtileView of (NB, NB) sub-tiles whose
+          chores run on the device; L held to a residual of 1e-4 and to
+          torch.linalg.cholesky within 1e-3 max|L|
+      9c  compose(build_potrf, build_trtri, build_lauum) as one Compound
+          on the device, held to run_potri on the same matrix within
+          1e-4 max|ref|
+      9d  POTRF-T's factor left dirty on the device: reshape_geometry to
+          NB / 2 (bit for bit the flushed factor), build_reshape_dtype
+          to float16 (bit for bit numpy's astype) and build_reduce_col
+          with np.add (1e-4 max|ref| of a float64 sum of the tiles)
+      9e  two CudaDevices on one card: a producer -> consumer chain with
+          the default affinity skew (no d2d bytes) and with skew 0 (d2d
+          bytes required); then GEMM under device weights 2:1, C at
+          phase 4's 1e-4 / 1e-3, the tasks per device printed
+    Returns {"runs": {label: row}, "launches": the kernels' launches}."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.algos import (build_gemm, build_lauum,
+                                        build_potrf, build_reduce_col,
+                                        build_reshape_dtype, build_trtri,
+                                        k_gemm_nn, potrf_flops,
+                                        reshape_geometry, run_potri)
+    from parsec_tpu_torch.convert import to_collection, to_tensor
+    from parsec_tpu_torch.data import SubtileView, TwoDimBlockCyclic
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.device.bench_utils import generate_spd_on_device
+    from parsec_tpu_torch.dsl.dtd import DtdTaskpool
+    from parsec_tpu_torch.profiling import Trace, take_trace
+    fa_mod = importlib.import_module("parsec_tpu_torch.ops.flash_attention")
+    rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
+    dims = dims or RUNTIME
+    out = {"runs": {}, "launches": {name: 0 for name in kernels.LAUNCHES}}
+    big = 24 << 30 if dev_t.type == "cuda" else 4 << 30  # cache budget
+
+    def maxabs(t):
+        return float(torch.linalg.vector_norm(t, ord=float("inf")))
+
+    def check_rel(label, value, limit):
+        log(f"  {label}: {value:.3e} (limit {limit:g})")
+        if not value <= limit:
+            raise AssertionError(f"{label}: {value:.3e} > {limit:g}")
+        return value
+
+    # ------------------------------------------------ 9a, traced path
+    n, nb = dims["gemm"]
+    rows, d, T = dims["norm"]
+    H, L, D = dims["fatt"]
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    b = rng.standard_normal((n, n), dtype=np.float32)
+    xn = rng.standard_normal((rows, d), dtype=np.float32)
+    wn = rng.standard_normal((1, d), dtype=np.float32)
+    qn = rng.standard_normal((H * L, D), dtype=np.float32)
+    kn = rng.standard_normal((L, D), dtype=np.float32)
+    vn = rng.standard_normal((L, D), dtype=np.float32)
+    if trace_dir is None:
+        trace_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "build", "traces")
+    os.makedirs(trace_dir, exist_ok=True)
+    with pt.Context(nb_workers=4) as ctx:
+        A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
+        C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+        X, W = to_collection(xn, T, d), to_collection(wn, 1, d)
+        O = to_collection(np.zeros_like(xn), T, d)
+        Q, K, V = (to_collection(qn, L, D), to_collection(kn, L, D),
+                   to_collection(vn, L, D))
+        OF = to_collection(np.zeros_like(qn), L, D)
+
+        def ptg(build):
+            def go(dev):
+                tp = build(dev)
+                tp.run()
+                tp.wait()
+                return [tc.name for tc in tp.classes]
+            return go
+
+        def gemm(dev):
+            for t in C._tiles.values():  # C += A @ B: from zero each run
+                t[...] = 0
+            return build_gemm(ctx, A, B, C, dev)
+
+        def dtd_gemm(dev):
+            """Phase 8's DTD-GEMM: one device task a (m, n, k), C += A @ B
+            along INOUT chains on each C tile."""
+            for t in C._tiles.values():
+                t[...] = 0
+            dtd = DtdTaskpool(ctx)
+            shapes = {i: (nb, nb) for i in range(3)}
+            for m in range(n // nb):
+                for j in range(n // nb):
+                    for k in range(n // nb):
+                        dtd.insert_cuda_task(
+                            dev, lambda a, b, c: c + a @ b,
+                            (dtd.tile_of(A, m, k), "INPUT"),
+                            (dtd.tile_of(B, k, j), "INPUT"),
+                            (dtd.tile_of(C, m, j), "INOUT"), shapes=shapes)
+            dtd.wait()
+            dtd.destroy()
+            return []
+
+        paths = {
+            "GEMM": (ptg(gemm), (n // nb) ** 3, None),
+            "NORM": (ptg(lambda dev: rn_mod.build_rms_norm(
+                ctx, X, W, O, EPS, dev=dev)), rows // T, "rms_norm"),
+            "FATT": (ptg(lambda dev: fa_mod.build_flash_attention(
+                ctx, Q, K, V, OF, dev=dev)), H, "flash_attention"),
+            "DTD-GEMM": (dtd_gemm, (n // nb) ** 3, None)}
+
+        def one_run(label, level):
+            """One pool on a fresh device with tracing at `level`; the
+            device stops (its lanes joined) before the trace is taken."""
+            go, ntasks, _ = paths[label]
+            ctx.profile_take()
+            ctx.profile_enable(level)
+            dev = CudaDevice(ctx, device=dev_t)
+            kernels.reset_launches()
+            sync(dev_t)
+            t = time.perf_counter()
+            names = go(dev)
+            dev.flush()
+            sync(dev_t)
+            wall = (time.perf_counter() - t) * 1e3
+            got = dict(kernels.LAUNCHES)
+            for k, v in got.items():
+                out["launches"][k] += v
+            dev.stop()
+            ctx.profile_enable(0)
+            tr = take_trace(ctx, class_names=names, meta={"path": label})
+            st = dict(dev.stats)
+            if st["tasks"] != ntasks:
+                raise AssertionError(f"{label}: {st['tasks']} device tasks, "
+                                     f"expected {ntasks}")
+            return wall, st, got, tr
+
+        for label, (_, ntasks, kname) in paths.items():
+            warm, _, _, _ = one_run(label, 0)
+            wall, st, got, tr = one_run(label, 2)
+            s = trace_summary(tr)
+            log(f"  9a {label} traced: {wall:.1f} ms (untraced warm-up "
+                f"{warm:.1f} ms); {len(tr.events)} events "
+                f"{tr.counts()}; tasks={st['tasks']} h2d_bytes="
+                f"{st['h2d_bytes']} h2d_stall={st['h2d_stall_ns'] / 1e6:.2f}"
+                f" ms; kernel launches {got}")
+            checks = {
+                "dispatch begins == ends": s["dispatch_begins"]
+                == s["dispatch_ends"] > 0,
+                "lanes == stats tasks": s["lanes"] == st["tasks"],
+                "DEVICE_H2D bytes == stats h2d_bytes":
+                    s["h2d_bytes"] == st["h2d_bytes"],
+                "ends' aux == stats h2d_stall_ns":
+                    s["stall_ns"] == st["h2d_stall_ns"]}
+            if kname is not None and dev_t.type == "cuda":
+                checks[f"spans == {kname} launches"] = \
+                    s["dispatch_begins"] == got[kname]
+            path = os.path.join(trace_dir, f"phase9_{label}.ptt")
+            tr.save(path)
+            back = Trace.load(path)
+            checks["saved trace loads back equal"] = bool(
+                np.array_equal(back.events, tr.events)
+                and back.class_names == tr.class_names)
+            for what, ok in checks.items():
+                log(f"    check {what}: {ok}")
+                if not ok:
+                    raise AssertionError(f"9a {label}: {what} fails: {s}")
+            for cname, row in s["per_class"].items():
+                log(f"    {cname}: {row['spans']} dispatch spans, "
+                    f"{row['lanes']} lanes, {row['dispatch_ms']:.2f} ms of "
+                    f"host dispatch, {row['stall_ms']:.2f} ms h2d stall")
+            log(f"    trace window {s['window_ms']:.2f} ms: RELEASE_DEPS "
+                f"{s['release_ms']:.2f} ms, lane DEVICE_H2D "
+                f"{s['lane_h2d_ms']:.2f} ms ({s['h2d_lane_bytes']} B)")
+            log(f"    critical path {s['critical_path']}; lost time "
+                f"(ms, worker threads) {s['lost_time_ms']}; trace "
+                f"{path} ({os.path.getsize(path)} B)")
+            out["runs"][f"9a {label}"] = {"wall_ms": wall,
+                                          "warm_wall_ms": warm,
+                                          "trace": s, "launches": got}
+            if label.endswith("GEMM"):
+                check_close(f"9a {label} C vs torch.matmul",
+                            to_tensor(C.to_dense(), dev_t),
+                            torch.matmul(to_tensor(a, dev_t),
+                                         to_tensor(b, dev_t)), 1e-4, 1e-3)
+            elif label == "NORM":
+                o = O.to_dense()
+                check_close("9a NORM O vs plain", to_tensor(o, dev_t),
+                            rn_mod.rms_norm_plain(to_tensor(xn, dev_t),
+                                                  to_tensor(wn[0], dev_t),
+                                                  EPS), 2e-5, 2e-5)
+                if ptg_norm_o is not None:
+                    same = bool(np.array_equal(o, ptg_norm_o))
+                    log(f"  9a NORM O traced vs phase 4's: bit-identical "
+                        f"{same}")
+                    if not same:
+                        raise AssertionError("9a NORM: tracing changed O")
+                del o
+            else:
+                kt, vt = to_tensor(kn, dev_t), to_tensor(vn, dev_t)
+                check_close(
+                    "9a FATT O vs plain",
+                    to_tensor(OF.to_dense(), dev_t).reshape(H, L, D),
+                    fa_mod.attention_reference(
+                        to_tensor(qn, dev_t).reshape(H, L, D),
+                        kt.unsqueeze(0).expand(H, L, D),
+                        vt.unsqueeze(0).expand(H, L, D), False,
+                        D ** -0.5), 2e-5, 2e-5)
+        walls = {"untraced": [], "traced": []}
+        for _ in range(dims["norm_walls"]):
+            for key, level in (("untraced", 0), ("traced", 2)):
+                walls[key].append(one_run("NORM", level)[0])
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        log(f"  9a NORM walls in turns (ms): untraced {walls['untraced']}, "
+            f"traced {walls['traced']}; medians {med}, traced/untraced "
+            f"{med['traced'] / med['untraced']:.3f}")
+        out["runs"]["9a NORM walls"] = walls
+    del a, b, xn, wn, qn, kn, vn, A, B, C, X, W, O, Q, K, V, OF
+
+    # -------------------------------------------- 9b, recursive potrf
+    N, nb = dims["recursive"]
+    nt = N // nb
+    with pt.Context(nb_workers=4) as ctx:
+        dev = CudaDevice(ctx, device=dev_t, cache_bytes=big)
+        g = torch.Generator(device=dev_t)
+        g.manual_seed(SEED + 9)
+        with dev._on_stream():
+            x = torch.randn(N, N, generator=g, device=dev_t)
+            spd = (x + x.mT) * 0.5 + 2.0 * N * torch.eye(N, device=dev_t)
+            del x
+        sync(dev_t)
+        A = TwoDimBlockCyclic(N, N, N, N)  # ONE tile
+        A.tile(0, 0)[...] = spd.cpu().numpy()
+        A.register(ctx, "A")
+        tp = pt.Taskpool(ctx, globals={})
+        tc = tp.task_class("FACTOR")
+        tc.param("k", 0, 0)
+        tc.affinity("A", pt.L("k"), pt.L("k"))
+        tc.flow("T", "RW", pt.In(pt.Mem("A", pt.L("k"), pt.L("k"))),
+                pt.Out(pt.Mem("A", pt.L("k"), pt.L("k"))))
+        where = []
+
+        def body(t):
+            tile = t.data("T", np.float32, (N, N))
+            sub = SubtileView(tile, nb, nb)
+            sub.register(ctx, "SUB")
+            inner = build_potrf(ctx, sub, dev, name="SUB")
+
+            def on_done():
+                where.append(threading.current_thread().name)
+                sub.writeback()
+
+            return pt.recursive_call(t, inner, on_done=on_done)
+
+        tc.body(body)
+        sync(dev_t)
+        t = time.perf_counter()
+        tp.run()
+        tp.wait()
+        wall = (time.perf_counter() - t) * 1e3
+        ntasks = nt + nt * (nt - 1) + nt * (nt - 1) * (nt - 2) // 6
+        log(f"  9b recursive potrf, one {N}^2 tile -> {nt}^2 sub-tiles of "
+            f"{nb}^2: {wall:.1f} ms = {potrf_flops(N) / wall / 1e6:.1f} "
+            f"GFLOP/s, inner device tasks={dev.stats['tasks']} (the DAG "
+            f"has {ntasks}), writeback on thread {where}")
+        if dev.stats["tasks"] != ntasks:
+            raise AssertionError(f"9b: {dev.stats['tasks']} device tasks, "
+                                 f"the inner DAG has {ntasks}")
+        with dev._on_stream():
+            lo = torch.tril(torch.from_numpy(A.tile(0, 0)).to(dev_t))
+            res = check_rel("9b ||LL^T - A||_F / ||A||_F",
+                            float(torch.linalg.norm(lo @ lo.mT - spd)
+                                  / torch.linalg.norm(spd)), 1e-4)
+            lc = torch.linalg.cholesky(spd)
+            vs = check_rel("9b max|L - torch.linalg.cholesky| / max|L|",
+                           maxabs(lo - lc) / maxabs(lc), 1e-3)
+        out["runs"]["9b recursive potrf"] = {
+            "wall_ms": wall, "tasks": ntasks, "residual": res,
+            "vs_cusolver": vs, "writeback_thread": where}
+        dev.stop()
+        del lo, lc, spd
+
+    # ----------------------------------------------------- 9c, compose
+    N, nb = dims["compose"]
+    nt = N // nb
+    with pt.Context(nb_workers=4) as ctx:
+        dev = CudaDevice(ctx, device=dev_t, cache_bytes=big)
+        cs = {}
+        for name in ("A", "W", "C", "A2", "W2", "C2"):
+            cs[name] = TwoDimBlockCyclic(N, N, nb, nb)
+            cs[name].register(ctx, name)
+        generate_spd_on_device(dev, cs["A"], seed=SEED + 1)
+        generate_spd_on_device(dev, cs["A2"], seed=SEED + 1)
+        sync(dev_t)
+        comp = pt.compose(
+            build_potrf(ctx, cs["A"], dev=dev, name="A"),
+            build_trtri(ctx, cs["A"], cs["W"], dev=dev, names=("A", "W")),
+            build_lauum(ctx, cs["W"], cs["C"], dev=dev, names=("W", "C")))
+        t = time.perf_counter()
+        comp.run()
+        comp.wait()
+        dev.flush()
+        sync(dev_t)
+        wall = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        run_potri(ctx, cs["A2"], cs["W2"], cs["C2"], dev=dev,
+                  names=("A2", "W2", "C2"))
+        sync(dev_t)
+        wall_ref = (time.perf_counter() - t) * 1e3
+        log(f"  9c compose(potrf, trtri, lauum) N={N} NB={nb}: "
+            f"{comp.nb_total_tasks} tasks, {wall:.1f} ms through the flush; "
+            f"run_potri (three runs and waits) {wall_ref:.1f} ms")
+        got = torch.tril(torch.from_numpy(cs["C"].to_dense()).to(dev_t))
+        want = torch.tril(torch.from_numpy(cs["C2"].to_dense()).to(dev_t))
+        rel = check_rel("9c max|C - run_potri's C| / max|run_potri's C|",
+                        maxabs(got - want) / maxabs(want), 1e-4)
+        out["runs"]["9c compose"] = {"wall_ms": wall,
+                                     "run_potri_ms": wall_ref,
+                                     "tasks": comp.nb_total_tasks,
+                                     "vs_run_potri": rel}
+        dev.stop()
+        del got, want
+
+    # ------------------------------------------- 9d, regrid and cast
+    N, nb = dims["reshape"]
+    nt = N // nb
+    with pt.Context(nb_workers=4) as ctx:
+        dev = CudaDevice(ctx, device=dev_t, cache_bytes=big)
+        A = TwoDimBlockCyclic(N, N, nb, nb)
+        A.register(ctx, "A")
+        generate_spd_on_device(dev, A, seed=SEED)
+        tp = build_potrf(ctx, A, dev=dev)
+        tp.run()
+        tp.wait()
+        sync(dev_t)
+        dirty = sum(1 for e in list(dev._cache.values()) if e.dirty)
+        R = TwoDimBlockCyclic(N, N, nb // 2, nb // 2)
+        R.register(ctx, "R")
+        t = time.perf_counter()
+        reshape_geometry(ctx, A, R)
+        t_geo = (time.perf_counter() - t) * 1e3
+        Hc = TwoDimBlockCyclic(N, N, nb, nb, dtype=np.float16)
+        Hc.register(ctx, "H")
+        t = time.perf_counter()
+        tp = build_reshape_dtype(ctx, A, Hc, src_name="A", dst_name="H")
+        tp.run()
+        tp.wait()
+        t_cast = (time.perf_counter() - t) * 1e3
+        dev.flush()
+        dense = A.to_dense()
+        same_geo = bool(np.array_equal(R.to_dense(), dense))
+        same_cast = bool(np.array_equal(Hc.to_dense(),
+                                        dense.astype(np.float16)))
+        want = dense.astype(np.float64).reshape(nt, nb, N).sum(axis=0)
+        t = time.perf_counter()
+        tp = build_reduce_col(ctx, A, np.add)
+        tp.run()
+        tp.wait()
+        t_red = (time.perf_counter() - t) * 1e3
+        got = np.concatenate([A.tile(0, j) for j in range(nt)], axis=1)
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        log(f"  9d POTRF-T N={N} NB={nb}, {dirty} dirty device tiles: "
+            f"reshape_geometry to NB={nb // 2} {t_geo:.1f} ms, bit for bit "
+            f"{same_geo}; build_reshape_dtype to float16 {t_cast:.1f} ms, "
+            f"bit for bit {same_cast}; build_reduce_col np.add "
+            f"{t_red:.1f} ms, max|got - float64| / max|float64| {rel:.3e} "
+            "(limit 1e-4)")
+        if dirty <= 0 or not (same_geo and same_cast and rel <= 1e-4):
+            raise AssertionError("9d: a reshape path read stale tiles or "
+                                 "disagrees")
+        out["runs"]["9d reshape"] = {"dirty_tiles": dirty,
+                                     "geometry_ms": t_geo, "cast_ms": t_cast,
+                                     "reduce_ms": t_red, "reduce_rel": rel}
+        dev.stop()
+        del dense, want, got
+
+    # ------------------------------------------ 9e, affinity on one card
+    side = dims["chain"]
+
+    def chain(skew):
+        with pt.Context(nb_workers=4) as ctx:
+            if skew is not None:
+                ctx.device_set_affinity_skew(skew)
+            arr = np.ones((side * side,), dtype=np.float32)
+            ctx.register_linear_collection("A", arr, elem_size=arr.nbytes)
+            ctx.register_arena("t", arr.nbytes)
+            d0 = CudaDevice(ctx, device=dev_t)
+            d1 = CudaDevice(ctx, device=dev_t)
+            tp = pt.Taskpool(ctx, globals={"NB": 3})
+            k = pt.L("k")
+            prod = tp.task_class("P")
+            prod.param("k", 0, 3)
+            prod.flow("X", "RW", pt.In(pt.Mem("A", 0), guard=(k == 0)),
+                      pt.In(pt.Ref("C", k - 1, flow="X")),
+                      pt.Out(pt.Ref("C", k, flow="X")), arena="t")
+            cons = tp.task_class("C")
+            cons.param("k", 0, 3)
+            cons.flow("X", "RW", pt.In(pt.Ref("P", k, flow="X")),
+                      pt.Out(pt.Ref("P", k + 1, flow="X"), guard=(k < 3)),
+                      pt.Out(pt.Mem("A", 0), guard=(k == 3)), arena="t")
+            shp = {"X": (side, side)}
+            d0.attach(prod, tp, kernel=lambda x: x + 1.0, reads=["X"],
+                      writes=["X"], shapes=shp)
+            # the sibling first: a load tie points away from the data
+            d1.attach(cons, tp, kernel=lambda x: x * 2.0, reads=["X"],
+                      writes=["X"], shapes=shp)
+            d0.attach(cons, tp, kernel=lambda x: x * 2.0, reads=["X"],
+                      writes=["X"], shapes=shp)
+            tp.run()
+            tp.wait()
+            for dv in (d0, d1):
+                dv.flush()
+            sync(dev_t)
+            res = (d0.stats["tasks"], d1.stats["tasks"],
+                   d0.stats["d2d_bytes"] + d1.stats["d2d_bytes"],
+                   bool(np.all(arr == 46.0)))
+            d0.stop()
+            d1.stop()
+        return res
+
+    aff, off = chain(None), chain(0.0)
+    log(f"  9e chain of 4 producers and 4 consumers on ({side}, {side}) "
+        f"f32, two devices on one card: default skew tasks d0/d1 "
+        f"{aff[0]}/{aff[1]}, d2d {aff[2]} B; skew 0 tasks {off[0]}/{off[1]}"
+        f", d2d {off[2]} B; data exact {aff[3]}/{off[3]}")
+    if not (aff[2] == 0 and aff[1] == 0 and off[2] > 0 and aff[3]
+            and off[3]):
+        raise AssertionError(f"9e: affinity routing {aff} / {off}")
+    n, nb = dims["gemm2"]
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    b = rng.standard_normal((n, n), dtype=np.float32)
+    with pt.Context(nb_workers=4) as ctx:
+        A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
+        C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+        d0 = CudaDevice(ctx, device=dev_t)
+        d1 = CudaDevice(ctx, device=dev_t)
+        ctx.device_queue_set_weight(d0.qid, 2.0)
+        ctx.device_queue_set_weight(d1.qid, 1.0)
+        tp = build_gemm(ctx, A, B, C, d0)
+        d1.attach(tp.classes[0], tp, kernel=k_gemm_nn,
+                  reads=["A", "B", "C"], writes=["C"],
+                  shapes={f: (nb, nb) for f in "ABC"})
+        sync(dev_t)
+        t = time.perf_counter()
+        tp.run()
+        tp.wait()
+        for dv in (d0, d1):
+            dv.flush()
+        sync(dev_t)
+        wall = (time.perf_counter() - t) * 1e3
+        split = (d0.stats["tasks"], d1.stats["tasks"])
+        d2d = d0.stats["d2d_bytes"] + d1.stats["d2d_bytes"]
+        log(f"  9e GEMM {n}^2 over two devices weighted 2:1: {wall:.1f} ms, "
+            f"tasks d0/d1 {split[0]}/{split[1]}, d2d {d2d} B")
+        if sum(split) != (n // nb) ** 3:
+            raise AssertionError(f"9e GEMM: {split} device tasks")
+        check_close("9e GEMM C vs torch.matmul",
+                    to_tensor(C.to_dense(), dev_t),
+                    torch.matmul(to_tensor(a, dev_t), to_tensor(b, dev_t)),
+                    1e-4, 1e-3)
+        d0.stop()
+        d1.stop()
+    out["runs"]["9e affinity"] = {"chain_default": aff, "chain_skew0": off,
+                                  "gemm_wall_ms": wall, "gemm_split": split,
+                                  "gemm_d2d_bytes": d2d}
+    return out
+
+
 def serve_oracle(model, req, dev_t, head64):
     """The request's outputs and logits recomputed on the engine's own
     token stream (teacher-forced): per step, q of the query token and
@@ -1877,15 +2440,27 @@ def main() -> int:
     rng8 = np.random.default_rng()
     rng8.bit_generator.state = phase4_rng
     dsl = dsl_path(dev_t, rng8, ptg_norm_o=norm_o)
-    del norm_o
     for name, n in dsl["launches"].items():
         launches[name] += n
     log(f"  DSL phase {time.perf_counter() - t:.1f} s; hand-written "
         f"kernel launches in it: {dsl['launches']}")
+
+    log("phase 9: the rest of the one-rank runtime and its own trace: "
+        "traced paths, recursive and composed pools, reshape, affinity")
+    t = time.perf_counter()
+    rng9 = np.random.default_rng()
+    rng9.bit_generator.state = phase4_rng
+    rt = runtime_path(dev_t, rng9, ptg_norm_o=norm_o)
+    del norm_o
+    for name, n in rt["launches"].items():
+        launches[name] += n
+    log(f"  RUNTIME phase {time.perf_counter() - t:.1f} s; hand-written "
+        f"kernel launches in it: {rt['launches']}")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
     print(json.dumps({"dsl": dsl["runs"]}))
+    print(json.dumps({"runtime": rt["runs"]}))
 
     rows_out = []
     for name, r, err, repl in (

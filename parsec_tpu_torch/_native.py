@@ -129,6 +129,7 @@ _sigs = {
     "ptc_context_set_qos_preempt": (None, [C.c_void_p, C.c_int32]),
     "ptc_context_get_qos_preempt": (C.c_int32, [C.c_void_p]),
     "ptc_context_set_binding": (None, [C.c_void_p, C.c_int32]),
+    "ptc_worker_binding": (C.c_int32, [C.c_void_p, C.c_int32]),
     "ptc_register_expr_cb": (C.c_int32, [C.c_void_p, EXPR_CB_T, C.c_void_p]),
     "ptc_register_body": (C.c_int32, [C.c_void_p, BODY_CB_T, C.c_void_p]),
     "ptc_register_collection": (C.c_int32, [C.c_void_p, C.c_uint32, C.c_uint32,
@@ -136,6 +137,9 @@ _sigs = {
     "ptc_context_set_vpmap": (C.c_int32, [C.c_void_p,
                                           C.POINTER(C.c_int32),
                                           C.c_int32]),
+    "ptc_sched_victim_order": (C.c_int32, [C.c_void_p, C.c_int32,
+                                           C.POINTER(C.c_int32),
+                                           C.c_int32]),
     "ptc_register_linear_collection": (C.c_int32, [C.c_void_p, C.c_uint32,
                                                    C.c_uint32, C.c_void_p,
                                                    C.c_int64, C.c_int64]),
@@ -196,6 +200,8 @@ _sigs = {
     "ptc_task_taskpool": (C.c_void_p, [C.c_void_p]),
     "ptc_task_complete": (None, [C.c_void_p, C.c_void_p]),
     "ptc_device_queue_new": (C.c_int32, [C.c_void_p]),
+    "ptc_device_queue_set_weight": (None, [C.c_void_p, C.c_int32,
+                                           C.c_double]),
     "ptc_device_queue_depth": (C.c_int64, [C.c_void_p, C.c_int32]),
     "ptc_device_pop": (C.c_void_p, [C.c_void_p, C.c_int32, C.c_int32]),
     # ready-peek span of the prefetch lane: every emitted copy is
@@ -203,6 +209,11 @@ _sigs = {
     "ptc_peek_ready": (C.c_int64, [C.c_void_p, C.c_int32,
                                    C.POINTER(C.c_int64), C.c_int64,
                                    C.c_int32]),
+    # wave-granular census of a device queue: (class_id, taskpool) per
+    # queued task, nothing popped or pinned
+    "ptc_peek_ready_front": (C.c_int64, [C.c_void_p, C.c_int32,
+                                         C.POINTER(C.c_int64),
+                                         C.c_int64]),
     "ptc_copy_unpin": (None, [C.c_void_p, C.c_void_p]),
     "ptc_device_set_data_owner": (None, [C.c_void_p, C.c_int64, C.c_int32,
                                          C.c_int32]),
@@ -227,9 +238,20 @@ _sigs = {
     "ptc_dtask_set_rank": (None, [C.c_void_p, C.c_int32]),
     "ptc_task_set_tag": (None, [C.c_void_p, C.c_int64]),
     "ptc_task_get_tag": (C.c_int64, [C.c_void_p]),
+    # tracing: the native per-worker event buffers, their flight-recorder
+    # ring and dump, and externally sourced events (the device's spans)
     "ptc_profile_enable": (None, [C.c_void_p, C.c_int32]),
+    "ptc_profile_take": (C.c_int64, [C.c_void_p, C.POINTER(C.c_int64),
+                                     C.c_int64]),
+    "ptc_profile_level": (C.c_int32, [C.c_void_p]),
     "ptc_profile_set_ring": (None, [C.c_void_p, C.c_int64]),
+    "ptc_profile_ring": (C.c_int64, [C.c_void_p]),
+    "ptc_profile_dropped": (C.c_int64, [C.c_void_p]),
+    "ptc_flight_dump": (C.c_int32, [C.c_void_p, C.c_char_p]),
     "ptc_flight_set_dump_path": (None, [C.c_void_p, C.c_char_p]),
+    "ptc_prof_event": (None, [C.c_void_p, C.c_int64, C.c_int64, C.c_int64,
+                              C.c_int64, C.c_int64, C.c_int64]),
+    "ptc_task_scope": (C.c_int64, [C.c_void_p]),
     "ptc_worker_stats": (C.c_int64, [C.c_void_p, C.POINTER(C.c_int64), C.c_int64]),
     "ptc_worker_steals": (C.c_int64, [C.c_void_p, C.POINTER(C.c_int64), C.c_int64]),
     "ptc_metrics_enable": (None, [C.c_void_p, C.c_int32]),

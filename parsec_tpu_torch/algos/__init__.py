@@ -3,9 +3,13 @@ from .inverse import (build_lauum, build_trtri, lauum_flops, run_potri,
                       trtri_flops)
 from .lu import (build_getrf_nopiv, build_getrf_panels, getrf_flops,
                  getrf_nopiv_reference)
+from .matrix_ops import (build_apply, build_map_operator, build_reduce_col,
+                         build_reduce_row)
 from .potrf import (build_potrf, build_potrf_panels, build_potrs_panels,
                     potrf_flops, run_potrf)
 from .qr import build_geqrf, geqrf_flops
+from .redistribute import redistribute
+from .reshape import build_reshape_dtype, reshape_geometry
 from .trsm import build_trsm
 
 __all__ = ["build_gemm", "k_gemm_nn",
@@ -13,6 +17,9 @@ __all__ = ["build_gemm", "k_gemm_nn",
            "getrf_nopiv_reference",
            "build_potrf", "build_potrf_panels", "build_potrs_panels",
            "run_potrf", "potrf_flops",
+           "build_apply", "build_map_operator", "build_reduce_col",
+           "build_reduce_row", "redistribute",
+           "build_reshape_dtype", "reshape_geometry",
            "build_geqrf", "geqrf_flops", "build_trsm",
            "build_trtri", "build_lauum", "run_potri", "trtri_flops",
            "lauum_flops"]

@@ -367,7 +367,7 @@ def _build_panel_factorization(ctx: pt.Context, A: TwoDimBlockCyclic,
     for d in as_device_list(dev):
         if local:
             from ..device.bench_utils import install_device_segments
-            install_device_segments(d, pidx, d._h2d(seg_host)[0])
+            install_device_segments(d, pidx, d._h2d_ahead(seg_host)[0])
         idxf = "KI" if update_uses == "k" else "JS"
         d.attach(fa, tp, kernel=k_factor, reads=["P", "KS"],
                  writes=["P", "KI"] if update_uses == "k" else ["P"],

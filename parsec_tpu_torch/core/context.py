@@ -8,8 +8,8 @@ for data collections, arenas and datatypes.
 Port of parsec_tpu/core/context.py.  The optional hooks whose modules are
 not ported yet (PINS, live sampler, metrics exporter, watchdog, journal,
 ptc-plan, controller) are refused with NotImplementedError when their
-parameter is set; so is the comm engine, which arrives with the device
-data plane.
+parameter is set; the comm engine, which arrives with the device data
+plane, is not there at all (a trace carries no clock offset).
 """
 from __future__ import annotations
 
@@ -25,6 +25,44 @@ from ..utils import params as _mca
 # MCA params naming hooks of modules that are not ported yet
 _UNPORTED_HOOKS = ("runtime.pins", "runtime.live", "runtime.metrics_port",
                    "runtime.watchdog", "runtime.journal")
+
+
+def _numa_vpmap(n: int) -> "List[int]":
+    """vp per worker from the NUMA topology: worker w round-robin-binds
+    to allowed cpu w % ncpu (bind_worker_thread's order), and its vp is
+    that cpu's NUMA node, dense-renumbered.  Flat on hosts without
+    sysfs NUMA info (reference: the hwloc-fed vpmap init)."""
+    import glob as _glob
+    import os as _os
+    try:
+        cpus = sorted(_os.sched_getaffinity(0))
+    except AttributeError:  # non-Linux
+        return [0] * n
+    node_of = {}
+    for path in _glob.glob("/sys/devices/system/node/node[0-9]*"):
+        try:
+            node = int(_os.path.basename(path)[4:])
+            with open(_os.path.join(path, "cpulist")) as f:
+                txt = f.read().strip()
+        except (OSError, ValueError):
+            continue
+        for part in txt.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            if "-" in part:
+                a, b = part.split("-")
+                rng = range(int(a), int(b) + 1)
+            else:
+                rng = [int(part)]
+            for c in rng:
+                node_of[c] = node
+    if not node_of or not cpus:
+        return [0] * n
+    nodes_sorted = sorted({node_of.get(c, 0) for c in cpus})
+    dense = {nd: i for i, nd in enumerate(nodes_sorted)}
+    return [dense[node_of.get(cpus[w % len(cpus)], nodes_sorted[0])]
+            for w in range(n)]
 
 
 class Data:
@@ -150,6 +188,34 @@ class Context:
         requests fall back to "lfq")."""
         return N.lib.ptc_context_get_scheduler(self._ptr).decode()
 
+    def rusage(self) -> dict:
+        """Process resource usage (the reference's per-EU rusage dumps,
+        parsec/scheduling.c:45-86 — user/sys time, maxrss, context
+        switches; process-wide here, workers being threads)."""
+        import resource
+        ru = resource.getrusage(resource.RUSAGE_SELF)
+        return {
+            "utime_s": round(ru.ru_utime, 3),
+            "stime_s": round(ru.ru_stime, 3),
+            "maxrss_kb": ru.ru_maxrss,
+            "vol_ctx_switches": ru.ru_nvcsw,
+            "invol_ctx_switches": ru.ru_nivcsw,
+            "minor_faults": ru.ru_minflt,
+            "major_faults": ru.ru_majflt,
+        }
+
+    def sched_victim_order(self, worker: int, cap: int = 64):
+        """A hierarchical scheduler's computed steal order for `worker`
+        (None for flat modules) — test/debug probe."""
+        out = (C.c_int32 * cap)()
+        k = N.lib.ptc_sched_victim_order(self._ptr, worker, out, cap)
+        return None if k < 0 else list(out[:k])
+
+    def worker_binding(self, worker: int) -> int:
+        """CPU the worker thread is pinned to (runtime.bind=core), or -1
+        when unbound / not yet started (reference: parsec_hwloc.c)."""
+        return N.lib.ptc_worker_binding(self._ptr, worker)
+
     # ------------------------------------------------------------ counters
     def worker_stats(self) -> list:
         """Selected-task count per worker thread (scheduler pops; ASYNC
@@ -254,6 +320,9 @@ class Context:
         steals = self.worker_steals()
         if any(steals):
             lines.append(f"worker steals: {steals}")
+        bindings = [self.worker_binding(w) for w in range(self.nb_workers)]
+        if any(b >= 0 for b in bindings):
+            lines.append(f"worker cpu bindings: {bindings}")
         for i, dev in enumerate(self._devices):
             lines.append(f"device[{i}] queue={dev.qid} "
                          f"depth={self.device_queue_depth(dev.qid)}")
@@ -352,11 +421,14 @@ class Context:
 
     def set_vpmap(self, spec) -> List[int]:
         """Virtual-process map (reference: parsec/vpmap.c): a vp id per
-        worker, before the context starts — a list of ints or a
+        worker, before the context starts — a list of ints, 'numa' (the
+        NUMA node of each worker's round-robin binding cpu) or a
         comma-separated string.  Short specs repeat."""
         n = N.lib.ptc_context_nb_workers(self._ptr)
         if isinstance(spec, (list, tuple)):
             vps = [int(x) for x in spec]
+        elif spec == "numa":
+            vps = _numa_vpmap(n)
         else:
             vps = [int(x) for x in str(spec).split(",") if x.strip()]
         if not vps:
@@ -440,6 +512,11 @@ class Context:
         return conv.value, hits.value
 
     # ------------------------------------------------------------ devices
+    def device_queue_set_weight(self, qid: int, weight: float):
+        """Relative device speed for best-device routing (reference:
+        the per-device flop-rate weights, parsec/mca/device/device.h:137)."""
+        N.lib.ptc_device_queue_set_weight(self._ptr, qid, float(weight))
+
     def device_queue_depth(self, qid: int) -> int:
         return N.lib.ptc_device_queue_depth(self._ptr, qid)
 
@@ -469,6 +546,17 @@ class Context:
         parsec_get_best_device's owner pass, device.c:100-117)."""
         N.lib.ptc_device_set_data_owner(self._ptr, handle, qid, version)
 
+    def device_clear_data_owner(self, handle: int, qid: int = -1):
+        """Drop the mirror-owner stamp of a copy (only if `qid` holds it;
+        -1: whoever does)."""
+        N.lib.ptc_device_clear_data_owner(self._ptr, handle, qid)
+
+    def device_set_affinity_skew(self, skew: float):
+        """Spill guard for affinity routing: the owning queue loses to
+        the least-loaded one when its load exceeds skew * best (<=0
+        disables the affinity pass)."""
+        N.lib.ptc_device_set_affinity_skew(self._ptr, float(skew))
+
     def device_get_data_owner(self, handle: int):
         """(qid, version) of the stamped mirror owner, or (-1, 0)."""
         ver = C.c_int32(0)
@@ -496,6 +584,15 @@ class Context:
                 for cptr, *_ in recs:
                     N.lib.ptc_copy_unpin(self._ptr, cptr)
 
+    def device_peek_front(self, qid: int, max_tasks: int = 256) -> list:
+        """Wave-granular ready-front census (native
+        ptc_peek_ready_front): [(class_id, taskpool_ptr), ...] for the
+        tasks still queued on `qid` — class ids only, nothing popped or
+        pinned; DTD tasks report class_id -1."""
+        buf = (C.c_int64 * (2 * max_tasks))()
+        n = N.lib.ptc_peek_ready_front(self._ptr, qid, buf, max_tasks)
+        return [(buf[2 * i], buf[2 * i + 1]) for i in range(n)]
+
     def task_complete(self, task_ptr):
         N.lib.ptc_task_complete(self._ptr, task_ptr)
 
@@ -503,3 +600,61 @@ class Context:
         """Fail an ASYNC-owned task: aborts its taskpool (successors are
         never released; waiters observe the error)."""
         N.lib.ptc_task_fail(self._ptr, task_ptr)
+
+    # ------------------------------------------------------------ profiling
+    def profile_enable(self, enable=True):
+        """Tracing level: 0/False off; 1 EXEC spans (and the device's
+        DEVICE_DISPATCH / DEVICE_H2D spans); 2/True adds RELEASE_DEPS
+        spans and dep-EDGE pairs for DAG capture (profiling.to_dot,
+        profiling.critical_path)."""
+        level = 2 if enable is True else int(enable)
+        N.lib.ptc_profile_enable(self._ptr, level)
+
+    def profile_level(self) -> int:
+        """Current trace level (0 off, 1 spans, 2 +edges)."""
+        return N.lib.ptc_profile_level(self._ptr)
+
+    def profile_ring(self, nbytes: Optional[int] = None) -> int:
+        """Flight-recorder ring mode (runtime.trace_ring /
+        PTC_MCA_runtime_trace_ring): bound each worker's trace buffer to
+        `nbytes`, overwriting the OLDEST whole events when full; a
+        taskpool abort dumps it (see flight_dump).  With no argument,
+        read the configured bytes per worker (0 = unbounded);
+        reconfiguring clears buffered events, so arm it before the run."""
+        if nbytes is not None:
+            N.lib.ptc_profile_set_ring(self._ptr, int(nbytes))
+        return N.lib.ptc_profile_ring(self._ptr)
+
+    def profile_dropped(self) -> int:
+        """Events overwritten before being taken (ring mode), summed
+        across workers — the flight recorder's loss meter."""
+        return N.lib.ptc_profile_dropped(self._ptr)
+
+    def flight_dump(self, path: str) -> None:
+        """Write the CURRENT trace buffers (without draining them) as a
+        loadable .ptt v2 file — the flight-recorder sink.  The runtime
+        fires this itself (once) on a taskpool abort, to
+        PTC_MCA_runtime_trace_dump or /tmp/ptc_flight.<rank>.ptt."""
+        if N.lib.ptc_flight_dump(self._ptr, str(path).encode()) != 0:
+            raise OSError(f"flight dump to {path!r} failed")
+
+    def profile_take(self) -> np.ndarray:
+        """Drain the profiling buffers: an (n, 8) int64 array of (key,
+        phase, class_id, local0, local1, worker, aux, t_ns), read in
+        fixed-size chunks until the native side reports empty.  See
+        profiling.trace for the dictionary and the trace tooling."""
+        words = 8
+        chunk_words = (1 << 16) * words
+        buf = (C.c_int64 * chunk_words)()
+        parts = []
+        while True:
+            n = N.lib.ptc_profile_take(self._ptr, buf, chunk_words)
+            if n <= 0:
+                break
+            parts.append(np.ctypeslib.as_array(buf, shape=(chunk_words,))[:n]
+                         .copy())
+            if n < chunk_words:
+                break
+        if not parts:
+            return np.empty((0, words), dtype=np.int64)
+        return np.concatenate(parts).reshape(-1, words)

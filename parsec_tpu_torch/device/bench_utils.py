@@ -125,7 +125,7 @@ def device_tiles(dev: CudaDevice, coll):
         uid, ver = _tile_key(dev, coll, m, n)
         t = dev._cache_get_typed(uid, ver, coll.dtype, shape)
         yield (m, n), (t if t is not None
-                       else dev._h2d(coll.tile(m, n))[0])
+                       else dev._h2d_ahead(coll.tile(m, n))[0])
 
 
 def gather_device_tiles(dev: CudaDevice, coll) -> torch.Tensor:

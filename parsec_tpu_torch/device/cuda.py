@@ -41,6 +41,23 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
 A failing kernel fails its tasks (ctx.task_fail) and so the pool: there
 is no silent fallback to another path.
 
+Trace spans (profiling/trace.py; recorded when ctx.profile_enable is on,
+from the manager and lane threads, as worker -1):
+  - DEVICE_DISPATCH around each launch (_run_lanes): class = the task
+    class id (-1 for a DTD body), l0 = lanes, l1 = the device's queue;
+    the END's aux = the launch's dispatch-time h2d stall in ns, the same
+    nanoseconds stats["h2d_stall_ns"] counts for it
+  - DEVICE_H2D around each dispatch-time staging (_h2d): l0 = bytes,
+    l1 = the queue, class = the dispatching task's request scope or -1,
+    aux 0; and around each stage off the dispatch path (the prefetch
+    lane; _h2d_ahead: stage_collection, the panel DAGs' index segments):
+    class -1, aux 1.  Every byte stats["h2d_bytes"] counts is in one
+    of these spans.
+Both bracket what the HOST does, as the reference's spans do: from the
+start of the copy into pinned staging (or of the launch's staging) to
+the asynchronous enqueue.  The copies and kernels themselves run on the
+card's streams after the span ends; torch.profiler times those.
+
 `CudaDevice(ctx)` runs on the card and raises where there is none;
 `CudaDevice(ctx, device="cpu")` runs the same module with torch CPU
 tensors, where each kernel wrapper takes its plain PyTorch version and
@@ -66,6 +83,7 @@ from ..core.context import Context
 from ..core.taskclass import Mem, TaskClass, TaskView
 from ..core.taskpool import Taskpool
 from ..dsl.dtd import DtdView
+from ..profiling.trace import KEY_DEVICE, KEY_H2D
 from ..utils import params as _knobs
 from .prefetch import _PrefetchLane
 
@@ -323,6 +341,9 @@ class CudaDevice:
         # stage that began before one is discarded (it may have copied
         # the bytes being replaced)
         self._host_epoch = 0
+        # the current launch's dispatch-time h2d stall (manager thread
+        # only): reset at its DEVICE_DISPATCH begin, read at its end
+        self._disp_stall_ns = 0
         # every key pre-populated: the dict never resizes after init, so a
         # concurrent info() copy cannot hit a changed-size error.  Names
         # follow the reference device module's stats.
@@ -448,17 +469,47 @@ class CudaDevice:
         out.record_stream(self._stream)
         return out, ev
 
-    def _h2d(self, host: np.ndarray):
-        """Copy one host array to the device for the exec stream: the copy
-        runs on the h2d stream and the exec stream waits on its event.
-        Returns (device tensor, event); the time to enqueue it is counted
-        as an h2d stall."""
+    def _prof_h2d(self, phase: int, nbytes: int, scope: int,
+                  lane: int) -> None:
+        """One DEVICE_H2D event: l0 = bytes, l1 = this device's queue,
+        class = the request scope (-1: none), aux = the lane (0: a
+        dispatch-time stall, 1: staged off the dispatch path)."""
+        N.lib.ptc_prof_event(self.ctx._ptr, KEY_H2D, phase, scope, nbytes,
+                             self.qid, lane)
+
+    def _h2d(self, host: np.ndarray, scope: int = -1):
+        """Dispatch-time h2d of one host array, for the exec stream: the
+        copy runs on the h2d stream and the exec stream waits on its
+        event.  Returns (device tensor, event).  The host's time from the
+        copy into pinned staging to the enqueue is the launch's h2d stall
+        (stats["h2d_stall_ns"], and its DEVICE_DISPATCH end's aux), traced
+        as a DEVICE_H2D span whose class is the dispatching task's request
+        scope (`scope`, -1: none)."""
         t0 = time.perf_counter_ns()
+        self._prof_h2d(0, host.nbytes, scope, 0)
         out, ev = self._h2d_async(torch.from_numpy(host))
         if ev is not None:
             self._stream.wait_event(ev)
-        self._stats_add("h2d_stall_ns", time.perf_counter_ns() - t0)
+        self._prof_h2d(1, host.nbytes, scope, 0)
+        stall = time.perf_counter_ns() - t0
+        self._disp_stall_ns += stall
+        with self._lock:
+            self.stats["h2d_stall_ns"] += stall
+            self.stats["h2d_bytes"] += host.nbytes
+        return out, ev
+
+    def _h2d_ahead(self, host: np.ndarray):
+        """h2d of one host array off the dispatch path (the caller's
+        thread: stage_collection, the panel DAGs' index segments, a check's
+        read of a tile with no mirror), for the exec stream.  Counted in
+        h2d_bytes and traced as a lane-1 DEVICE_H2D span, not as a
+        launch's stall.  Returns (device tensor, event)."""
+        self._prof_h2d(0, host.nbytes, -1, 1)
+        out, ev = self._h2d_async(torch.from_numpy(host))
+        self._prof_h2d(1, host.nbytes, -1, 1)
         self._stats_add("h2d_bytes", host.nbytes)
+        if ev is not None:
+            self._stream.wait_event(ev)
         return out, ev
 
     def _d2h_async(self, arrs: Sequence[torch.Tensor], events: Sequence):
@@ -954,7 +1005,7 @@ class CudaDevice:
             tiles.append(coll.tile(m, n))
         if not tiles:
             return
-        stack, ev = self._h2d(np.stack(tiles))
+        stack, ev = self._h2d_ahead(np.stack(tiles))
         for i, (uid, ver) in enumerate(keys):
             self._cache_put(uid, ver, stack[i], tiles[i].nbytes,
                             stack=stack, idx=i, event=ev)
@@ -1211,7 +1262,8 @@ class CudaDevice:
                          shape=body.shapes.get(flow), sync=False)
         if self._pf_lane is not None:
             self._stats_add("prefetch_misses")
-        return self._h2d(host)
+        # the dispatching task's request scope names the stall's owner
+        return self._h2d(host, int(N.lib.ptc_task_scope(view._ptr)) or -1)
 
     def _stage_in(self, view, body: _DeviceBody, flow):
         """The current device tile of one task's read flow: a cache hit,
@@ -1239,7 +1291,8 @@ class CudaDevice:
           - every lane's tile is a row of ONE cached stack: a slice of it
             (or one index_select when the rows are not in lane order)
           - otherwise: a new stack, rows copied from the cache, a sibling
-            or a fresh h2d (staged rows are then cached as rows of it)"""
+            or a fresh h2d (staged rows are then cached as rows of it); a
+            tile several lanes read is staged once and its row copied"""
         n = len(views)
         shape = self._flow_shape(views[0], body, flow)
         keys = [self._flow_uid_ver(v, body, flow)[1:] for v in views]
@@ -1268,7 +1321,15 @@ class CudaDevice:
         out = torch.empty((n, *shape), dtype=_NP_TO_TORCH[np.dtype(dt)],
                           device=self.device)
         staged = []
+        first: Dict[tuple, int] = {}  # (uid, ver) staged here -> its row
         for i, (view, (uid, ver)) in enumerate(zip(views, keys)):
+            j = first.get((uid, ver))
+            if j is not None:
+                # an earlier lane of this gather staged the same tile: copy
+                # its row rather than moving the bytes across again
+                self._stats_add("h2d_hits")
+                out[i].copy_(out[j], non_blocking=True)
+                continue
             arr = self._cache_get_typed(uid, ver, dt, shape)
             if arr is not None:
                 self._hit(uid)
@@ -1277,6 +1338,7 @@ class CudaDevice:
                 if arr is None:
                     arr, _ = self._stage_from_host(view, body, flow)
                 staged.append((i, uid, ver))
+                first[(uid, ver)] = i
             out[i].copy_(arr.reshape(shape), non_blocking=True)
         ev = self._record() if staged else None
         for i, uid, ver in staged:
@@ -1395,18 +1457,50 @@ class CudaDevice:
         for i in range(0, len(tasks), chunk):
             self._run_lanes(body, tasks[i:i + chunk])
 
+    def _prof(self, phase: int, body: _DeviceBody, lanes: int) -> None:
+        """A DEVICE_DISPATCH event: class = the task class id (-1 for a
+        DTD body), l0 = lanes, l1 = this device's queue (so same-class
+        spans of sibling devices pair apart); the END's aux is the
+        launch's dispatch-time h2d stall in ns (0: every input was
+        resident or prefetched).  The begin resets that stall."""
+        if phase == 0:
+            self._disp_stall_ns = 0
+        cid = body.tc.id if body.tc is not None else -1
+        N.lib.ptc_prof_event(self.ctx._ptr, KEY_DEVICE, phase, cid, lanes,
+                             self.qid, self._disp_stall_ns if phase else 0)
+
     def _run_lanes(self, body: _DeviceBody, tasks: List):
-        """Stage the lanes' inputs, launch the kernel once, install the
-        outputs.  A task completes once its launch is enqueued (or, for
-        sync-mem-out flows, from the writeback lane, after the launch's
-        output stack has landed on the host); any failure fails every
-        task of the launch — no fallback.  Every launch, of one task or a
-        group, comes here: an epilogue's destination tasks first try
-        their parked result, and its source lane runs the epilogue."""
+        """Every launch, of one task or a group, comes here: an epilogue's
+        destination tasks first try their parked result (no launch, no
+        span), the rest launch once inside a DEVICE_DISPATCH span."""
         if body.spec_src is not None:
             tasks = [t for t in tasks if not self._try_spec(body, t)]
             if not tasks:
                 return
+        self._prof(0, body, len(tasks))
+        wb_stacks = None
+        try:
+            wb_stacks = self._launch(body, tasks)
+        finally:
+            # the span ends before the tasks complete: a caller that
+            # takes the trace after tp.wait() finds every span closed
+            self._prof(1, body, len(tasks))
+        if wb_stacks is None:
+            return  # failed: _launch failed the tasks
+        if wb_stacks:
+            self._wb_q.put(("stack", list(tasks), wb_stacks))
+            return
+        for t in tasks:
+            self.ctx.task_complete(t)
+
+    def _launch(self, body: _DeviceBody, tasks: List) -> Optional[list]:
+        """Stage the lanes' inputs, launch the kernel once, install the
+        outputs; returns the output stacks of the sync-mem-out flows
+        (empty: none).  A task completes once its launch is enqueued (or,
+        for sync-mem-out flows, from the writeback lane, after the
+        launch's output stack has landed on the host); any failure fails
+        every task of the launch and returns None — no fallback.  An
+        epilogue's source lane runs the epilogue inside the launch."""
         views = [body.make_view(t) for t in tasks]
         try:
             ins = [self._lanes_in(views, body, f) for f in body.reads]
@@ -1459,9 +1553,5 @@ class CudaDevice:
             traceback.print_exc()
             for t in tasks:
                 self.ctx.task_fail(t)
-            return
-        if wb_stacks:
-            self._wb_q.put(("stack", list(tasks), wb_stacks))
-            return
-        for t in tasks:
-            self.ctx.task_complete(t)
+            return None
+        return wb_stacks

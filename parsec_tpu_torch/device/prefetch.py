@@ -40,6 +40,10 @@ each) beyond the one executing.  A slot is a set of staged uids; it
 recycles when every uid has been consumed (pf flag cleared by the first
 stage-in) or has left the cache.
 
+Each stage is traced as a DEVICE_H2D span (class -1, l0 = bytes, l1 =
+the device's queue, aux 1: the lane), bracketing the host's copy into
+pinned staging and the enqueue, as the reference's lane span does.
+
 The reference lane also stages the wave compiler's chain hints
 (`_stage_hints`); that compiler (device/fuse.py) is not ported, so the
 device's `_pf_chain_hints` list stays empty and the lane stages the
@@ -184,18 +188,23 @@ class _PrefetchLane:
                     try:
                         epoch = dev._host_epoch
                         t0 = time.perf_counter_ns()
+                        dev._prof_h2d(0, size, -1, 1)
                         host = np.frombuffer(
                             (C.c_uint8 * size).from_address(dptr),
                             dtype=np.uint8, count=size)
                         arr, ev = dev._h2d_async(torch.from_numpy(host))
+                        dev._prof_h2d(1, size, -1, 1)
                         dev._stats_add("prefetch_h2d_ns",
                                        time.perf_counter_ns() - t0)
                     except Exception:
                         dev._prefetch_unreserve(size)
                         raise
+                    # the bytes crossed whether or not the stage is
+                    # installed: h2d_bytes counts a refused (wasted) stage
+                    # too, as its DEVICE_H2D span does
+                    dev._stats_add("h2d_bytes", size)
                     if dev._cache_put_prefetch(uid, ver, arr, size, ev,
                                                epoch):
-                        dev._stats_add("h2d_bytes", size)
                         slot_uids.add(uid)
                         staged_any = True
             if slot_uids:

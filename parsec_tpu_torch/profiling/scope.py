@@ -11,8 +11,9 @@ Context.stats()["scope"].
 
 Not ported yet: the plan-vs-measured folds of conformance (plans wait
 for the analysis layer, so every pool retires unplanned and the rollup
-counts them), the trace-based request timeline (the trace module), the
-fleet and journal exports (the black box) and the controller hook.
+counts them), the trace-based request timeline (it reads the trace
+module's spans; the legend take_trace stamps is here), the fleet and
+journal exports (the black box) and the controller hook.
 
 Clock note: request timestamps read the NATIVE ptc_now_ns clock
 (ptc_clock_ns), the clock trace events are stamped with.
@@ -330,6 +331,14 @@ class ScopeRegistry:
                     "breached": bool(n and burn >= t.burn_threshold),
                 }
         return out
+
+    def scope_legend(self) -> dict:
+        """scope_id -> {tenant, kind, rid} — stamped into .ptt meta by
+        take_trace so a trace names the requests it contains."""
+        with self._lock:
+            return {str(sid): {"tenant": r.tenant, "kind": r.kind,
+                               "rid": r.rid}
+                    for sid, r in self.requests.items()}
 
     # ------------------------------------------------------------ stats
     def stats(self) -> dict:

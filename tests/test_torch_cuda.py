@@ -687,3 +687,203 @@ END
                           torch.from_numpy(w[0]).to(card), 1e-6)
     np.testing.assert_allclose(O.to_dense(), want.cpu().numpy(),
                                rtol=2e-5, atol=2e-5)
+
+
+def test_traced_norm_spans_match_launches_and_stats(card):
+    """Phase 9a's checks at a small NORM: the DEVICE_DISPATCH spans equal
+    the RMSNorm kernel's launches, their lanes the device's tasks, the
+    DEVICE_H2D bytes stats["h2d_bytes"] and the ends' aux
+    stats["h2d_stall_ns"]."""
+    from parsec_tpu_torch.ops.rms_norm import build_rms_norm
+    from parsec_tpu_torch.profiling import KEY_DEVICE, KEY_H2D, take_trace
+    R, T, d = 8, 256, 512
+    rng = np.random.default_rng(41)
+    x = rng.standard_normal((R * T, d), dtype=np.float32)
+    w = rng.standard_normal((1, d), dtype=np.float32)
+    X, W = to_collection(x, T, d), to_collection(w, 1, d)
+    O = to_collection(np.zeros_like(x), T, d)
+    with pt.Context(nb_workers=2) as ctx:
+        ctx.profile_enable(2)
+        dev = CudaDevice(ctx)
+        kernels.reset_launches()
+        tp = build_rms_norm(ctx, X, W, O, 1e-6, dev=dev)
+        tp.run()
+        tp.wait()
+        dev.flush()
+        dev.stop()
+        st = dict(dev.stats)
+        tr = take_trace(ctx, class_names=["NORM"])
+    ev = tr.events
+    beg = ev[:, 1] == 0
+    d_, h_ = ev[:, 0] == KEY_DEVICE, ev[:, 0] == KEY_H2D
+    assert (d_ & beg).sum() == (d_ & ~beg).sum() == \
+        kernels.LAUNCHES["rms_norm"] >= 1
+    assert ev[d_ & beg, 3].sum() == st["tasks"] == R
+    assert ev[h_ & beg, 3].sum() == st["h2d_bytes"]
+    assert ev[d_ & ~beg, 6].sum() == st["h2d_stall_ns"]
+
+
+def test_recursive_potrf_over_the_card(card):
+    """Phase 9b at a small size: one host task recursing into a potrf
+    over sub-tiles whose chores run on the card; the writeback pulls the
+    dirty mirrors on the manager thread, and L matches
+    torch.linalg.cholesky within 1e-3 max|L|."""
+    import threading
+
+    import torch
+    from parsec_tpu_torch.algos import build_potrf
+    from parsec_tpu_torch.data import SubtileView, TwoDimBlockCyclic
+    n, nb = 512, 64
+    g = np.random.default_rng(43).standard_normal((n, n)).astype(np.float32)
+    spd = (g + g.T) * 0.5 + 2.0 * n * np.eye(n, dtype=np.float32)
+    where = []
+    with pt.Context(nb_workers=2) as ctx:
+        dev = CudaDevice(ctx)
+        A = TwoDimBlockCyclic(n, n, n, n)
+        A.tile(0, 0)[...] = spd
+        A.register(ctx, "A")
+        tp = pt.Taskpool(ctx, globals={})
+        tc = tp.task_class("FACTOR")
+        tc.param("k", 0, 0)
+        tc.flow("T", "RW", pt.In(pt.Mem("A", pt.L("k"), pt.L("k"))),
+                pt.Out(pt.Mem("A", pt.L("k"), pt.L("k"))))
+
+        def body(t):
+            sub = SubtileView(t.data("T", np.float32, (n, n)), nb, nb)
+            sub.register(ctx, "SUB")
+
+            def on_done():
+                where.append(threading.current_thread().name)
+                sub.writeback()
+
+            return pt.recursive_call(t, build_potrf(ctx, sub, dev,
+                                                    name="SUB"),
+                                     on_done=on_done)
+
+        tc.body(body)
+        tp.run()
+        tp.wait()
+        assert dev.stats["tasks"] > 0
+        dev.stop()
+    lo = torch.tril(torch.from_numpy(A.tile(0, 0).copy()).to(card))
+    lc = torch.linalg.cholesky(torch.from_numpy(spd).to(card))
+    assert float((lo - lc).abs().max() / lc.abs().max()) <= 1e-3
+    assert where == ["ptc-cuda-manager"]
+
+
+def test_compose_potri_on_the_card_matches_run_potri(card):
+    """Phase 9c at a small size: compose(potrf, trtri, lauum) as one
+    Compound on the card against run_potri, within 1e-4 max|ref|."""
+    from parsec_tpu_torch.algos import (build_lauum, build_potrf,
+                                        build_trtri, run_potri)
+    from parsec_tpu_torch.data import TwoDimBlockCyclic
+    from parsec_tpu_torch.device.bench_utils import generate_spd_on_device
+    n, nb = 512, 64
+    with pt.Context(nb_workers=2) as ctx:
+        dev = CudaDevice(ctx)
+        cs = {}
+        for name in ("A", "W", "C", "A2", "W2", "C2"):
+            cs[name] = TwoDimBlockCyclic(n, n, nb, nb)
+            cs[name].register(ctx, name)
+        generate_spd_on_device(dev, cs["A"], seed=5)
+        generate_spd_on_device(dev, cs["A2"], seed=5)
+        comp = pt.compose(
+            build_potrf(ctx, cs["A"], dev=dev, name="A"),
+            build_trtri(ctx, cs["A"], cs["W"], dev=dev, names=("A", "W")),
+            build_lauum(ctx, cs["W"], cs["C"], dev=dev, names=("W", "C")))
+        comp.run()
+        comp.wait()
+        dev.flush()
+        run_potri(ctx, cs["A2"], cs["W2"], cs["C2"], dev=dev,
+                  names=("A2", "W2", "C2"))
+        got, want = (np.tril(cs[c].to_dense()) for c in ("C", "C2"))
+        dev.stop()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_reshape_paths_on_a_device_dirty_factor(card):
+    """Phase 9d at a small size: a factor left dirty on the card,
+    regridded (bit for bit the flushed factor), cast to float16 (bit for
+    bit numpy's astype) and column-reduced on the host (1e-4 max|ref| of
+    a float64 sum)."""
+    from parsec_tpu_torch.algos import (build_potrf, build_reduce_col,
+                                        build_reshape_dtype,
+                                        reshape_geometry)
+    from parsec_tpu_torch.data import TwoDimBlockCyclic
+    from parsec_tpu_torch.device.bench_utils import generate_spd_on_device
+    n, nb = 512, 128
+    with pt.Context(nb_workers=2) as ctx:
+        dev = CudaDevice(ctx)
+        A = TwoDimBlockCyclic(n, n, nb, nb)
+        A.register(ctx, "A")
+        generate_spd_on_device(dev, A, seed=3)
+        tp = build_potrf(ctx, A, dev=dev)
+        tp.run()
+        tp.wait()
+        assert any(e.dirty for e in list(dev._cache.values()))
+        R = TwoDimBlockCyclic(n, n, nb // 2, nb // 2)
+        R.register(ctx, "R")
+        reshape_geometry(ctx, A, R)
+        H = TwoDimBlockCyclic(n, n, nb, nb, dtype=np.float16)
+        H.register(ctx, "H")
+        tp = build_reshape_dtype(ctx, A, H, src_name="A", dst_name="H")
+        tp.run()
+        tp.wait()
+        dev.flush()
+        dense = A.to_dense()
+        np.testing.assert_array_equal(R.to_dense(), dense)
+        np.testing.assert_array_equal(H.to_dense(), dense.astype(np.float16))
+        want = dense.astype(np.float64).reshape(n // nb, nb, n).sum(axis=0)
+        tp = build_reduce_col(ctx, A, np.add)
+        tp.run()
+        tp.wait()
+        got = A.to_dense()[:nb]
+        dev.stop()
+    assert np.abs(got - want).max() <= 1e-4 * np.abs(want).max()
+
+
+def test_two_devices_on_one_card_route_by_affinity(card):
+    """Phase 9e's chain: with the default affinity skew every consumer
+    follows its producer's mirror (no d2d bytes); with skew 0 the
+    consumers tie onto the sibling, which stages device to device."""
+    def chain(skew):
+        with pt.Context(nb_workers=2) as ctx:
+            if skew is not None:
+                ctx.device_set_affinity_skew(skew)
+            arr = np.ones((64 * 64,), dtype=np.float32)
+            ctx.register_linear_collection("A", arr, elem_size=arr.nbytes)
+            ctx.register_arena("t", arr.nbytes)
+            d0, d1 = CudaDevice(ctx), CudaDevice(ctx)
+            tp = pt.Taskpool(ctx, globals={"NB": 3})
+            k = pt.L("k")
+            prod = tp.task_class("P")
+            prod.param("k", 0, 3)
+            prod.flow("X", "RW", pt.In(pt.Mem("A", 0), guard=(k == 0)),
+                      pt.In(pt.Ref("C", k - 1, flow="X")),
+                      pt.Out(pt.Ref("C", k, flow="X")), arena="t")
+            cons = tp.task_class("C")
+            cons.param("k", 0, 3)
+            cons.flow("X", "RW", pt.In(pt.Ref("P", k, flow="X")),
+                      pt.Out(pt.Ref("P", k + 1, flow="X"), guard=(k < 3)),
+                      pt.Out(pt.Mem("A", 0), guard=(k == 3)), arena="t")
+            shp = {"X": (64, 64)}
+            d0.attach(prod, tp, kernel=lambda x: x + 1.0, reads=["X"],
+                      writes=["X"], shapes=shp)
+            d1.attach(cons, tp, kernel=lambda x: x * 2.0, reads=["X"],
+                      writes=["X"], shapes=shp)
+            d0.attach(cons, tp, kernel=lambda x: x * 2.0, reads=["X"],
+                      writes=["X"], shapes=shp)
+            tp.run()
+            tp.wait()
+            for dv in (d0, d1):
+                dv.flush()
+            res = (d1.stats["tasks"],
+                   d0.stats["d2d_bytes"] + d1.stats["d2d_bytes"])
+            d0.stop()
+            d1.stop()
+        assert np.all(arr == 46.0)
+        return res
+
+    assert chain(None) == (0, 0)
+    tasks, d2d = chain(0.0)
+    assert tasks == 4 and d2d > 0

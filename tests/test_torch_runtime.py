@@ -161,7 +161,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                 "algos/qr.py", "device/bench_utils.py",
                 "device/prefetch.py", "dsl/__init__.py", "dsl/dtd.py",
                 "dsl/jdf.py", "dsl/ptg_to_dtd.py", "analysis/__init__.py",
-                "analysis/dtdlint.py", "analysis/flowgraph.py"):
+                "analysis/dtdlint.py", "analysis/flowgraph.py",
+                "core/future.py", "core/compose.py",
+                "algos/matrix_ops.py", "algos/redistribute.py",
+                "algos/reshape.py", "profiling/trace.py",
+                "profiling/critpath.py"):
         assert os.path.join("parsec_tpu_torch", sub) in walked, sub
     for path in files:
         with open(path) as f:
