@@ -2005,6 +2005,98 @@ def serve_oracle(model, req, dev_t, head64):
     return o, (o @ wo) @ embed.T
 
 
+def serve_round(model, prompts, tenants, max_new, observe, label,
+                conformance=True, trace=False):
+    """One continuous-batching round of serve_path: a fresh Context(4
+    workers, lws) -> CudaDevice -> InferenceEngine over `prompts` (the
+    prefix owner, prompts[4], served first so its frozen pages exist
+    when the sharer is admitted), every request to `max_new` tokens.
+    `conformance` is the engine's and its server's; `trace` traces the
+    round at level 1 and returns the trace with its scope registry.
+    Returns the handles, tokens/s, step walls, TTFTs, the counters and
+    the host time Taskpool.plan took (the conformance plans, on the
+    submit and decode paths; timed around the class's method)."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.profiling import take_trace
+    from parsec_tpu_torch.serve import (InferenceEngine, Server,
+                                        TenantConfig)
+    r = {"plan_ns": 0}
+    plan0 = pt.Taskpool.plan
+
+    def timed_plan(tp, *a, **kw):
+        t = time.perf_counter_ns()
+        try:
+            return plan0(tp, *a, **kw)
+        finally:
+            r["plan_ns"] += time.perf_counter_ns() - t
+    pt.Taskpool.plan = timed_plan
+    try:
+        with pt.Context(nb_workers=4, scheduler="lws") as ctx:
+            if trace:
+                ctx.profile_enable(1)
+            dev = CudaDevice(ctx)
+            tcs = [TenantConfig("hi", priority=4, weight=4),
+                   TenantConfig("lo")]
+            eng = InferenceEngine(
+                ctx, model, n_pages=1200, max_seqs=8, dev=dev,
+                server=Server(ctx, tcs, name="eng",
+                              conformance=conformance),
+                conformance=conformance)
+            t0 = time.perf_counter()
+            first = eng.submit(prompts[4], max_new, tenants[4])
+            first.ticket.wait()
+            hs = [eng.submit(prompts[i], max_new, tenants[i])
+                  for i in range(len(prompts)) if i != 4]
+            hs.insert(4, first)
+            walls = []
+
+            def decode():
+                deadline = time.monotonic() + 600
+                while eng.pending() or eng._inflight:
+                    if time.monotonic() > deadline:
+                        raise TimeoutError("SERVE: decode loop past 600 s")
+                    ts = time.perf_counter()
+                    n = eng.step()
+                    torch.cuda.synchronize()
+                    if n:
+                        walls.append(time.perf_counter() - ts)
+                    else:
+                        time.sleep(0.0005)
+                eng.settle()
+
+            observe(label, decode)
+            r["wall_s"] = time.perf_counter() - t0
+            r["device"] = dict(dev.stats)
+            r["pool"] = eng.pool.stats()
+            r["scope"] = ctx.stats()["scope"]
+            r["engine"] = dict(eng.stats)
+            r["ttft_ms"] = {tn: [(q.first_token_ns - q.submitted_ns) / 1e6
+                                 for h in hs if h.tenant == tn
+                                 for q in [eng.scope.request(h.rid)]]
+                            for tn in ("hi", "lo")}
+            if trace:
+                dev.stop()  # its lanes joined: no span left open
+                r["trace"] = take_trace(ctx)
+                r["registry"] = eng.scope
+            r["watchdog"] = (ctx._watchdog.status()
+                             if ctx._watchdog is not None else None)
+            r["journal"] = (ctx._journal.stats()
+                            if ctx._journal is not None else None)
+            eng.close()
+            dev.stop()
+    finally:
+        pt.Taskpool.plan = plan0
+    r["handles"] = hs
+    r["walls"] = walls
+    r["plan_ms"] = r.pop("plan_ns") / 1e6
+    r["generated"] = sum(len(h.generated) for h in hs)
+    r["tokens_per_s"] = r["generated"] / r["wall_s"]
+    return r
+
+
 def serve_path(dev_t, observe=None) -> dict:
     """The serving path at Llama-2-7B attention widths (hidden 4096, 32
     heads, vocab 32000; page 16): a two-tenant continuous-batching run
@@ -2108,57 +2200,27 @@ def serve_path(dev_t, observe=None) -> dict:
             f"tie: {ties}")
         return worst, ties
 
-    with pt.Context(nb_workers=4, scheduler="lws") as ctx:
-        dev = CudaDevice(ctx)
-        eng = InferenceEngine(
-            ctx, model, n_pages=1200, max_seqs=8, dev=dev,
-            tenants=[TenantConfig("hi", priority=4, weight=4),
-                     TenantConfig("lo")])
-        t0 = time.perf_counter()
-        # the prefix owner is served first, so its frozen pages exist
-        # when the sharer is admitted
-        first = eng.submit(prompts[4], max_new, tenants[4])
-        first.ticket.wait()
-        hs = [eng.submit(prompts[i], max_new, tenants[i])
-              for i in range(8) if i != 4]
-        hs.insert(4, first)
-        walls = []
-
-        def decode():
-            deadline = time.monotonic() + 600
-            while eng.pending() or eng._inflight:
-                if time.monotonic() > deadline:
-                    raise TimeoutError("SERVE: decode loop past 600 s")
-                ts = time.perf_counter()
-                n = eng.step()
-                torch.cuda.synchronize()
-                if n:
-                    walls.append(time.perf_counter() - ts)
-                else:
-                    time.sleep(0.0005)
-            eng.settle()
-
-        observe("SERVE 8 requests, 2 tenants", decode)
-        wall = time.perf_counter() - t0
-        st = dict(dev.stats)
-        pool = eng.pool.stats()
-        scope = ctx.stats()["scope"]
-        eng.close()
-        dev.stop()
-        gen = sum(len(h.generated) for h in hs)
-        out["tokens_per_s"] = gen / wall
+    def round_(label, conformance, first):
+        r = serve_round(model, prompts, tenants, max_new, observe, label,
+                        conformance=conformance)
+        if not first:
+            # the first round's numbers are the ones the smoke reports
+            check_requests(label, r["handles"], max_new)
+            return r
+        hs, st, pool, scope = r["handles"], r["device"], r["pool"], \
+            r["scope"]
+        walls = r["walls"]
+        out["tokens_per_s"] = r["tokens_per_s"]
         out["step_wall_p50_ms"] = float(np.percentile(walls, 50)) * 1e3
-        log(f"  SERVE: {gen} tokens in {wall:.2f} s = "
+        log(f"  SERVE: {r['generated']} tokens in {r['wall_s']:.2f} s = "
             f"{out['tokens_per_s']:.2f} tokens/s; {len(walls)} decode "
             f"steps, wall p50 {out['step_wall_p50_ms']:.1f} ms, max "
             f"{max(walls) * 1e3:.1f} ms; decode pools "
-            f"{eng.stats['decode_pools']}; prefix hits "
+            f"{r['engine']['decode_pools']}; prefix hits "
             f"{pool['prefix_hits']} of {pool['prefix_hits'] + pool['prefix_misses']} "
             f"pages")
         for tn in ("hi", "lo"):
-            ttft = [(r.first_token_ns - r.submitted_ns) / 1e6
-                    for h in hs if h.tenant == tn
-                    for r in [eng.scope.request(h.rid)]]
+            ttft = r["ttft_ms"][tn]
             out[f"ttft_{tn}"] = (float(np.percentile(ttft, 50)),
                                  float(np.percentile(ttft, 99)))
             log(f"  SERVE tenant {tn}: TTFT p50 {out[f'ttft_{tn}'][0]:.1f}"
@@ -2187,6 +2249,26 @@ def serve_path(dev_t, observe=None) -> dict:
             raise AssertionError(f"SERVE: {pool['prefix_hits']} prefix "
                                  "hits, expected at least 64")
         out["device"] = st
+        return r
+
+    # conformance (every pool planned) is the default; the same round
+    # without it, in turns: on, off, on
+    turns = {"on": [], "off": []}
+    for k, (key, conf) in enumerate((("on", True), ("off", False),
+                                     ("on", True))):
+        r = round_(f"SERVE conformance={key}", conf, k == 0)
+        cov = r["scope"]["conformance"]["coverage"]
+        if conf and cov != 1.0:
+            raise AssertionError(f"SERVE: conformance coverage {cov}, "
+                                 "expected 1.0 (a plan failed)")
+        turns[key].append(r["tokens_per_s"])
+        log(f"  SERVE round {k + 1} conformance={key}: "
+            f"{r['tokens_per_s']:.2f} tokens/s, coverage {cov}, makespan "
+            f"ratio p50 {r['scope']['conformance']['makespan']['ratio_p50']}"
+            f", plan {r['plan_ms']:.1f} ms of host in the decode loop")
+    out["tokens_per_s_conformance"] = turns
+    # phase 10 serves again with the watchdog and the journal armed
+    out["_round"] = (model, prompts, tenants, max_new, check_requests)
 
     # speculative decoding: the verify wave's folds run batched
     spec_prompts = [[int(x) for x in rng.integers(0, cfg.vocab, size=512)]
@@ -2214,6 +2296,553 @@ def serve_path(dev_t, observe=None) -> dict:
             raise AssertionError("SERVE spec: no batched verify launch")
         if es["spec_accepted"] <= 0:
             raise AssertionError("SERVE spec: no draft token accepted")
+    return out
+
+
+# phase 10 sizes: phase 4's paths (GEMM (N, NB), NORM (rows, d, T), FATT
+# (heads, L, D)), the north-star POTRF-P (N, NB), NORM's PINS-off/on
+# runs in turns, and the h2d fit's sizes and repetitions
+OBSERVE = {"gemm": (4096, 512), "norm": (8 * 4096, 4096, 1024),
+           "fatt": (32, 4096, 128), "potrf_p": (32768, 512),
+           "pins_walls": 3, "fit_sizes": (1 << 20, 1 << 24, 1 << 28),
+           "fit_reps": 5, "tune_topk": 2}
+
+
+def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
+                 out_dir=None) -> dict:
+    """Phase 10: the profiling layer and the static analyses on the card.
+      10a the card's h2d fit (the pinned buffer on the h2d stream, at
+          three sizes, fit_points), written under out_dir in the
+          BENCH_comm.json schema for the tuner's device pricing
+      10b phase 4's GEMM, NORM and FATT (`rng` replays main_path's draws)
+          in one Context(nb_workers=4) with one PINS chain installed
+          (DeviceActivity, TaskCounter, StragglerLog and a count of the
+          dispatch-time DEVICE_H2D ends): each pool warm first, then
+          planned (tp.plan()) and run with run(verify=True) on a fresh
+          CudaDevice; DeviceActivity's waves equal the device's launches
+          (NORM's and FATT's equal their kernel's), its lanes the tasks,
+          its stall the device's h2d_stall_ns and its lane-split bytes
+          the device's h2d_bytes; the plan's est_bytes beside the
+          device's cache_peak_bytes and its critical path beside the
+          wall; a LiveMonitor samples during NORM (device rows
+          required); then the h2d_stall histogram's count equals the
+          dispatch-time h2d count and its sum the devices' summed
+          h2d_stall_ns, and the exporter is scraped once on localhost
+      10c NORM with PINS off and on, pins_walls runs of each in turns,
+          O bit-identical to phase 4's every run; the median wall ratio
+      10d POTRF-P at (N, NB) with run(verify=True) and tp.plan(), its
+          residual held to 1e-4
+      10e autotune on GEMM: proposals priced with the card's fit, each
+          validated by a real run in a fresh Context under its knob
+          vector, the winner persisted under out_dir; then a fresh GEMM
+          run(tuned=True) applies it, C at phase 4's 1e-4 / 1e-3
+      10f (serve given) phase 5's round with conformance on by default,
+          the watchdog and the journal armed through their runtime.*
+          parameters and tracing at level 1: coverage 1.0 required, the
+          makespan ratio printed, the journal read back, and one
+          request's timeline (its stages sum to its latency)
+    Returns {"runs": {label: row}, "launches": the kernels' launches}."""
+    import shutil
+    import urllib.request
+
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch import _native as N
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.algos import (build_gemm, build_potrf_panels,
+                                        potrf_flops)
+    from parsec_tpu_torch.analysis import autotune
+    from parsec_tpu_torch.analysis.tune import apply_knobs, default_knobs
+    from parsec_tpu_torch.comm.economics import (TransferEconomics,
+                                                 fit_points)
+    from parsec_tpu_torch.convert import to_collection, to_tensor
+    from parsec_tpu_torch.data import TwoDimBlockCyclic
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.device.bench_utils import (
+        generate_spd_panels_on_device, potrf_residual, wait_device_tiles)
+    from parsec_tpu_torch.profiling import (KEY_H2D, DeviceActivity,
+                                            MetricsExporter, PinsModule,
+                                            StragglerLog, TaskCounter,
+                                            enable_pins)
+    from parsec_tpu_torch.profiling.live import LiveMonitor
+    from parsec_tpu_torch.utils import params as mca
+    fa_mod = importlib.import_module("parsec_tpu_torch.ops.flash_attention")
+    rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
+    dims = dims or OBSERVE
+    out = {"runs": {}, "launches": {name: 0 for name in kernels.LAUNCHES}}
+    if out_dir is None:
+        out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                               "build", "phase10")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def check(label, ok, detail=""):
+        log(f"    check {label}: {ok}" + (f" ({detail})" if detail else ""))
+        if not ok:
+            raise AssertionError(f"10: {label} fails {detail}")
+
+    # ------------------------------------------- 10a, the card's h2d fit
+    with pt.Context(nb_workers=1) as ctx:
+        dev = CudaDevice(ctx, device=dev_t)
+        points, rows_fit = [], []
+        for size in dims["fit_sizes"]:
+            host = np.ones(size // 4, np.float32)
+            best = None
+            for _ in range(dims["fit_reps"]):
+                sync(dev_t)
+                t = time.perf_counter()
+                got, ev = dev._h2d_async(torch.from_numpy(host))
+                if ev is not None:
+                    ev.synchronize()
+                secs = time.perf_counter() - t
+                best = secs if best is None else min(best, secs)
+            del got
+            points.append((size, best))
+            rows_fit.append({"size_bytes": size, "seconds": best,
+                             "gbps": size / best / 1e9})
+        dev.stop()
+    fit = fit_points(points)
+    econ_path = os.path.join(out_dir, "econ.json")
+    with open(econ_path, "w") as f:
+        json.dump({"bench": "chip_smoke.py phase 10 h2d fit",
+                   "meta": {"platform": dev_t.type,
+                            "card": torch.cuda.get_device_name(dev_t)
+                            if dev_t.type == "cuda" else "cpu"},
+                   "paths": {"device": {"sizes": rows_fit, "fit": fit}}},
+                  f, indent=1)
+    econ = TransferEconomics.load(econ_path)
+    log(f"  10a h2d fit (pinned staging, h2d stream, min of "
+        f"{dims['fit_reps']}): " + ", ".join(
+            f"{r['size_bytes']} B {r['seconds'] * 1e3:.3f} ms "
+            f"({r['gbps']:.2f} GB/s)" for r in rows_fit)
+        + f"; fit {fit['fixed_overhead_us']} us + {fit['per_byte_ns']} "
+        f"ns/B (r2 {fit['r2']}) -> {econ_path}")
+    out["runs"]["10a h2d fit"] = {"sizes": rows_fit, "fit": fit}
+
+    # ---------------------------------- 10b, PINS, metrics, live, plans
+    n, nb = dims["gemm"]
+    rows, d, T = dims["norm"]
+    H, L, D = dims["fatt"]
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    b = rng.standard_normal((n, n), dtype=np.float32)
+    xn = rng.standard_normal((rows, d), dtype=np.float32)
+    wn = rng.standard_normal((1, d), dtype=np.float32)
+    qn = rng.standard_normal((H * L, D), dtype=np.float32)
+    kn = rng.standard_normal((L, D), dtype=np.float32)
+    vn = rng.standard_normal((L, D), dtype=np.float32)
+
+    class StallCount(PinsModule):
+        """Dispatch-time DEVICE_H2D ends (lane 0): the h2d_stall
+        histogram's sample count."""
+        name = "stall_count"
+        mask = 1 << KEY_H2D
+
+        def __init__(self):
+            self.count = 0
+            self._lock = threading.Lock()
+
+        def on_event(self, key, phase, class_id, l0, l1, worker, aux,
+                     t_ns):
+            if phase == 1 and aux == 0:
+                with self._lock:
+                    self.count += 1
+
+    with pt.Context(nb_workers=4) as ctx:
+        A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
+        C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+        X, W = to_collection(xn, T, d), to_collection(wn, 1, d)
+        O = to_collection(np.zeros_like(xn), T, d)
+        Q, K, V = (to_collection(qn, L, D), to_collection(kn, L, D),
+                   to_collection(vn, L, D))
+        OF = to_collection(np.zeros_like(qn), L, D)
+        act, cnt, slog, stalls = (DeviceActivity(), TaskCounter(),
+                                  StragglerLog(k=8), StallCount())
+        chain = enable_pins(ctx, act, cnt, slog, stalls)
+        stall_sum = 0
+
+        def gemm(dev):
+            for t in C._tiles.values():  # C += A @ B: from zero each run
+                t[...] = 0
+            return build_gemm(ctx, A, B, C, dev)
+
+        paths = {
+            "GEMM": (gemm, (n // nb) ** 3, None),
+            "NORM": (lambda dev: rn_mod.build_rms_norm(
+                ctx, X, W, O, EPS, dev=dev), rows // T, "rms_norm"),
+            "FATT": (lambda dev: fa_mod.build_flash_attention(
+                ctx, Q, K, V, OF, dev=dev), H, "flash_attention")}
+        for label, (build, ntasks, kname) in paths.items():
+            for warm in (True, False):
+                dev = CudaDevice(ctx, device=dev_t)
+                tp = build(dev)
+                plan = None if warm else tp.plan()
+                mon = None
+                if label == "NORM" and not warm:
+                    mon_path = os.path.join(out_dir, "live_{rank}.jsonl")
+                    if os.path.exists(mon_path.format(rank=0)):
+                        os.unlink(mon_path.format(rank=0))
+                    mon = LiveMonitor(ctx, path=mon_path, interval=0.05)
+                a0 = (act.waves, act.lanes, act.stall_ns,
+                      sum(act.h2d_bytes), list(act.h2d_bytes))
+                kernels.reset_launches()
+                sync(dev_t)
+                t = time.perf_counter()
+                tp.run(verify=None if warm else True)
+                tp.wait()
+                dev.flush()
+                sync(dev_t)
+                wall = (time.perf_counter() - t) * 1e3
+                got = dict(kernels.LAUNCHES)
+                for k, v in got.items():
+                    out["launches"][k] += v
+                if mon is not None:
+                    mon.stop()  # its final sample sees the device live
+                dev.stop()
+                st = dict(dev.stats)
+                stall_sum += st["h2d_stall_ns"]
+                if st["tasks"] != ntasks:
+                    raise AssertionError(f"10b {label}: {st['tasks']} device"
+                                         f" tasks, expected {ntasks}")
+                if warm:
+                    continue
+                launches = sum(v[0] for v in dev.launches.values())
+                dw, dl, ds, db = (act.waves - a0[0], act.lanes - a0[1],
+                                  act.stall_ns - a0[2],
+                                  sum(act.h2d_bytes) - a0[3])
+                split = [act.h2d_bytes[i] - a0[4][i] for i in (0, 1)]
+                log(f"  10b {label}: {wall:.1f} ms with PINS on, "
+                    f"verified; DeviceActivity waves={dw} lanes={dl} "
+                    f"stall={ds / 1e6:.2f} ms h2d bytes by lane "
+                    f"(dispatch, off-path)={split}; device launches "
+                    f"{launches} tasks={st['tasks']} h2d_bytes="
+                    f"{st['h2d_bytes']} stall="
+                    f"{st['h2d_stall_ns'] / 1e6:.2f} ms; kernel launches "
+                    f"{got}")
+                check(f"{label} waves == device launches", dw == launches,
+                      f"{dw} vs {launches}")
+                if kname is not None and dev_t.type == "cuda":
+                    check(f"{label} waves == {kname} launches",
+                          dw == got[kname], f"{dw} vs {got[kname]}")
+                check(f"{label} lanes == device tasks", dl == st["tasks"])
+                check(f"{label} stall == stats h2d_stall_ns",
+                      ds == st["h2d_stall_ns"])
+                check(f"{label} lane-split h2d bytes == stats h2d_bytes",
+                      db == st["h2d_bytes"], f"{db} vs {st['h2d_bytes']}")
+                ms = plan.makespan
+                log(f"    plan: est_bytes {plan.est_bytes()} vs device "
+                    f"cache_peak_bytes {st['cache_peak_bytes']}; "
+                    f"{plan.stats['instances']} tasks in "
+                    f"{plan.stats['waves']} waves, {plan.fusable_waves()} "
+                    f"certified; critical path {ms['critical_path_ns']} ns "
+                    f"and lower bound {ms['lower_bound_ns']} ns "
+                    f"({ms['cost_source']} costs) vs the wall "
+                    f"{wall * 1e6:.0f} ns = {wall * 1e6 / ms['lower_bound_ns']:.0f}x")
+                row = {"wall_ms": wall, "waves": dw, "lanes": dl,
+                       "stall_ns": ds, "h2d_split": split,
+                       "launches": got, "est_bytes": plan.est_bytes(),
+                       "cache_peak_bytes": st["cache_peak_bytes"],
+                       "critical_path_ns": ms["critical_path_ns"],
+                       "lower_bound_ns": ms["lower_bound_ns"],
+                       "cost_source": ms["cost_source"]}
+                if label == "GEMM":
+                    check_close("10b GEMM C vs torch.matmul",
+                                to_tensor(C.to_dense(), dev_t),
+                                torch.matmul(to_tensor(a, dev_t),
+                                             to_tensor(b, dev_t)),
+                                1e-4, 1e-3)
+                elif label == "NORM":
+                    o = O.to_dense()
+                    if ptg_norm_o is not None:
+                        check("NORM O with PINS bit-identical to phase "
+                              "4's", bool(np.array_equal(o, ptg_norm_o)))
+                    del o
+                    recs = [json.loads(x)
+                            for x in open(mon.path)]
+                    i = len(ctx._devices) - 1
+                    dev_rows = [r for r in recs if f"dev{i}_tasks" in r]
+                    keys = (f"dev{i}_tasks", f"dev{i}_cache_bytes",
+                            f"dev{i}_qdepth", "device")
+                    check("live samples carry the device rows",
+                          bool(dev_rows) and all(k in dev_rows[-1]
+                                                 for k in keys),
+                          f"{len(recs)} samples, last keys "
+                          f"{sorted(recs[-1])}")
+                    last = dev_rows[-1]
+                    log(f"    live: {len(recs)} samples, the last "
+                        f"dev{i}_tasks={last[f'dev{i}_tasks']} "
+                        f"dev{i}_cache_bytes={last[f'dev{i}_cache_bytes']}"
+                        f" device={last['device']}")
+                    row["live_samples"] = len(recs)
+                else:
+                    check_close(
+                        "10b FATT O vs plain",
+                        to_tensor(OF.to_dense(), dev_t).reshape(H, L, D),
+                        fa_mod.attention_reference(
+                            to_tensor(qn, dev_t).reshape(H, L, D),
+                            to_tensor(kn, dev_t).unsqueeze(0)
+                            .expand(H, L, D),
+                            to_tensor(vn, dev_t).unsqueeze(0)
+                            .expand(H, L, D), False, D ** -0.5),
+                        2e-5, 2e-5)
+                out["runs"][f"10b {label}"] = row
+        log(f"  10b PINS: TaskCounter counted {cnt.total} EXEC spans (the "
+            f"device tasks emit none), StragglerLog holds "
+            f"{len(slog.slowest)} rows")
+        chain.uninstall()
+        hist = [h for h in ctx.metrics_histograms()
+                if h.kind == N.MET_H2D_STALL]
+        hcount = hist[0].count if hist else 0
+        hsum = hist[0].sum_ns if hist else 0
+        log(f"  10b h2d_stall histogram: count {hcount}, sum "
+            f"{hsum / 1e6:.3f} ms, p50 {hist[0].quantile(0.5) / 1e3:.1f} us"
+            f", p99 {hist[0].quantile(0.99) / 1e3:.1f} us; the devices' "
+            f"h2d_stall_ns {stall_sum / 1e6:.3f} ms over {stalls.count} "
+            "dispatch-time copies")
+        check("h2d_stall histogram count == dispatch-time h2d copies",
+              hcount == stalls.count > 0, f"{hcount} vs {stalls.count}")
+        check("h2d_stall histogram sum == the devices' h2d_stall_ns",
+              hsum == stall_sum, f"{hsum} vs {stall_sum}")
+        exp = MetricsExporter(ctx, 0)
+        try:
+            body = urllib.request.urlopen(
+                f"http://127.0.0.1:{exp.port}/metrics",
+                timeout=30).read().decode()
+        finally:
+            exp.stop()
+        scraped = [ln for ln in body.splitlines()
+                   if ln.startswith("ptc_h2d_stall_seconds_count")]
+        check("exporter scrape carries the h2d_stall count",
+              scraped == [f"ptc_h2d_stall_seconds_count {hcount}"],
+              f"{scraped}; {len(body.splitlines())} lines")
+        out["runs"]["10b metrics"] = {"h2d_stall_count": hcount,
+                                      "h2d_stall_sum_ns": hsum,
+                                      "scrape_lines":
+                                          len(body.splitlines())}
+
+        # ------------------------------- 10c, PINS' cost on NORM, in turns
+        walls = {"off": [], "on": []}
+        for _ in range(dims["pins_walls"]):
+            for key in ("off", "on"):
+                chain = enable_pins(ctx, DeviceActivity(), TaskCounter(),
+                                    StragglerLog(k=8)) \
+                    if key == "on" else None
+                dev = CudaDevice(ctx, device=dev_t)
+                tp = rn_mod.build_rms_norm(ctx, X, W, O, EPS, dev=dev)
+                kernels.reset_launches()
+                sync(dev_t)
+                t = time.perf_counter()
+                tp.run()
+                tp.wait()
+                dev.flush()
+                sync(dev_t)
+                walls[key].append((time.perf_counter() - t) * 1e3)
+                for k, v in kernels.LAUNCHES.items():
+                    out["launches"][k] += v
+                dev.stop()
+                if chain is not None:
+                    if chain["device_activity"].lanes != rows // T:
+                        raise AssertionError("10c: PINS missed NORM tasks")
+                    chain.uninstall()
+                if ptg_norm_o is not None and \
+                        not np.array_equal(O.to_dense(), ptg_norm_o):
+                    raise AssertionError(f"10c NORM PINS {key}: O is not "
+                                         "phase 4's bit for bit")
+        med = {k: float(np.median(v)) for k, v in walls.items()}
+        ratio = med["on"] / med["off"]
+        log(f"  10c NORM walls (ms) PINS off {['%.1f' % w for w in walls['off']]}"
+            f", on {['%.1f' % w for w in walls['on']]}: median ratio "
+            f"{ratio:.3f}; O bit-identical to phase 4's every run")
+        out["runs"]["10c pins cost"] = {"walls_ms": walls,
+                                        "median_ratio": ratio}
+    del xn, X, O, qn, Q, OF
+
+    # --------------------------------------- 10d, POTRF-P verified, planned
+    N, pnb = dims["potrf_p"]
+    nt = N // pnb
+    with pt.Context(nb_workers=4) as ctx:
+        Ap = TwoDimBlockCyclic(N, N, N, pnb)
+        Ap.register(ctx, "A")
+        cache = 4 << 30
+        if dev_t.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(dev_t)
+            cache = max(2 << 30, free - N * N * 4 - (8 << 30))
+        dev = CudaDevice(ctx, device=dev_t, cache_bytes=cache)
+        a_st = generate_spd_panels_on_device(dev, Ap, seed=SEED)
+        tp = build_potrf_panels(ctx, Ap, dev=dev)
+        t = time.perf_counter()
+        rep = tp.verify()
+        plan = tp.plan()
+        t_an = (time.perf_counter() - t) * 1e3
+        check(f"POTRF-P N={N} NB={pnb} verifies clean",
+              not rep.findings, rep.text())
+        sync(dev_t)
+        t = time.perf_counter()
+        tp.run(verify=True)
+        tp.wait()
+        wait_device_tiles(dev, Ap)
+        sync(dev_t)
+        wall = (time.perf_counter() - t) * 1e3
+        st = dict(dev.stats)
+        res = potrf_residual(dev, Ap, a_st)
+        del a_st
+        dev.stop()
+    ms = plan.makespan
+    log(f"  10d POTRF-P N={N} NB={pnb}: verify + plan {t_an:.1f} ms of "
+        f"host ({plan.stats['instances']} tasks, {plan.stats['waves']} "
+        f"waves); run(verify=True) {wall:.1f} ms = "
+        f"{potrf_flops(N) / wall / 1e6:.0f} GFLOP/s; residual {res:.3e}; "
+        f"est_bytes {plan.est_bytes()} vs cache_peak_bytes "
+        f"{st['cache_peak_bytes']}; critical path {ms['critical_path_ns']} "
+        f"ns, lower bound {ms['lower_bound_ns']} ns ({ms['cost_source']}) "
+        f"vs the wall {wall * 1e6:.0f} ns")
+    if not res <= 1e-4:
+        raise AssertionError(f"10d POTRF-P residual {res:.3e} > 1e-4")
+    if st["tasks"] != nt + nt * (nt - 1) // 2:
+        raise AssertionError(f"10d POTRF-P: {st['tasks']} device tasks")
+    out["runs"]["10d POTRF-P"] = {
+        "wall_ms": wall, "analysis_ms": t_an, "residual": res,
+        "est_bytes": plan.est_bytes(),
+        "cache_peak_bytes": st["cache_peak_bytes"],
+        "critical_path_ns": ms["critical_path_ns"],
+        "lower_bound_ns": ms["lower_bound_ns"]}
+
+    # ----------------------------------------------- 10e, tuning on GEMM
+    store_path = os.path.join(out_dir, "tuned.json")
+    if os.path.exists(store_path):
+        os.unlink(store_path)
+    mca.set("tune.cache_path", store_path)
+    try:
+        def gemm_run(tuned=None):
+            with pt.Context(nb_workers=4) as gctx:
+                A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
+                C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+                for name, coll in (("A", A), ("B", B), ("C", C)):
+                    coll.register(gctx, name)
+                dev = CudaDevice(gctx, device=dev_t)
+                tp = build_gemm(gctx, A, B, C, dev)
+                kernels.reset_launches()
+                sync(dev_t)
+                t = time.perf_counter()
+                tp.run(tuned=tuned)
+                tp.wait()
+                dev.flush()
+                sync(dev_t)
+                secs = time.perf_counter() - t
+                for k, v in kernels.LAUNCHES.items():
+                    out["launches"][k] += v
+                dev.stop()
+                return secs, C.to_dense(), tp.tuned_applied
+
+        def measure(knobs):
+            # the knobs bound at Context and device creation take effect:
+            # the run's runtime is created under the vector
+            with apply_knobs(knobs):
+                return gemm_run()[0]
+
+        with pt.Context(nb_workers=4) as tctx:
+            A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
+            C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+            for name, coll in (("A", A), ("B", B), ("C", C)):
+                coll.register(tctx, name)
+            probe = build_gemm(tctx, A, B, C, CudaDevice(tctx, device=dev_t))
+            t = time.perf_counter()
+            res = autotune(probe, measure=measure, topk=dims["tune_topk"],
+                           econ=econ, workers=4)
+            t_tune = time.perf_counter() - t
+        dflt = default_knobs()
+        for r in res["validated"]:
+            moved = {k: v for k, v in r["knobs"].items() if v != dflt[k]}
+            log(f"  10e candidate {moved or 'defaults'}: predicted "
+                f"{r['predicted_ns'] / 1e6:.3f} ms, measured "
+                f"{r['measured_s'] * 1e3:.1f} ms "
+                f"(predicted/wall {r['predicted_vs_wall']})")
+        win = res["winner"]
+        secs, c_out, applied = gemm_run(tuned=True)
+        check("run(tuned=True) applied the persisted winner",
+              applied == win["knobs"])
+        check_close("10e GEMM C (tuned) vs torch.matmul",
+                    to_tensor(c_out, dev_t),
+                    torch.matmul(to_tensor(a, dev_t), to_tensor(b, dev_t)),
+                    1e-4, 1e-3)
+        log(f"  10e autotune {t_tune:.1f} s; winner measured "
+            f"{win['measured_s'] * 1e3:.1f} ms, persisted to "
+            f"{res.get('store_path')}; run(tuned=True) {secs * 1e3:.1f} ms")
+        out["runs"]["10e tune"] = {
+            "candidates": [{"knobs": {k: r["knobs"][k] for k in
+                                      ("device.staging_slots",
+                                       "device.cache_bytes",
+                                       "runtime.mag_batch")},
+                            "predicted_ns": r["predicted_ns"],
+                            "measured_s": r["measured_s"]}
+                           for r in res["validated"]],
+            "tuned_wall_ms": secs * 1e3, "autotune_s": t_tune}
+    finally:
+        mca.unset("tune.cache_path")
+    del a, b
+
+    # ------------------------- 10f, serving: watchdog and journal armed
+    if serve is not None:
+        model, prompts, tenants, max_new, check_requests = serve["_round"]
+        jdir = os.path.join(out_dir, "journal")
+        shutil.rmtree(jdir, ignore_errors=True)
+        armed = {"PTC_MCA_runtime_watchdog": "0.5",
+                 "PTC_MCA_runtime_journal": jdir}
+        saved = {k: os.environ.get(k) for k in armed}
+        os.environ.update(armed)
+        try:
+            r = serve_round(model, prompts, tenants, max_new,
+                            lambda label, fn: fn(),
+                            "SERVE armed, traced", trace=True)
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k)
+                else:
+                    os.environ[k] = v
+        check_requests("10f SERVE", r["handles"], max_new)
+        conf = r["scope"]["conformance"]
+        log(f"  10f SERVE (conformance on, watchdog, journal, trace level "
+            f"1): {r['tokens_per_s']:.2f} tokens/s, {conf['pools']} pools,"
+            f" coverage {conf['coverage']}, makespan ratio p50 "
+            f"{conf['makespan']['ratio_p50']} (min "
+            f"{conf['makespan']['ratio_min']}), plans {r['plan_ms']:.1f} "
+            f"ms of host; watchdog {r['watchdog']['ticks']} ticks, "
+            f"{r['watchdog']['detections']} detections")
+        check("conformance coverage == 1.0", conf["coverage"] == 1.0)
+        recs = [json.loads(x) for x in
+                open(os.path.join(jdir, "journal.0.jsonl"))]
+        types = {}
+        for rec in recs:
+            types[rec["type"]] = types.get(rec["type"], 0) + 1
+        ops = {}
+        for rec in recs:
+            if rec["type"] == "serve":
+                ops[rec["op"]] = ops.get(rec["op"], 0) + 1
+        log(f"  10f journal read back: {len(recs)} records {types}, serve "
+            f"ops {ops}")
+        check("journal holds every prefill's admit and done",
+              ops.get("admit") == ops.get("done") == len(r["handles"])
+              and types.get("journal_close") == 1)
+        tr, reg = r["trace"], r["registry"]
+        h = r["handles"][0]
+        tl = reg.request_timeline(tr, h.rid)
+        stages = {k.replace("_ns", "_ms"): v / 1e6
+                  for k, v in tl["stages"].items()}
+        log(f"  10f request_timeline of request {h.rid} "
+            f"({len(h.prompt)} prompt tokens): e2e {tl['e2e_ns'] / 1e6:.1f}"
+            f" ms, stages (ms) {stages}, {len(tl['waves'])} wave rows")
+        check("the timeline's stages sum to its latency",
+              tl["stages_sum_ns"] == tl["e2e_ns"] > 0)
+        out["runs"]["10f serve"] = {
+            "tokens_per_s": r["tokens_per_s"], "pools": conf["pools"],
+            "coverage": conf["coverage"],
+            "makespan_ratio_p50": conf["makespan"]["ratio_p50"],
+            "makespan_ratio_min": conf["makespan"]["ratio_min"],
+            "plan_ms": r["plan_ms"], "journal_records": len(recs),
+            "timeline_ms": stages}
+        del r, tr
     return out
 
 
@@ -2402,6 +3031,9 @@ def main() -> int:
     serve = serve_path(dev_t)
     log(f"  SERVE phase {time.perf_counter() - t:.1f} s; hand-written "
         f"kernel launches in it: {dict(kernels.LAUNCHES)}")
+    log(f"  SERVE conformance turns (on, off, on) tokens/s: on "
+        f"{serve['tokens_per_s_conformance']['on']}, off "
+        f"{serve['tokens_per_s_conformance']['off']}")
     log(f"  SERVE summary: {serve['tokens_per_s']:.2f} tokens/s, decode "
         f"step wall p50 {serve['step_wall_p50_ms']:.1f} ms, TTFT p50/p99 "
         f"hi {serve['ttft_hi'][0]:.1f}/{serve['ttft_hi'][1]:.1f} ms, lo "
@@ -2451,16 +3083,28 @@ def main() -> int:
     rng9 = np.random.default_rng()
     rng9.bit_generator.state = phase4_rng
     rt = runtime_path(dev_t, rng9, ptg_norm_o=norm_o)
-    del norm_o
     for name, n in rt["launches"].items():
         launches[name] += n
     log(f"  RUNTIME phase {time.perf_counter() - t:.1f} s; hand-written "
         f"kernel launches in it: {rt['launches']}")
+    log("phase 10: the profiling layer and the static analyses: PINS, "
+        "metrics, live sampler, verify, plan, tune, serving with "
+        "conformance on, the watchdog and the journal")
+    t = time.perf_counter()
+    rng10 = np.random.default_rng()
+    rng10.bit_generator.state = phase4_rng
+    obs = observe_path(dev_t, rng10, serve=serve, ptg_norm_o=norm_o)
+    del norm_o, serve["_round"]
+    for name, n in obs["launches"].items():
+        launches[name] += n
+    log(f"  OBSERVE phase {time.perf_counter() - t:.1f} s; hand-written "
+        f"kernel launches in it: {obs['launches']}")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
     print(json.dumps({"dsl": dsl["runs"]}))
     print(json.dumps({"runtime": rt["runs"]}))
+    print(json.dumps({"observe": obs["runs"]}))
 
     rows_out = []
     for name, r, err, repl in (

@@ -53,6 +53,14 @@ DEV_TPU = 1
 DEV_CUDA = DEV_TPU
 DEV_RECURSIVE = 2
 
+# always-on metrics kinds (must mirror PTC_MET_* in runtime_internal.h)
+MET_EXEC = 0
+MET_RELEASE = 1
+MET_H2D_STALL = 2
+MET_COMM_WAIT = 3
+MET_COLL_WAIT = 4
+MET_KIND_NAMES = ("exec", "release", "h2d_stall", "comm_wait", "coll_wait")
+
 # expression VM opcodes
 OP_IMM = 1
 OP_LOCAL = 2
@@ -109,6 +117,7 @@ COPY_RELEASE_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_int64)
 COPY_SYNC_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_int64)
 COPY_INVALIDATE_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_int64)
 TP_COMPLETE_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_void_p)
+PINS_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.POINTER(C.c_int64))
 
 _sigs = {
     "ptc_version": (C.c_char_p, []),
@@ -256,6 +265,37 @@ _sigs = {
     "ptc_worker_steals": (C.c_int64, [C.c_void_p, C.POINTER(C.c_int64), C.c_int64]),
     "ptc_metrics_enable": (None, [C.c_void_p, C.c_int32]),
     "ptc_metrics_set_release_sample": (None, [C.c_void_p, C.c_int32]),
+    # always-on histograms: snapshot, class interning, the open-EXEC
+    # slots the watchdog scans, and external samples (the device's stall)
+    "ptc_metrics_enabled": (C.c_int32, [C.c_void_p]),
+    "ptc_metrics_record": (None, [C.c_void_p, C.c_int32, C.c_int32,
+                                  C.c_int64]),
+    "ptc_metrics_intern": (C.c_int32, [C.c_void_p, C.c_char_p]),
+    "ptc_metrics_nclasses": (C.c_int32, [C.c_void_p]),
+    "ptc_metrics_class_name": (C.c_int32, [C.c_void_p, C.c_int32,
+                                           C.c_char_p, C.c_int32]),
+    "ptc_metrics_layout": (None, [C.POINTER(C.c_int64)]),
+    "ptc_metrics_snapshot": (C.c_int64, [C.c_void_p, C.POINTER(C.c_int64),
+                                         C.c_int64, C.c_int32]),
+    "ptc_metrics_inflight": (C.c_int64, [C.c_void_p, C.POINTER(C.c_int64),
+                                         C.c_int64]),
+    "ptc_metrics_peer_rtts": (C.c_int32, [C.c_void_p, C.POINTER(C.c_int64),
+                                          C.c_int32]),
+    # PINS: one synchronous sink at the trace event points
+    "ptc_set_pins_cb": (None, [C.c_void_p, PINS_CB_T, C.c_void_p,
+                               C.c_uint64]),
+    # the journal's fatal-signal crash dump
+    "ptc_crash_arm": (C.c_int32, [C.c_void_p, C.c_char_p]),
+    "ptc_crash_update_meta": (None, [C.c_void_p]),
+    "ptc_crash_disarm": (None, [C.c_void_p]),
+    "ptc_crash_dump_now": (C.c_int32, [C.c_void_p]),
+    # rank identity (one rank here: the comm engine is not ported) and
+    # the rank permutation a plan's remap installs
+    "ptc_comm_enabled": (C.c_int32, [C.c_void_p]),
+    "ptc_context_set_rank": (None, [C.c_void_p, C.c_uint32, C.c_uint32]),
+    "ptc_context_set_rank_map": (None, [C.c_void_p,
+                                        C.POINTER(C.c_int32), C.c_int32]),
+    "ptc_tp_scope": (C.c_int64, [C.c_void_p]),
 }
 
 for _name, (_res, _args) in _sigs.items():

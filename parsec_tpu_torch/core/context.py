@@ -5,11 +5,13 @@ Owns the native context (worker threads, scheduler, registries), Python-side
 keep-alives for ctypes callbacks and pinned buffers, and the name->id maps
 for data collections, arenas and datatypes.
 
-Port of parsec_tpu/core/context.py.  The optional hooks whose modules are
-not ported yet (PINS, live sampler, metrics exporter, watchdog, journal,
-ptc-plan, controller) are refused with NotImplementedError when their
-parameter is set; the comm engine, which arrives with the device data
-plane, is not there at all (a trace carries no clock offset).
+Port of parsec_tpu/core/context.py, with its observability hooks (PINS,
+the live sampler, the metrics exporter, the watchdog, the journal), the
+metrics accessors and the controller.  The comm engine, which arrives
+with the device data plane, is not there: a context is one rank
+(`myrank` 0 of `nodes` 1, `comm_enabled` read from the native core), a
+trace carries no clock offset, and stats() has no comm or coll
+namespace.
 """
 from __future__ import annotations
 
@@ -21,10 +23,6 @@ import numpy as np
 
 from .. import _native as N
 from ..utils import params as _mca
-
-# MCA params naming hooks of modules that are not ported yet
-_UNPORTED_HOOKS = ("runtime.pins", "runtime.live", "runtime.metrics_port",
-                   "runtime.watchdog", "runtime.journal")
 
 
 def _numa_vpmap(n: int) -> "List[int]":
@@ -95,16 +93,14 @@ class Context:
         """Explicit arguments win over the MCA param registry
         (runtime.nb_workers / runtime.sched / runtime.profile), which
         itself resolves file < env < set()."""
-        for name in _UNPORTED_HOOKS:
-            if _mca.get(name):
-                raise NotImplementedError(
-                    f"{name} is set, but its module is not ported to "
-                    "parsec_tpu_torch yet")
         if nb_workers is None:
             nb_workers = _mca.get("runtime.nb_workers")
         if scheduler is None:
             scheduler = _mca.get("runtime.sched")
         self._ptr = N.lib.ptc_context_new(nb_workers)
+        # one rank until the comm engine is ported (set_rank mirrors a
+        # change into the native core, which keeps no getter)
+        self.myrank, self.nodes = 0, 1
         if scheduler != "lfq":
             N.lib.ptc_context_set_scheduler(self._ptr, scheduler.encode())
         if _mca.get("runtime.profile"):
@@ -115,11 +111,38 @@ class Context:
         if _mca.get("runtime.trace_dump"):
             N.lib.ptc_flight_set_dump_path(
                 self._ptr, _mca.get("runtime.trace_dump").encode())
+        self._pins_chain = None
+        # monitors/devices lists exist before any hook can install into
+        # them (the live monitor registers for teardown at construction)
         self._devices: List = []  # CudaDevice instances (stopped on destroy)
+        self._monitors: List = []  # LiveMonitor instances
+        if _mca.get("runtime.pins"):
+            from ..profiling.pins import enable_from_param
+            enable_from_param(self, _mca.get("runtime.pins"))
+        if _mca.get("runtime.live"):
+            from ..profiling.live import enable_from_param as _live
+            _live(self, _mca.get("runtime.live"))
         N.lib.ptc_metrics_enable(
             self._ptr, 1 if _mca.get("runtime.metrics") else 0)
         N.lib.ptc_metrics_set_release_sample(
             self._ptr, _mca.get("runtime.metrics_relsample"))
+        self._metrics_registry = None
+        self._metrics_exporter = None
+        self._watchdog = None
+        if _mca.get("runtime.metrics_port"):
+            from ..profiling.metrics import MetricsExporter
+            self._metrics_exporter = MetricsExporter(
+                self, _mca.get("runtime.metrics_port"))
+        if _mca.get("runtime.watchdog"):
+            from ..profiling.metrics import enable_from_param as _wd
+            self._watchdog = _wd(self, _mca.get("runtime.watchdog"))
+        # crash-durable event journal (profiling/blackbox.py)
+        self._journal = None
+        self._fleetview = None
+        self._controller = None
+        if _mca.get("runtime.journal"):
+            from ..profiling.blackbox import enable_from_param as _jr
+            self._journal = _jr(self, _mca.get("runtime.journal"))
         if _mca.get("runtime.bind") == "core":
             N.lib.ptc_context_set_binding(self._ptr, 1)
         N.lib.ptc_context_set_sched_bypass(
@@ -142,6 +165,9 @@ class Context:
         self._datas: List[Data] = []
         self._buffers: List[np.ndarray] = []
         self.collections: Dict[str, int] = {}
+        # name -> Python collection object (or a shim for native linear
+        # collections): rank_of + geometry, read by the static analyses
+        self.collection_objs: Dict[str, object] = {}
         self.arenas: Dict[str, int] = {}
         self.arena_sizes: Dict[str, int] = {}  # name -> elem bytes
         self.datatypes: Dict[str, int] = {}
@@ -166,6 +192,20 @@ class Context:
         if _mca.get("runtime.stats"):
             import sys
             sys.stderr.write("ptc stats:\n" + self.stats_dump() + "\n")
+        # uninstall the PINS chain while the native context is still
+        # alive: teardown reports (print_steals) read native counters
+        if self._pins_chain is not None:
+            self._pins_chain.uninstall()
+        # the controller restores any knob vector it holds while the
+        # registry and env snapshot are still meaningful
+        if self._controller is not None:
+            self._controller.stop()
+        for obj in (self._fleetview, self._journal, self._watchdog,
+                    self._metrics_exporter):
+            if obj is not None:
+                obj.stop()
+        for mon in list(self._monitors):
+            mon.stop()
         # stop device manager threads first: they block in ptc_device_pop
         # on queues owned by the native context
         for dev in list(self._devices):
@@ -187,6 +227,33 @@ class Context:
         """Canonical name of the scheduler module that runs (unknown
         requests fall back to "lfq")."""
         return N.lib.ptc_context_get_scheduler(self._ptr).decode()
+
+    @property
+    def comm_enabled(self) -> bool:
+        """Whether the native comm engine runs (never, until it is
+        ported: a context here is one rank)."""
+        return bool(N.lib.ptc_comm_enabled(self._ptr))
+
+    def set_rank(self, myrank: int, nodes: int):
+        self.myrank, self.nodes = myrank, nodes
+        N.lib.ptc_context_set_rank(self._ptr, myrank, nodes)
+
+    def set_rank_map(self, perm) -> None:
+        """Install (or clear, with None/empty) the rank remap: a
+        permutation applied to every collection rank_of result, so task
+        affinity, successor placement and mem owners relabel
+        consistently (Plan.remap_ranks computes one).  Set between
+        taskpool build and run: rank_of is evaluated lazily at pool
+        startup."""
+        if not perm:
+            N.lib.ptc_context_set_rank_map(self._ptr, None, 0)
+            return
+        perm = [int(x) for x in perm]
+        if sorted(perm) != list(range(len(perm))):
+            raise ValueError(f"rank map must be a permutation of "
+                             f"0..{len(perm) - 1}, got {perm}")
+        arr = (C.c_int32 * len(perm))(*perm)
+        N.lib.ptc_context_set_rank_map(self._ptr, arr, len(perm))
 
     def rusage(self) -> dict:
         """Process resource usage (the reference's per-EU rusage dumps,
@@ -288,20 +355,48 @@ class Context:
                      counters per tenant (serve.Server.stats());
                      {"enabled": False} when no Server is attached
           device  -> device_stats()
-          scope   -> request-scope rollups (profiling/scope.py);
-                     {"enabled": False} when no registry is attached"""
+          trace   -> tracing health: level and the flight recorder's
+                     ring/drop state
+          metrics -> always-on histogram subsystem health: enabled
+                     flag, interned class count, exporter port and
+                     watchdog status
+          scope   -> request-scope rollups and plan-vs-measured
+                     conformance (profiling/scope.py);
+                     {"enabled": False} when no registry is attached
+          control -> the feedback controller (analysis/control.py);
+                     {"enabled": False} when none is attached
+          fleet   -> the fleet view (profiling/blackbox.py FleetView);
+                     {"enabled": False} when none is attached"""
         serve_ns = {"enabled": False}
         if self._servers:
             # one Server per context in practice; the last attached wins
             serve_ns = dict(self._servers[-1].stats())
             serve_ns["enabled"] = True
         reg = self._scope_registry
+        wd, exp = self._watchdog, self._metrics_exporter
         return {
             "sched": self.sched_stats(),
             "serve": serve_ns,
             "device": self.device_stats(),
+            "trace": {
+                "level": self.profile_level(),
+                "ring_bytes": self.profile_ring(),
+                "dropped_events": self.profile_dropped(),
+            },
+            "metrics": {
+                "enabled": self.metrics_enabled,
+                "classes": N.lib.ptc_metrics_nclasses(self._ptr),
+                "exporter_port": exp.port if exp is not None else 0,
+                "watchdog": wd.status() if wd is not None else None,
+            },
             "scope": reg.stats() if reg is not None
             else {"enabled": False},
+            "control": (self._controller.stats()
+                        if self._controller is not None
+                        else {"enabled": False}),
+            "fleet": (self._fleetview.snapshot()
+                      if self._fleetview is not None
+                      else {"enabled": False}),
         }
 
     def scope_registry(self, create: bool = True):
@@ -312,6 +407,24 @@ class Context:
             from ..profiling.scope import ScopeRegistry
             self._scope_registry = ScopeRegistry(self)
         return self._scope_registry
+
+    def controller(self, create: bool = True, **kwargs):
+        """The feedback controller (one per context;
+        analysis/control.py).  Consumes the scope registry's
+        conformance observations at pool boundaries, retunes knob
+        vectors on drift, and drives adaptive speculation depth and
+        tenant cache budgets.  create=False just peeks; kwargs
+        (clock=, drift_ratio=, window=, ...) apply only on creation."""
+        if self._controller is None and create:
+            from ..analysis.control import Controller
+            Controller(self, **kwargs)
+        return self._controller
+
+    def live_taskpools(self) -> list:
+        """Live (not destroyed) Taskpool objects created on this
+        context, oldest first."""
+        with self._tp_lock:
+            return [tp for tp in self._taskpools if not tp._destroyed]
 
     def stats_dump(self) -> str:
         """Human-readable counter dump (the --mca device_show_statistics
@@ -392,6 +505,8 @@ class Context:
             self._ptr, nodes, myrank, array.ctypes.data_as(C.c_void_p),
             nb, elem_size)
         self.collections[name] = dc
+        from ..analysis.flowgraph import LinearCollectionShim
+        self.collection_objs[name] = LinearCollectionShim(nodes, elem_size)
         return dc
 
     def register_collection(self, name: str, coll) -> int:
@@ -411,6 +526,7 @@ class Context:
             self._ptr, getattr(coll, "nodes", 1), getattr(coll, "myrank", 0),
             rcb, dcb, None)
         self.collections[name] = dc
+        self.collection_objs[name] = coll
         return dc
 
     def register_arena(self, name: str, elem_size: int) -> int:
@@ -637,6 +753,60 @@ class Context:
         PTC_MCA_runtime_trace_dump or /tmp/ptc_flight.<rank>.ptt."""
         if N.lib.ptc_flight_dump(self._ptr, str(path).encode()) != 0:
             raise OSError(f"flight dump to {path!r} failed")
+
+    # ------------------------------------------------------------ metrics
+    @property
+    def metrics_enabled(self) -> bool:
+        """Always-on latency histograms (runtime.metrics, default on):
+        per-class EXEC duration, sampled release latency and the
+        device's h2d stall, accumulated natively at the span-close
+        paths, independent of the trace level."""
+        return bool(N.lib.ptc_metrics_enabled(self._ptr))
+
+    def metrics_enable(self, on: bool = True):
+        N.lib.ptc_metrics_enable(self._ptr, 1 if on else 0)
+
+    def metrics_histograms(self, merged: bool = False):
+        """Decoded histogram records (profiling.metrics.Hist list);
+        merged=True folds the fence-time peer snapshots (none on one
+        rank)."""
+        from ..profiling.metrics import snapshot_histograms
+        return snapshot_histograms(self, merged=merged)
+
+    def metrics_registry(self):
+        """The unified MetricsRegistry over this context (lazy,
+        cached): histogram quantiles + stats() counters, with
+        Prometheus text export."""
+        if self._metrics_registry is None:
+            from ..profiling.metrics import MetricsRegistry
+            self._metrics_registry = MetricsRegistry(self)
+        return self._metrics_registry
+
+    def metrics_inflight(self) -> list:
+        """Open EXEC bodies as (worker, class_name, begin_ns, scope_id)
+        — the watchdog's stuck-task scan input (begin_ns is on the
+        native trace clock; scope_id = the owning pool's request scope,
+        0 when unscoped)."""
+        cap = 4 * (self.nb_workers + 2)
+        buf = (C.c_int64 * cap)()
+        n = N.lib.ptc_metrics_inflight(self._ptr, buf, cap)
+        name_buf = C.create_string_buffer(256)
+        out = []
+        for i in range(0, n, 4):
+            mid = buf[i + 1]
+            k = N.lib.ptc_metrics_class_name(self._ptr, mid, name_buf, 256)
+            name = name_buf.value.decode() if k > 0 else f"#{mid}"
+            out.append((int(buf[i]), name, int(buf[i + 2]),
+                        int(buf[i + 3])))
+        return out
+
+    def metrics_peer_rtts(self) -> list:
+        """Fence-time clock-sync RTT per peer rank (zeros on one rank,
+        where no fence runs) — the watchdog's slow-rank input."""
+        cap = max(1, self.nodes)
+        buf = (C.c_int64 * cap)()
+        n = N.lib.ptc_metrics_peer_rtts(self._ptr, buf, cap)
+        return [int(buf[i]) for i in range(n)]
 
     def profile_take(self) -> np.ndarray:
         """Drain the profiling buffers: an (n, 8) int64 array of (key,

@@ -1,8 +1,10 @@
 """Taskpool: a DAG of task classes sharing globals (reference:
 parsec_taskpool_t, parsec/parsec_internal.h:119-161).
 
-Port of parsec_tpu/core/taskpool.py without DTD's drain and the
-static-analysis hooks (not ported yet: plan() raises)."""
+Port of parsec_tpu/core/taskpool.py, with the static-analysis hooks
+(verify, plan, tuned and remap runs), without DTD's drain and the
+device's pre-run plan_check (device.plan_check, which comes with
+device/fuse.py)."""
 from __future__ import annotations
 
 import ctypes as C
@@ -111,36 +113,98 @@ class Taskpool:
         return self
 
     # ------------------------------------------------------------- running
+    def verify(self, mode="error", max_instances: int = 200_000):
+        """Run the static dataflow verifier (analysis.verify, the
+        V-rules) over this pool's task-class tables.  mode="error" (or
+        True) raises VerifyError on error-severity findings; mode="warn"
+        prints the report to stderr instead.  Returns the Report."""
+        import sys
+
+        from ..analysis import VerifyError, verify_taskpool
+        report = verify_taskpool(self, max_instances=max_instances)
+        if report.errors and mode in (True, "error", "raise"):
+            raise VerifyError(report)
+        if report.findings and mode == "warn":
+            print(report.text(), file=sys.stderr)
+        return report
+
+    def plan(self, max_instances: Optional[int] = None, cost=None,
+             econ=None, workers: Optional[int] = None):
+        """Run the static resource & schedule analyzer (analysis/plan.py)
+        over this pool's task-class tables — nothing executes.  Returns
+        a Plan: per-rank peak tile residency (no-eviction working set +
+        interval-liveness floor), the wave decomposition, per-(src, dst)
+        comm volume split eager/rdv, and the critical-path/work
+        makespan lower bounds.  `cost` defaults to the context's live
+        per-class latency histograms when they carry samples
+        (CostModel.from_context), else a uniform model."""
+        from ..analysis.plan import plan_taskpool
+        return plan_taskpool(self, max_instances=max_instances,
+                             cost=cost, econ=econ, workers=workers)
+
     def run(self, verify=None, tuned=None, remap=None) -> "Taskpool":
         """commit + add to context + start (convenience).
 
-        `verify=`, `tuned=` and `remap=` belong to the static analyses
-        (verifier, autotuner, rank remap) that are not ported yet: asking
-        for one raises NotImplementedError instead of running unchecked."""
-        for name, val in (("verify", verify), ("tuned", tuned),
-                          ("remap", remap)):
-            if val is not None and val is not False:
-                raise NotImplementedError(
-                    f"Taskpool.run({name}=...): the analysis layer is not "
-                    "ported to parsec_tpu_torch yet")
+        `remap=` opts into topology-aware rank remapping: True runs this
+        pool's plan traffic matrix through Plan.remap_ranks() against
+        the process TopologyModel and installs the winning rank_of
+        permutation via ctx.set_rank_map() before anything schedules (a
+        no-op when the search keeps the identity, as it always does on
+        one rank); an explicit list installs that permutation directly.
+        The applied permutation (or None) is `self.remap_applied`.
+
+        `verify=` opts into the static dataflow verifier at insert time:
+        "error"/True raises VerifyError before anything is scheduled
+        when a V-rule error-severity finding exists; "warn" prints
+        findings and proceeds.
+
+        `tuned=` opts into the autotuner's persisted knob vectors
+        (analysis/tune.py): True looks up the winner recorded for this
+        pool's (graph signature, host fingerprint) — a no-op when none
+        exists — and a dict applies that vector directly.  The vector is
+        applied through the MCA registry AND the PTC_MCA_* env for the
+        duration of THIS call (commit and the context's lazy start) and
+        then RESTORED, so one pool's tuned knobs never leak into the
+        next pool; the applied vector is `self.tuned_applied` (None when
+        nothing applied).  Knobs bound at Context or device creation
+        need the runtime created under the vector (apply_knobs)."""
+        self.remap_applied = None
+        if remap is not None and remap is not False:
+            perm = remap if isinstance(remap, (list, tuple)) \
+                else self.plan().remap_ranks()
+            perm = list(perm)
+            if perm != list(range(len(perm))):
+                self.ctx.set_rank_map(perm)
+                self.remap_applied = perm
+        knobs = None
+        if tuned:
+            from ..analysis.tune import resolve_tuned
+            knobs = resolve_tuned(self, tuned)
+        self.tuned_applied = knobs
+        if knobs is None:
+            return self._run_inner(verify)
+        from ..analysis.tune import apply_knobs
+        with apply_knobs(knobs):
+            return self._run_inner(verify)
+
+    def _run_inner(self, verify) -> "Taskpool":
+        if verify:
+            self.verify(mode=verify)
         self.commit()
         rc = N.lib.ptc_context_add_taskpool(self.ctx._ptr, self._ptr)
         if rc != 0:
             raise RuntimeError("ptc_context_add_taskpool failed")
         return self
 
-    def plan(self, *args, **kwargs):
-        """The static plan (ptc-plan) belongs to the analysis layer,
-        which is not ported yet: raises NotImplementedError."""
-        raise NotImplementedError(
-            "Taskpool.plan(): the analysis layer is not ported to "
-            "parsec_tpu_torch yet")
-
     def wait(self):
         rc = N.lib.ptc_tp_wait(self._ptr)
         if rc != 0:
             raise RuntimeError(
                 "taskpool aborted: a task body failed (see stderr)")
+
+    @property
+    def scope_id(self) -> int:
+        return int(N.lib.ptc_tp_scope(self._ptr))
 
     @property
     def tp_id(self) -> int:

@@ -496,6 +496,9 @@ class CudaDevice:
         with self._lock:
             self.stats["h2d_stall_ns"] += stall
             self.stats["h2d_bytes"] += host.nbytes
+        # always-on metrics: the stall joins the native h2d_stall
+        # histogram at the span-close instant of its DEVICE_H2D event
+        N.lib.ptc_metrics_record(self.ctx._ptr, N.MET_H2D_STALL, -1, stall)
         return out, ev
 
     def _h2d_ahead(self, host: np.ndarray):

@@ -121,14 +121,17 @@ class PagePool:
         self._index: Dict[object, int] = {}      # content key -> page
         self._key_of: Dict[int, object] = {}     # page -> content key
         self._cached: "OrderedDict[int, bool]" = OrderedDict()  # LRU
-        # frozen pages carry the tenant that wrote them (stats()
-        # "cached_by_owner"; the reference's controller also steers
-        # eviction by owner, which waits for the controller's port)
+        # frozen pages carry the tenant that wrote them so the controller
+        # can steer cached-free capacity between tenants:
+        # `set_cached_shares` installs target fractions and eviction
+        # prefers the most over-budget owner (LRU within that owner)
+        # instead of the global LRU head.  Empty shares = plain LRU.
         self._owner_of: Dict[int, str] = {}      # page -> tenant tag
+        self._shares: Dict[str, float] = {}      # tenant -> target share
         self._counters = {
             "prefix_hits": 0, "prefix_misses": 0, "shared_bytes": 0,
             "cow_copies": 0, "evictions": 0, "reserve_fails": 0,
-            "frozen": 0,
+            "frozen": 0, "share_evictions": 0,
             # page migration (export_frozen / import_frozen)
             "exported": 0, "imported": 0, "import_dups": 0,
             "migrated_in_bytes": 0,
@@ -149,8 +152,8 @@ class PagePool:
     def _take_free_locked(self) -> Optional[int]:
         if self._free:
             return self._free.pop()
-        if self._cached:  # evict the LRU cached frozen page (refcount 0)
-            p = next(iter(self._cached))
+        if self._cached:  # evict a cached frozen page (refcount 0)
+            p = self._pick_evict_locked()
             del self._cached[p]
             key = self._key_of.pop(p)
             del self._index[key]
@@ -158,6 +161,47 @@ class PagePool:
             self._counters["evictions"] += 1
             return p
         return None
+
+    def _pick_evict_locked(self) -> int:
+        """Which cached-free page to sacrifice: with no shares installed,
+        the global LRU head; with shares, the LRU page of the tenant most
+        over its target fraction of the cached set (O(cached) scan — the
+        cached set is bounded by n_pages and eviction is already the slow
+        path)."""
+        lru = next(iter(self._cached))
+        if not self._shares:
+            return lru
+        total = len(self._cached)
+        by_owner: Dict[str, int] = {}
+        for q in self._cached:
+            o = self._owner_of.get(q, "")
+            by_owner[o] = by_owner.get(o, 0) + 1
+        worst, worst_over = None, 0.0
+        for owner, cnt in sorted(by_owner.items()):
+            over = cnt / total - self._shares.get(owner, 0.0)
+            if over > worst_over + 1e-9:
+                worst, worst_over = owner, over
+        if worst is None:
+            return lru
+        for q in self._cached:  # LRU-first within the over-budget owner
+            if self._owner_of.get(q, "") == worst:
+                if q != lru:
+                    self._counters["share_evictions"] += 1
+                return q
+        return lru
+
+    def set_cached_shares(self, shares: Dict[str, float]):
+        """Install per-tenant target fractions of the cached-free set
+        (the controller's dynamic budgets).  Values are clamped to [0, 1]; an
+        empty dict restores plain global LRU eviction."""
+        clean = {str(k): min(1.0, max(0.0, float(v)))
+                 for k, v in (shares or {}).items()}
+        with self._lock:
+            self._shares = clean
+
+    def cached_shares(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._shares)
 
     def alloc(self) -> Optional[int]:
         """One page at refcount 1, or None (backpressure signal)."""
@@ -220,7 +264,7 @@ class PagePool:
         """Register a FULL immutable page under its content key.  First
         writer wins: a concurrent identical prefill keeps its private
         copy unindexed (False).  `owner` tags the page with the tenant
-        that wrote it for share-aware eviction."""
+        that wrote it for share-aware eviction (`set_cached_shares`)."""
         with self._lock:
             if key in self._index or int(p) in self._key_of:
                 return False
@@ -394,6 +438,7 @@ class PagePool:
                 o = self._owner_of.get(q, "")
                 by_owner[o] = by_owner.get(o, 0) + 1
             out["cached_by_owner"] = by_owner
+            out["shares"] = dict(self._shares)
             hits, misses = out["prefix_hits"], out["prefix_misses"]
             out["hit_rate"] = (hits / (hits + misses)
                                if hits + misses else 0.0)

@@ -1,16 +1,35 @@
-"""Observability: paired-event binary traces (trace.py), the critical
-path and lost-time analysis over them (critpath.py), and request scopes
-(scope.py) over the native histogram bucket scheme (metrics.py)."""
+"""Observability: paired-event binary traces (trace.py) and the critical
+path and lost-time analysis over them (critpath.py), the PINS
+instrumentation chain (pins.py), the always-on metrics registry, its
+exporter and the watchdog (metrics.py), the live sampler (live.py),
+request scopes with plan conformance and the request timeline
+(scope.py), and the crash-durable journal and fleet view (blackbox.py).
+
+Port of parsec_tpu/profiling; it exports the same names.
+"""
+from .trace import (KEY_EXEC, KEY_RELEASE, KEY_EDGE,
+                    KEY_COMM_SEND, KEY_COMM_RECV, KEY_DEVICE, KEY_H2D,
+                    KEY_STREAM, KEY_COLL, KEY_SCOPE, KEY_INFLIGHT,
+                    Dictionary, Trace, take_trace, to_dot)
 from .critpath import critical_path, lost_time
-from .scope import ScopeHist, ScopeRegistry
-from .trace import (KEY_COLL, KEY_COMM_RECV, KEY_COMM_SEND, KEY_DEVICE,
-                    KEY_EDGE, KEY_EXEC, KEY_H2D, KEY_INFLIGHT, KEY_RELEASE,
-                    KEY_SCOPE, KEY_STREAM, Dictionary, Trace, take_trace,
-                    to_dot)
+from .pins import (PinsModule, PinsChain, TaskCounter, TaskProfiler,
+                   CommVolume, DeviceActivity, StragglerLog, REGISTRY,
+                   enable_pins)
+from .metrics import (Hist, MetricsRegistry, MetricsExporter, Watchdog,
+                      snapshot_histograms)
+from .scope import ScopeRegistry, request_timeline
+from .blackbox import Journal, FleetView
 
 __all__ = ["KEY_EXEC", "KEY_RELEASE", "KEY_EDGE",
            "KEY_COMM_SEND", "KEY_COMM_RECV", "KEY_DEVICE", "KEY_H2D",
            "KEY_STREAM", "KEY_COLL", "KEY_SCOPE", "KEY_INFLIGHT",
-           "Dictionary", "Trace", "take_trace", "to_dot",
+           "Dictionary", "Trace",
+           "take_trace", "to_dot",
            "critical_path", "lost_time",
-           "ScopeRegistry", "ScopeHist"]
+           "PinsModule", "PinsChain", "TaskCounter", "TaskProfiler",
+           "CommVolume", "DeviceActivity", "StragglerLog", "REGISTRY",
+           "enable_pins",
+           "Hist", "MetricsRegistry", "MetricsExporter", "Watchdog",
+           "snapshot_histograms",
+           "ScopeRegistry", "request_timeline",
+           "Journal", "FleetView"]

@@ -17,9 +17,14 @@ caller sees the same bytes for a token; the attention folds of the DAG
 are host numpy (bit-identical across schedules) or, for frozen pages
 with a device attached, the torch fold on the card.
 
-Not ported yet: tensor-parallel serving (tp > 1, the comm engine) and
-plan conformance (conformance=True, the analysis layer); both raise
-NotImplementedError.
+With `conformance` (the default) every decode-step pool is planned
+(Taskpool.plan()) and its prediction folds into the scope registry's
+plan-vs-measured record when the pool retires.  An attached controller
+(Context.controller) is bound to the engine and polled once per reaped
+step.
+
+Not ported yet: tensor-parallel serving (tp > 1, the comm engine)
+raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -39,7 +44,7 @@ from ..ops.paged_attention import (PagePool, SeqSpec, attend_heads,
                                    make_slot_collections, prefix_page_keys,
                                    reset_acc)
 from ..utils import params as _mca
-from .server import ResourceBusy, Server, TenantConfig, _no_conformance
+from .server import ResourceBusy, Server, TenantConfig
 
 __all__ = ["PagedLMConfig", "PagedLM", "InferenceEngine", "RequestHandle"]
 
@@ -243,10 +248,9 @@ class InferenceEngine:
                  max_seqs: int = 16, server: Optional[Server] = None,
                  tenants: Optional[List[TenantConfig]] = None,
                  name: str = "eng", body_wrap: Optional[Callable] = None,
-                 dev=None, conformance: bool = False,
+                 dev=None, conformance: bool = True,
                  prefix_cache: bool = True, spec_k=0,
                  spec_draft="self", tp: int = 1):
-        _no_conformance(conformance)
         if int(tp) > 1:
             raise NotImplementedError(
                 "tensor-parallel serving (tp > 1) needs the comm engine, "
@@ -274,8 +278,10 @@ class InferenceEngine:
         self.spec_draft = (model if spec_draft in (None, "self")
                            else spec_draft)
         # per-request scopes (TTFT/tokens-per-s SLO feed) + per-decode-
-        # step shared scopes
+        # step shared scopes; conformance=True statically plans each
+        # decode pool so plan-vs-measured stays covered
         self.scope = ctx.scope_registry()
+        self.conformance = bool(conformance)
         self.pool = PagePool(ctx, n_pages, cfg.page, cfg.d,
                              name=f"{name}_KV")
         (self.Qc, self.ACCc, self.Oc, self.KNc,
@@ -298,6 +304,9 @@ class InferenceEngine:
         # the engine's speculative-decode counters
         self.server.register_resource_stats("prefix", self.pool.stats)
         self.server.register_resource_stats("spec", self._spec_stats)
+        # the frozen-page key digest a fleet view scores placements
+        # against (Server.advertise()["prefix"])
+        self.server.register_advertiser("prefix", self._prefix_advert)
         self.body_wrap = body_wrap
         self.dev = dev
         self._lock = threading.Lock()
@@ -321,6 +330,20 @@ class InferenceEngine:
                       "cow_copies": 0, "spec_steps": 0,
                       "spec_proposed": 0, "spec_accepted": 0,
                       "spec_fallbacks": 0}
+        ctrl = ctx.controller(create=False)
+        if ctrl is not None:
+            ctrl.bind_engine(self)
+
+    def _prefix_advert(self) -> dict:
+        """Advertisement payload (Server.advertise()["prefix"]): the
+        exact frozen content-key set plus the scalars a router needs to
+        convert predicted hits into bytes."""
+        keys = self.pool.frozen_keys()
+        return {"mode": "set", "n": len(keys),
+                "keys": [str(k) for k in keys],
+                "model_id": self.model.model_id,
+                "page_bytes": self.pool.bytes_per_page,
+                "free_pages": self.pool.free_pages}
 
     def _spec_stats(self) -> dict:
         with self._lock:
@@ -517,13 +540,25 @@ class InferenceEngine:
                 tp.destroy()  # nothing stageable this wave (COW dry)
                 continue
             # one shared scope per decode step
+            # (members: each sequence lane, EXEC locals[0], maps back to
+            # its request for the request timeline)
             dsid = self.scope.new_scope(
                 tenant,
-                kind="spec_verify_step" if spec_info else "decode_step")
+                kind="spec_verify_step" if spec_info else "decode_step",
+                members=[s.req.rid for s in staged])
             self.scope.stamp(tp, dsid)
+            # plan the pool for the conformance record; the reference
+            # swallows a failing plan (the pool then counts as
+            # unplanned, and coverage drops below 1.0)
+            plan = None
+            if self.conformance:
+                try:
+                    plan = self.scope.plan_summary(tp.plan())
+                except Exception:
+                    plan = None
             done = threading.Event()
             tp.on_complete(done.set)
-            self._inflight[tenant] = (tp, staged, done, dsid,
+            self._inflight[tenant] = (tp, staged, done, dsid, plan,
                                       time.monotonic_ns(), spec_info)
             tp.run()
             self.stats["decode_pools"] += 1
@@ -581,6 +616,15 @@ class InferenceEngine:
     def _spec_event(self, tenant: str, ev: Optional[dict]):
         if ev is not None:
             self.scope.record_event("control_spec", tenant=tenant, **ev)
+
+    def spec_k_snapshot(self) -> dict:
+        """Controller/monitor view of live per-tenant speculation
+        (stats()["control"]["spec_k"])."""
+        with self._lock:
+            return {"auto": self._spec_auto, "max": self.spec_k,
+                    "tenants": {t: (0 if st["paused"] else st["k"])
+                                for t, st in
+                                sorted(self._spec_state.items())}}
 
     def _spec_k_for(self, tenant: str) -> int:
         """The k this tenant speculates with THIS wave.  Fixed spec_k
@@ -739,7 +783,7 @@ class InferenceEngine:
         done = [(t, rec) for t, rec in self._inflight.items()
                 if rec[2].is_set()]
         advanced = 0
-        for tenant, (tp, seqs, _, dsid, t0_ns, spec) in done:
+        for tenant, (tp, seqs, _, dsid, plan, t0_ns, spec) in done:
             del self._inflight[tenant]
             if tp.nb_errors > 0:
                 # a failed chore (a fold on the card included) aborted
@@ -760,15 +804,22 @@ class InferenceEngine:
                     seq.length += 1
                     seq.remaining -= 1
                     advanced += 1
-            # decode-step pool retired: its measured wall + lane counters
+            # decode-step pool retired: the plan against its measured
+            # wall + lane counters
             self.scope.record_pool_done(
-                dsid, qos=tp.qos_stats(),
+                dsid, qos=tp.qos_stats(), plan=plan,
                 measured={"wall_ns": time.monotonic_ns() - t0_ns})
             tp.destroy()
             self.stats["decode_steps"] += 1
         with self._lock:
             for seq in [s for s in self._active if s.remaining <= 0]:
                 self._retire_locked(seq)
+        if done:
+            # pool boundary: let an attached controller rebalance its
+            # resource budgets (cached-free shares, admission pressure)
+            ctrl = self.ctx.controller(create=False)
+            if ctrl is not None:
+                ctrl.poll()
         return advanced
 
     def _reap_spec(self, tenant: str, recs) -> int:

@@ -16,15 +16,14 @@ lanes of the lws scheduler):
               sequence slots): the ticket goes back to the queue head
               and the tenant pauses until the next retirement
 
-Counters (per tenant + totals) export through Context.stats()["serve"].
+Counters (per tenant + totals) export through Context.stats()["serve"],
+which the MetricsRegistry flattens into Prometheus samples (ptc_serve_*)
+and /stats.json.  With `conformance` (the default) every admitted pool
+is planned (Taskpool.plan()) and its prediction folds into the scope
+registry's plan-vs-measured record at retirement.
 
-Not ported yet: plan conformance and the static plan bound of an
-unknown byte estimate (both need Taskpool.plan(), i.e. the analysis
-layer) — `conformance=True` raises NotImplementedError, and so does a
-submission whose byte estimate is unknown under a byte budget with no
-`default_est_bytes` to fall back on — and what only the fleet router
-and the controller call (cancel, advertise, healthy, admission
-pressure), which come with them.
+Not ported yet: `cancel`, which only the fleet router calls (it comes
+with the router and the comm engine).
 """
 from __future__ import annotations
 
@@ -45,13 +44,6 @@ class ResourceBusy(RuntimeError):
     """Raised by a pool builder when a shared resource (KV pages,
     sequence slots) is exhausted: the ticket re-queues instead of
     failing, and the tenant pauses until a retirement."""
-
-
-def _no_conformance(conformance: bool) -> None:
-    if conformance:
-        raise NotImplementedError(
-            "conformance=True plans every pool (Taskpool.plan()), and the "
-            "analysis layer is not ported to parsec_tpu_torch yet")
 
 
 class TenantConfig:
@@ -75,11 +67,14 @@ class TenantConfig:
         self.max_queue = max(0, int(max_queue))
         self.max_queued_bytes = max_queued_bytes
         # byte estimate for submissions that declare none (est_bytes=0
-        # means UNKNOWN)
+        # means UNKNOWN): None = derive the static plan bound from the
+        # submitted pool instead (see Server.submit)
         self.default_est_bytes = default_est_bytes
         # SLO target on submit->done latency (ms).  The ScopeRegistry
         # tracks a sliding violation window; a burn rate at or above
-        # `slo_burn` marks the tenant breached (Server.healthy False).
+        # `slo_burn` marks the tenant breached — /healthz turns 503,
+        # Server.healthy() is False and the watchdog emits a structured
+        # slo_burn event.
         self.slo_ms = None if slo_ms is None else float(slo_ms)
         self.slo_burn = float(slo_burn)
 
@@ -90,11 +85,14 @@ class Ticket:
 
     __slots__ = ("tenant", "est_bytes", "meta", "state", "submitted_t",
                  "admitted_t", "done_t", "error", "_event", "_make_pool",
-                 "_pool", "scope_id", "_owns_scope")
+                 "_pool", "scope_id", "_owns_scope", "_plan",
+                 "_est_discount")
 
     def __init__(self, tenant: str, make_pool: Callable, est_bytes,
                  meta):
         self.tenant = tenant
+        # None = unknown AND statically unboundable (rejected whenever a
+        # byte budget is in force — the budget can never be evaded)
         self.est_bytes = None if est_bytes is None else int(est_bytes)
         self.meta = meta
         self.state = "queued"
@@ -111,6 +109,8 @@ class Ticket:
         # the prefill pool — the engine retires it)
         self.scope_id: Optional[int] = None
         self._owns_scope = False
+        self._plan: Optional[dict] = None  # plan prediction summary
+        self._est_discount = 0  # predicted-shared bytes (prefix cache)
 
     @property
     def terminal(self) -> bool:
@@ -146,6 +146,7 @@ class _TenantState:
             "submitted": 0, "admitted": 0, "rejected": 0,
             "completed": 0, "failed": 0, "resource_waits": 0,
             "queue_wait_ns": 0, "discounted_bytes": 0,
+            "pressure_inflated_bytes": 0,
         }
 
 
@@ -161,14 +162,16 @@ class Server:
     """
 
     def __init__(self, ctx, tenants: List[TenantConfig],
-                 name: str = "serve", conformance: bool = False):
-        _no_conformance(conformance)
+                 name: str = "serve", conformance: bool = True):
         self.ctx = ctx
         self.name = name
         # request-scope observability: every ticket gets a scope_id
         # stamped into its pool beside the QoS stamp; the registry folds
-        # tenant SLO metrics
+        # tenant SLO metrics + plan-vs-measured conformance.
+        # conformance=False skips the per-pool plan pass
+        # (prediction-free pools count against coverage).
         self.scope = ctx.scope_registry()
+        self.conformance = bool(conformance)
         for t in tenants:
             self.scope.tenant(t.name, slo_ms=t.slo_ms,
                               burn_threshold=t.slo_burn)
@@ -178,6 +181,16 @@ class Server:
         # PagePool prefix-cache + speculative-decode counters here so
         # they export through Context.stats()["serve"])
         self._resource_stats: Dict[str, Callable[[], dict]] = {}
+        # advertisement providers: cheap snapshots folded into
+        # advertise() — the engine registers its frozen-page key digest
+        # here so a fleet view can predict warm-prefix hits without
+        # scraping full stats()
+        self._advertisers: Dict[str, Callable[[], object]] = {}
+        # admission pricing: per-tenant SLO-burn pressure set by the
+        # controller — a burning tenant's byte estimates inflate by
+        # (1 + pressure), so its queue budget bites EARLIER and load
+        # sheds before /healthz flips for the whole replica
+        self._admission_pressure: Dict[str, float] = {}
         self._lock = threading.Lock()
         self._wake = threading.Condition(self._lock)
         self._retired: List[Ticket] = []
@@ -200,10 +213,71 @@ class Server:
         PagePool's prefix-cache counters) under stats()[name]."""
         self._resource_stats[name] = fn
 
+    def register_advertiser(self, name: str, fn: Callable[[], object]):
+        """Fold `fn()` into advertise() under `name` — the engine
+        registers its frozen-page key digest here."""
+        self._advertisers[name] = fn
+
+    def set_admission_pressure(self, tenant: str, pressure: float):
+        """Install SLO-burn admission pricing for `tenant` (the
+        controller's lever): subsequent submits see their byte estimates
+        inflated by (1 + pressure), clamped to [0, 4].  Pressure ~0
+        removes the entry (free admission).  Unknown tenants are
+        ignored."""
+        p = min(4.0, max(0.0, float(pressure)))
+        with self._lock:
+            if tenant not in self._tenants:
+                return
+            if p < 1e-3:
+                self._admission_pressure.pop(tenant, None)
+            else:
+                self._admission_pressure[tenant] = p
+
+    def admission_pressure(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self._admission_pressure)
+
+    def healthy(self) -> bool:
+        """The /healthz verdict a fleet view polls: False once closed or
+        when any tenant's SLO burn rate breached its threshold (the same
+        condition that flips the metrics exporter to 503)."""
+        if self._closed:
+            return False
+        slo = self.scope.slo_status()
+        return not any(st.get("breached") for st in slo.values())
+
+    def advertise(self) -> dict:
+        """Cheap placement snapshot for a fleet view (the reference's
+        MIGRATION.md schema, in the reference): occupancy scalars + the max tenant SLO
+        burn rate + whatever digests the engine registered
+        (register_advertiser), typically {"prefix": {"mode": "set",
+        ...}} over the PagePool's frozen content keys."""
+        with self._lock:
+            active = sum(t.active for t in self._tenants.values())
+            queued = sum(len(t.queue) for t in self._tenants.values())
+            queued_bytes = sum(t.queued_bytes
+                               for t in self._tenants.values())
+            pressure = max(self._admission_pressure.values(), default=0.0)
+        burn = 0.0
+        for st in self.scope.slo_status().values():
+            burn = max(burn, float(st.get("burn_rate") or 0.0))
+        out = {
+            "name": self.name,
+            "healthy": self.healthy(),
+            "active_pools": active,
+            "queue_depth": queued,
+            "queued_bytes": queued_bytes,
+            "slo_burn_rate": round(burn, 4),
+            "admission_pressure": round(pressure, 4),
+        }
+        for name, fn in self._advertisers.items():
+            out[name] = fn()
+        return out
+
     def _journal_rec(self, op: str, ticket):
         """Every admission decision is a durable journal record (type
-        "serve") when the context carries a journal; a no-op until the
-        journal is ported."""
+        "serve") when the context carries a journal, so a postmortem can
+        replay the front door without the process's memory."""
         jr = getattr(self.ctx, "_journal", None)
         if jr is None:
             return
@@ -221,9 +295,12 @@ class Server:
 
         `est_bytes` <= 0 means UNKNOWN.  When the tenant has a byte
         budget in force, an unknown estimate resolves to the tenant's
-        `default_est_bytes`; with none configured the reference takes
-        the static plan bound, which needs the analysis layer — that
-        raises NotImplementedError here, before anything is built.
+        `default_est_bytes`, or — when none is configured — the server
+        builds the pool NOW and takes the static plan's working-set
+        bound (`Taskpool.plan().est_bytes`); the built pool is reused at
+        admission, never built twice.  A submission whose bytes cannot
+        be bounded at all is REJECTED whenever the byte budget applies:
+        the budget can never be evaded.
 
         `scope` attaches a caller-owned request scope (the inference
         engine allocates one per request): the server stamps it into
@@ -238,25 +315,37 @@ class Server:
         # existing frozen pages are free to the pool, so the byte budget
         # charges only the cold tail.  Clamped to stay a KNOWN estimate.
         disc = max(0, int(est_discount_bytes or 0))
+        ticket._est_discount = disc
         if disc and ticket.est_bytes is not None and ticket.est_bytes > 0:
             applied = min(disc, ticket.est_bytes - 1)
             ticket.est_bytes -= applied
             with self._lock:
                 t.counters["discounted_bytes"] += applied
-        if (ticket.est_bytes is None or ticket.est_bytes <= 0) \
-                and t.cfg.max_queued_bytes is not None:
-            if t.cfg.default_est_bytes is None:
-                raise NotImplementedError(
-                    f"tenant {tenant!r}: an unknown byte estimate under "
-                    "max_queued_bytes needs default_est_bytes (the static "
-                    "plan bound needs the analysis layer, not ported to "
-                    "parsec_tpu_torch yet)")
-            ticket.est_bytes = int(t.cfg.default_est_bytes)
+        # SLO-burn admission pricing: a burning tenant's KNOWN
+        # estimates inflate by (1 + pressure), so max_queued_bytes sheds
+        # its load first — applied after the prefix discount (the
+        # discount models real pool bytes; pressure is pure pricing)
+        with self._lock:
+            pressure = self._admission_pressure.get(tenant, 0.0)
+        if pressure > 0 and ticket.est_bytes is not None \
+                and ticket.est_bytes > 0:
+            infl = int(ticket.est_bytes * pressure)
+            if infl:
+                ticket.est_bytes += infl
+                with self._lock:
+                    t.counters["pressure_inflated_bytes"] += infl
         if scope is None:
             ticket.scope_id = self.scope.new_scope(tenant, meta=meta)
             ticket._owns_scope = True
         else:
             ticket.scope_id = int(scope)
+        if (ticket.est_bytes is None or ticket.est_bytes <= 0) \
+                and t.cfg.max_queued_bytes is not None:
+            early = self._resolve_est(t, ticket)
+            if early is not None:  # ResourceBusy / failure at build
+                if wait and not ticket.terminal:
+                    ticket.wait()
+                return ticket
         admit_now = False
         with self._lock:
             t.counters["submitted"] += 1
@@ -275,6 +364,8 @@ class Server:
         if ticket.state == "rejected":
             self.scope.record_rejected(ticket.scope_id)
             self._journal_rec("reject", ticket)
+            if ticket._pool is not None:
+                self._destroy_pool(ticket)  # planning pool never admitted
         if admit_now:
             self._admit(t, ticket)
         if wait and not ticket.terminal:
@@ -297,13 +388,60 @@ class Server:
                 return False
         return True
 
+    def _resolve_est(self, t: _TenantState, ticket: Ticket):
+        """Resolve an UNKNOWN byte estimate while the tenant's byte
+        budget is in force: per-tenant default first, else build the
+        pool and take the static plan bound.  Returns None on success
+        (ticket.est_bytes resolved, possibly to the None=unboundable
+        sentinel) or the ticket when the build itself parked
+        (ResourceBusy) or failed — submit returns it as-is then."""
+        if t.cfg.default_est_bytes is not None:
+            ticket.est_bytes = int(t.cfg.default_est_bytes)
+            return None
+        try:
+            tp = ticket._make_pool(priority=t.cfg.priority,
+                                   weight=t.cfg.weight)
+        except ResourceBusy:
+            with self._lock:
+                t.counters["submitted"] += 1
+                t.counters["resource_waits"] += 1
+                t.queue.appendleft(ticket)
+                t.blocked = True
+            return ticket
+        except Exception as e:
+            # a failing pool factory fails the ticket: recorded, not raised
+            with self._lock:
+                t.counters["submitted"] += 1
+                t.counters["failed"] += 1
+            ticket.state = "failed"
+            ticket.error = e
+            ticket.done_t = time.monotonic()
+            ticket._event.set()
+            self.scope.record_done(ticket.scope_id, state="failed")
+            return ticket
+        ticket._pool = tp  # reused by _admit; destroyed on rejection
+        # the reference's semantics: a plan that fails leaves the
+        # estimate unbounded (rejected under the budget), never raises
+        try:
+            plan = tp.plan()
+            # None = unbounded; predicted-shared pages discount here too
+            ticket.est_bytes = plan.est_bytes(
+                discount_bytes=ticket._est_discount)
+            if self.conformance:
+                ticket._plan = self.scope.plan_summary(plan)
+        except Exception:
+            ticket.est_bytes = None
+        return None
+
     # --------------------------------------------------------- admission
     def _admit(self, t: _TenantState, ticket: Ticket):
         """Build + run one pool (caller already reserved t.active).
         Runs on the submitter or the pump thread, never on a worker."""
         try:
-            tp = ticket._make_pool(priority=t.cfg.priority,
-                                   weight=t.cfg.weight)
+            tp = ticket._pool  # prebuilt at submit for the plan bound
+            if tp is None:
+                tp = ticket._make_pool(priority=t.cfg.priority,
+                                       weight=t.cfg.weight)
         except ResourceBusy:
             with self._lock:
                 t.active -= 1
@@ -326,11 +464,20 @@ class Server:
         ticket._pool = tp
         ticket.admitted_t = time.monotonic()
         ticket.state = "running"
-        # stamp the request scope beside the QoS stamp and mark
-        # admission (the registry reads the native trace clock)
+        # stamp the request scope beside the QoS stamp, mark admission
+        # (the registry reads the native trace clock), and snapshot the
+        # static plan predictions the conformance record compares
+        # against at retirement
         if ticket.scope_id is not None:
             self.scope.stamp(tp, ticket.scope_id)
             self.scope.record_admitted(ticket.scope_id)
+            if self.conformance and ticket._plan is None:
+                # the reference swallows a failing plan (the pool then
+                # counts as unplanned against conformance coverage)
+                try:
+                    ticket._plan = self.scope.plan_summary(tp.plan())
+                except Exception:
+                    ticket._plan = None
         with self._lock:
             t.counters["admitted"] += 1
             t.counters["queue_wait_ns"] += int(ticket.queue_wait_s * 1e9)
@@ -366,8 +513,8 @@ class Server:
             self._retired.append(ticket)
             self._wake.notify_all()
         self._journal_rec("failed" if failed else "done", ticket)
-        # fold the pool's record (measured wall + the pool's QoS lane
-        # counters) while the native pool is still alive; the request
+        # fold the pool's conformance record (plan predictions vs the
+        # measured wall + the pool's QoS lane counters) while the native pool is still alive; the request
         # itself retires here only when the server owns the scope (an
         # engine-owned scope keeps decoding past its prefill pool)
         if ticket.scope_id is not None:
@@ -378,6 +525,7 @@ class Server:
                 measured = {"wall_ns": int(
                     (ticket.done_t - ticket.admitted_t) * 1e9)}
             self.scope.record_pool_done(ticket.scope_id, qos=qos,
+                                        plan=ticket._plan,
                                         measured=measured)
             if ticket._owns_scope:
                 self.scope.record_done(ticket.scope_id,

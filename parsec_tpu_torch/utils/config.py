@@ -9,10 +9,11 @@ sched.*, serve.* (the reference's, read by nothing yet there either),
 the control.spec_* knobs of the serving engine, device.cache_bytes,
 device.affinity_skew and the device pipeline's knobs (device.prefetch,
 prefetch_depth, staging_slots, out_of_core, overcommit), and the DTD
-front end's dtd.window_size and dtd.insert_batch.  The runtime.*
-hooks whose modules are not ported yet (pins, live, metrics_port,
-watchdog, journal) are registered so that setting one is refused loudly
-by Context instead of ignored.
+front end's dtd.window_size and dtd.insert_batch, the observability
+hooks (runtime.pins, live, metrics_port, watchdog, journal and their
+settings), the analyses' plan.*, scope.*, tune.* and control.* params,
+and the knobs the analyses price (comm.*, coll.*, device.wave_fuse,
+runtime.mag_batch).
 """
 import os
 from typing import Any, Callable, Dict, Optional
@@ -164,13 +165,73 @@ register("runtime.metrics", True, bool,
          "always-on native latency histograms; 0 disables recording")
 register("runtime.metrics_relsample", 64, int,
          "release-latency sampling stride (rounded up to a power of two)")
-# hooks of modules this package does not port yet: Context refuses them
-register("runtime.pins", "", str, "PINS modules (not ported: refused)")
-register("runtime.live", "", str, "live sampler (not ported: refused)")
+# observability hooks (profiling/): applied at Context init
+register("runtime.pins", "", str,
+         "comma-separated PINS instrumentation modules to install at init "
+         "(reference: --mca pins <list>, parsec/mca/pins/pins.h); "
+         "names from parsec_tpu_torch.profiling.pins.REGISTRY")
+register("runtime.live", "", str,
+         "live metrics sampling interval in seconds (empty = off): a "
+         "sampler thread appends JSON counter snapshots to "
+         "$TMPDIR/ptc_live_{rank}.jsonl (reference: the aggregator_visu "
+         "live-metrics role, minimal file-sink form)")
+register("runtime.live_max_bytes", 64 * 1024 * 1024, int,
+         "LiveMonitor JSONL sink rotation threshold: when the sink "
+         "exceeds this many bytes it rotates to <path>.1 (one "
+         "generation kept) so long serving runs cannot grow /tmp "
+         "unboundedly; <= 0 disables rotation")
 register("runtime.metrics_port", 0, int,
-         "Prometheus endpoint (not ported: refused)")
-register("runtime.watchdog", "", str, "health watchdog (not ported: refused)")
-register("runtime.journal", "", str, "event journal (not ported: refused)")
+         "Prometheus scrape endpoint port (127.0.0.1): GET /metrics = "
+         "exposition text, /stats.json = raw counters, /healthz = "
+         "watchdog status.  0 = no endpoint; a fixed port is per-rank "
+         "(SPMD ranks on one host each need their own)")
+register("runtime.watchdog", "", str,
+         "health watchdog interval in seconds (empty/0 = off): a "
+         "monitor thread detects stuck tasks (EXEC open past the "
+         "per-class adaptive deadline k*p99), starved workers, "
+         "rendezvous pulls not advancing, and slow ranks (fence-time "
+         "clock-sync RTT outliers, rank 0).  Each detection emits a "
+         "structured event and triggers a flight-recorder dump when "
+         "tracing is on")
+register("runtime.watchdog_k", 8.0, float,
+         "stuck-task deadline multiplier: a body is stuck when its open "
+         "time exceeds max(k * p99(class), watchdog_floor_s)")
+register("runtime.watchdog_floor_s", 30.0, float,
+         "stuck-task deadline floor in seconds: bodies with thin "
+         "histograms (cold classes, first kernel builds) are never "
+         "flagged before this — the tier-1-suite no-false-positive "
+         "guard")
+register("runtime.journal", "", str,
+         "black-box event journal directory (ptc-blackbox; empty = off): "
+         "each rank appends schema-versioned JSONL records (watchdog, "
+         "scope/control events, serve admission, fence epochs, peer "
+         "loss, inventory checkpoints) to <dir>/journal.<rank>.jsonl "
+         "with size-capped rotation and batched fsync, and arms the "
+         "fatal-signal crash dump to <dir>/crash.<rank>.ptt")
+register("runtime.journal_fsync_s", 0.5, float,
+         "journal fsync cadence in seconds: records are buffered and "
+         "flushed+fsynced by the cadence thread so the hot path never "
+         "blocks on disk; <= 0 fsyncs on every flush tick")
+register("runtime.journal_max_bytes", 64 * 1024 * 1024, int,
+         "journal rotation threshold (like runtime.live_max_bytes): "
+         "past this many bytes the journal rotates to <path>.1, one "
+         "generation kept; <= 0 disables rotation")
+register("runtime.journal_checkpoint_s", 5.0, float,
+         "inventory checkpoint cadence in seconds: the journal "
+         "periodically records recovery-relevant inventory (live scope "
+         "ids, QoS pool census, registered providers such as frozen "
+         "page keys) and replicates it to every peer as a MSG_BLOB "
+         "control frame, so survivors hold a dead rank's last "
+         "checkpoint; <= 0 disables checkpoints")
+register("runtime.journal_crash_dump", True, bool,
+         "arm the async-signal-safe SIGSEGV/SIGABRT/SIGBUS handler when "
+         "the journal is enabled: on a fatal signal the flight-recorder "
+         "ring + inflight-slots snapshot is write()n to "
+         "<dir>/crash.<rank>.ptt before re-raising")
+register("runtime.fleet_scrape_s", 2.0, float,
+         "FleetView scrape cadence in seconds (used when a FleetView is "
+         "started without an explicit interval): each tick scrapes every "
+         "replica's stats + health and folds tenant histograms fleet-wide")
 register("dtd.window_size", 8000, int,
          "DTD discovery window (reference: parsec_dtd_window_size)")
 register("dtd.insert_batch", 256, int,
@@ -247,3 +308,145 @@ register("device.overcommit", 1.5, float,
          "budget, but at overcommit * cache_bytes it drains the "
          "writeback lane between waves (bounded memory under "
          "out-of-core pressure); <= 1 drains at any overrun")
+
+# the static analyses (analysis/) and the controller
+register("plan.max_instances", 200_000, int,
+         "ptc-plan concrete-enumeration budget (shared with the "
+         "verifier's default): execution spaces past this many "
+         "instances degrade to the symbolic interval bounds with an "
+         "explicit note instead of silently truncating")
+register("scope.conformance_window", 2048, int,
+         "pools per conformance epoch (profiling/scope.py): the "
+         "fold-only aggregates roll over to a fresh generation every "
+         "this-many retired pools (one previous generation kept), so a "
+         "long soak's conformance rollup reads O(window) state and "
+         "tracks the RECENT plan-vs-measured ratio — what the ptc-pilot "
+         "controller's drift detection needs — instead of a "
+         "run-lifetime average; <= 0 restores the unbounded fold")
+register("tune.cache_path", "", str,
+         "persisted autotuning winners (analysis/tune.py TuneStore): "
+         "JSON keyed by (graph signature, host fingerprint), applied "
+         "by Taskpool.run(tuned=True).  Empty = ~/.ptc/tuned.json")
+register("control.drift_ratio", 1.25, float,
+         "ptc-pilot drift threshold: the controller declares model "
+         "drift when the median measured/lower-bound makespan ratio "
+         "over its control.window most recent planned pools exceeds "
+         "this value — then re-runs the schedule simulator on the "
+         "recalibrated cost model and hot-swaps the winning knob "
+         "vector at the next pool boundary")
+register("control.window", 8, int,
+         "ptc-pilot observation window, in retired planned pools: "
+         "drift must be sustained across a FULL window before a retune "
+         "fires (single-pool spikes never trigger), and the window "
+         "clears after every evaluation")
+register("control.cooldown", 16, int,
+         "ptc-pilot retune cooldown, in retired pools: after an "
+         "evaluation the controller ignores drift for this many pools "
+         "so a swap's own transient (caches refilling, knobs "
+         "re-binding) cannot trigger an immediate second retune")
+register("control.budget_min_share", 0.10, float,
+         "dynamic cached-page budgets: the smallest cached-free LRU "
+         "share a tenant can be squeezed to when the controller "
+         "re-weights shares by prefix hit rate (keeps a cold tenant "
+         "from being evicted to zero)")
+
+# knobs the analyses price (the tuner's knob registry, the transfer
+# economics, the topology model).  Registered with the reference's
+# defaults so that a prediction over the same vector is the same
+# number; nothing in this package acts on device.wave_fuse or on the
+# comm.* and coll.* knobs yet (they need device/fuse.py and the comm
+# engine), and analysis.tune.apply_knobs refuses to change them.
+# runtime.mag_batch is read by the native core at context creation.
+register("runtime.mag_batch", 64, int,
+         "task/arena freelist magazine batch: items moved between a "
+         "worker's private magazine and the shared pool per lock "
+         "acquisition (PTC_MAG_BATCH as a knob).  Bigger "
+         "batches amortize the free-lock crossing further but hoard "
+         "more memory per idle worker; read from the env at context "
+         "creation (a live context keeps its batch).  One of the "
+         "ptc-tune knob axes")
+register("device.wave_fuse", False, bool,
+         "wave mega-kernelization of the reference (device/fuse.py), not "
+         "ported yet: the CUDA device runs the per-group batched "
+         "dispatch, which is the reference's device.wave_fuse=0, so the "
+         "default is 0 here and the schedule simulator prices what the "
+         "card runs; nothing here acts on 1")
+register("comm.eager_limit", 64 * 1024, int,
+         "payloads <= this ride inline in ACTIVATE; larger ones are pulled "
+         "via GET rendezvous (reference: runtime_comm_short_limit, "
+         "remote_dep_mpi.c:241-253); negative disables rendezvous.  Set "
+         "the env form (PTC_MCA_comm_eager_limit) to the string 'auto' "
+         "to derive the threshold at comm init from the measured "
+         "per-peer round trip and host memcpy rate (see "
+         "comm.eager_adaptive)")
+register("comm.chunk_size", 1 << 20, int,
+         "rendezvous payloads above this stream as pipelined ranged "
+         "chunks (GET[offset,len] -> PUT_CHUNK) instead of one frame: "
+         "the wire, the producer's serve and the consumer's reassembly "
+         "overlap, and fences/activations interleave between chunks "
+         "instead of stalling behind one giant frame.  <= 0 disables "
+         "chunking (whole-payload pulls)")
+register("comm.rails", 2, int,
+         "striped TCP connections per peer (wire v4): PUT_CHUNK payload "
+         "frames round-robin across the rails (offset-addressed "
+         "reassembly makes chunk order irrelevant) so one in-order "
+         "stream cannot cap cross-rank throughput; everything order-"
+         "sensitive stays on rail 0.  Must be uniform across the job "
+         "(the accept handshake rejects mismatches); 1 = the v3 single-"
+         "connection mesh")
+register("coll.topo", "auto", str,
+         "runtime-native collective topology (the comm engine's collectives): "
+         "ring|binomial|star, or 'auto' to choose per (message size, "
+         "rank count) from the BENCH_comm.json transfer-economics fits "
+         "(fixed overhead + per-byte cost; see comm/economics.py).  The "
+         "fan-out legs of bcast/all_gather map star|chain|binomial onto "
+         "the native ACTIVATE_BCAST trees (comm.bcast_topo machinery)")
+register("coll.max_slices", 16, int,
+         "cap on slices per collective segment (bounds task count per "
+         "op; tiny messages collapse to one slice)")
+register("coll.econ_path", "", str,
+         "path to a transfer-economics JSON (BENCH_comm.json schema) "
+         "for the topology selector; empty = the repo's BENCH_comm.json "
+         "when present, else built-in loopback defaults")
+register("comm.topology", "", str,
+         "hosts-and-islands topology spec (';' separates islands, '|' "
+         "hosts, ',' ranks: \"0,1|2,3;4,5|6,7\"), or a path to a JSON "
+         "file {\"islands\": [[[ranks...],...],...]}.  Empty = flat "
+         "mesh (every non-self pair classes 'ici'; pre-topo behavior "
+         "bit-exactly).  Drives link-class pricing, hierarchical "
+         "collective trees, plan.remap_ranks and the per-class stats "
+         "split (comm/topology.py)")
+register("comm.dcn_nonleader_penalty", 4.0, float,
+         "per-byte multiplier for DCN legs NOT between island leaders "
+         "(host uplinks into the inter-island network are "
+         "oversubscribed; the leader's uplink is the provisioned one). "
+         "Feeds relay_beats_direct: inter-island bulk pulls forward "
+         "through the leaders when the penalized direct leg costs more")
+register("comm.chunk_size.ici", "", str,
+         "per-class override of comm.chunk_size for intra-island "
+         "(ici) legs; '' = inherit comm.chunk_size")
+register("comm.chunk_size.dcn", "", str,
+         "per-class override of comm.chunk_size for inter-island "
+         "(dcn) legs — bigger chunks amortize the higher DCN fixed "
+         "cost; '' = inherit comm.chunk_size")
+register("comm.eager_limit.ici", "", str,
+         "per-class override of comm.eager_limit for ici legs; "
+         "'' = inherit comm.eager_limit")
+register("comm.eager_limit.dcn", "", str,
+         "per-class override of comm.eager_limit for dcn legs — the "
+         "eager/rendezvous crossover sits lower where per-byte cost is "
+         "higher; '' = inherit comm.eager_limit")
+register("comm.rails.ici", "", str,
+         "per-class override of comm.rails for ici legs; '' = inherit "
+         "comm.rails")
+register("comm.rails.dcn", "", str,
+         "per-class override of comm.rails for dcn legs (striping "
+         "cannot beat an oversubscribed uplink, so fewer DCN rails is "
+         "common); '' = inherit comm.rails")
+register("coll.topo.ici", "", str,
+         "per-class override of coll.topo for the intra-island phase "
+         "of hierarchical collectives; '' = inherit coll.topo")
+register("coll.topo.dcn", "", str,
+         "per-class override of coll.topo for the inter-island "
+         "(leader) phase of hierarchical collectives; '' = inherit "
+         "coll.topo")

@@ -887,3 +887,87 @@ def test_two_devices_on_one_card_route_by_affinity(card):
     assert chain(None) == (0, 0)
     tasks, d2d = chain(0.0)
     assert tasks == 4 and d2d > 0
+
+
+# ------------------------------------------ the profiling layer (phase 10)
+def test_pins_and_h2d_stall_histogram_match_the_card_stats(card):
+    """PINS DeviceActivity and the native h2d_stall histogram over a NORM
+    pool on the card: waves equal the kernel's launches, lanes the tasks,
+    the stall and the histogram's sum the device's h2d_stall_ns."""
+    from parsec_tpu_torch import _native as N
+    from parsec_tpu_torch.ops.rms_norm import build_rms_norm
+    from parsec_tpu_torch.profiling import DeviceActivity, enable_pins
+    rng = np.random.default_rng(7)
+    x = rng.standard_normal((2048, 256)).astype(np.float32)
+    w = rng.standard_normal((1, 256)).astype(np.float32)
+    with pt.Context(nb_workers=2) as ctx:
+        act = DeviceActivity()
+        enable_pins(ctx, act)
+        X, W = to_collection(x, 256, 256), to_collection(w, 1, 256)
+        O = to_collection(np.zeros_like(x), 256, 256)
+        dev = CudaDevice(ctx, device=card)
+        kernels.reset_launches()
+        tp = build_rms_norm(ctx, X, W, O, 1e-6, dev=dev)
+        tp.run(verify=True)
+        tp.wait()
+        dev.flush()
+        dev.stop()
+        st = dict(dev.stats)
+        (h,) = [h for h in ctx.metrics_histograms()
+                if h.kind == N.MET_H2D_STALL]
+        launches = kernels.LAUNCHES["rms_norm"]
+    assert act.waves == launches > 0 and act.lanes == st["tasks"] == 8
+    assert act.stall_ns == st["h2d_stall_ns"] == h.sum_ns
+    assert sum(act.h2d_bytes) == st["h2d_bytes"]
+
+
+def test_plan_and_tuned_run_of_gemm_on_the_card(card, tmp_path):
+    """GEMM on the card: verified, planned (its working set the tile
+    set), and run under a tuned knob vector that the run restores."""
+    import torch
+    from parsec_tpu_torch.utils import params
+    rng = np.random.default_rng(8)
+    a = rng.standard_normal((512, 512)).astype(np.float32)
+    b = rng.standard_normal((512, 512)).astype(np.float32)
+    before = params.get("device.staging_slots")
+    with pt.Context(nb_workers=2) as ctx:
+        A, B = to_collection(a, 128, 128), to_collection(b, 128, 128)
+        C = to_collection(np.zeros_like(a), 128, 128)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+        dev = CudaDevice(ctx, device=card)
+        tp = build_gemm(ctx, A, B, C, dev)
+        plan = tp.plan()
+        assert plan.est_bytes() == 3 * 512 * 512 * 4
+        tp.run(verify=True, tuned={"device.staging_slots": before + 2})
+        assert params.get("device.staging_slots") == before
+        tp.wait()
+        dev.flush()
+        dev.stop()
+        got = C.to_dense()
+    want = (torch.from_numpy(a).to(card) @ torch.from_numpy(b).to(card))
+    torch.testing.assert_close(torch.from_numpy(got).to(card), want,
+                               rtol=1e-4, atol=1e-3)
+
+
+def test_serving_conformance_covers_every_pool_on_the_card(card):
+    """The engine with a CudaDevice and conformance on by default: every
+    pool planned (coverage 1.0), tokens equal to the engine's own
+    oracle."""
+    from parsec_tpu_torch.serve import (InferenceEngine, PagedLM,
+                                        PagedLMConfig, TenantConfig)
+    model = PagedLM(PagedLMConfig(vocab=64, d=64, heads=4, page=8, seed=4),
+                    device=card)
+    with pt.Context(nb_workers=2, scheduler="lws") as ctx:
+        dev = CudaDevice(ctx, device=card)
+        eng = InferenceEngine(ctx, model, n_pages=64, max_seqs=4, dev=dev,
+                              tenants=[TenantConfig("t")])
+        hs = [eng.submit(list(range(1, 20 + 4 * i)), 3, "t")
+              for i in range(3)]
+        eng.run(timeout_s=120)
+        conf = ctx.stats()["scope"]["conformance"]
+        eng.close()
+        dev.stop()
+    assert all(h.state == "done" for h in hs)
+    assert conf["pools"] > 0 and conf["coverage"] == 1.0
+    assert dev.stats["tasks"] > 0

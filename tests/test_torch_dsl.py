@@ -1088,20 +1088,28 @@ def test_example_jdf_matches_reference(name):
 
 
 def test_ex10_crosscheck_on_the_port():
-    """Ex10's ptg_to_dtd half on the port's pools: its own builder,
-    bound to the port's package, run as PTG and through DTD, against
-    the reference's numbers.  (Its hwcounters half needs the port's
-    profiling.pins, not ported yet.)"""
+    """Ex10 on the port's pools: its own builder, bound to the port's
+    package, run as PTG under its hwcounters PINS module (each class's
+    tasks sampled, as on the reference) and through DTD, against the
+    reference's numbers."""
     ex10 = _load("examples/Ex10_CrossCheck.py", "_ex10_crosscheck")
 
     def run(P):
         ex10.pt = P.pt
+        pins = P.pt.profiling.pins
         try:
             with P.pt.Context(nb_workers=2) as ctx:
+                hw = pins.HwCounters()
+                pins.enable_pins(ctx, hw)
                 tp, arr = ex10.build(ctx, 12)
                 tp.run()
                 tp.wait()
                 ptg = arr.tobytes()
+                tasks = {cid: c[0] for cid, c in hw.counters.items()}
+                rep = [line.split(" utime")[0] for line in
+                       hw.report({0: "P", 1: "C"}).splitlines()]
+                assert tasks == {0: 12, 1: 12}
+                assert rep == ["P: tasks=12", "C: tasks=12"]
             with P.pt.Context(nb_workers=2) as ctx:
                 tp, arr = ex10.build(ctx, 12)
                 stats = P.p2d.run_ptg_as_dtd(ctx, tp, {"A": None})

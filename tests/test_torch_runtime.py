@@ -127,15 +127,23 @@ def test_block_cyclic_round_trip_and_dag_match_reference():
 
 
 def test_unported_hooks_are_refused(monkeypatch):
+    """The hooks this test once found refused are ported now: the
+    runtime.pins parameter installs its chain at Context init, as the
+    reference's does, and run(verify=True) verifies and runs."""
     monkeypatch.setenv("PTC_MCA_runtime_pins", "print_steals")
-    with pytest.raises(NotImplementedError, match="runtime.pins"):
-        tpt.Context(nb_workers=1)
+    with tpt.Context(nb_workers=1) as ctx:
+        assert [m.name for m in ctx._pins_chain.modules] == \
+            ["print_steals"]
     monkeypatch.delenv("PTC_MCA_runtime_pins")
     with tpt.Context(nb_workers=1) as ctx:
-        tp = tpt.Taskpool(ctx)
-        tp.task_class("Noop").body_noop()
-        with pytest.raises(NotImplementedError, match="verify"):
-            tp.run(verify=True)
+        assert ctx._pins_chain is None
+        tp = tpt.Taskpool(ctx, globals={"NB": 3})
+        tc = tp.task_class("Noop")
+        tc.param("k", 0, tpt.G("NB"))
+        tc.body_noop()
+        tp.run(verify=True)
+        tp.wait()
+        assert tp.nb_total_tasks == 4
 
 
 def _port_files():

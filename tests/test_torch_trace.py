@@ -716,10 +716,32 @@ def test_lost_time_coll_wait_split():
     ("runtime.pins", "print_steals"), ("runtime.live", "1"),
     ("runtime.metrics_port", "9100"), ("runtime.watchdog", "1"),
     ("runtime.journal", "journal.jsonl")])
-def test_next_slice_hooks_still_refused(monkeypatch, name, value):
-    """The trace layer is ported; PINS, the live sampler, the metrics
-    exporter, the watchdog and the journal are not, and asking for one
-    still raises rather than running without it."""
+def test_next_slice_hooks_still_refused(monkeypatch, tmp_path, name, value):
+    """The hooks this test once found refused (PINS, the live sampler,
+    the metrics exporter, the watchdog, the journal) are ported now:
+    each parameter installs its module at Context init, and the
+    Context's teardown stops it.  (The exporter binds a free localhost
+    port in place of 9100, and the journal a directory under tmp_path.)"""
+    if name == "runtime.journal":
+        value = str(tmp_path / value)
+    if name == "runtime.metrics_port":
+        import socket
+        with socket.socket() as sock:  # a free localhost port
+            sock.bind(("127.0.0.1", 0))
+            value = str(sock.getsockname()[1])
     monkeypatch.setenv("PTC_MCA_" + name.replace(".", "_"), value)
-    with pytest.raises(NotImplementedError, match=name):
-        tpt.Context(nb_workers=1)
+    monkeypatch.chdir(tmp_path)
+    with tpt.Context(nb_workers=1) as ctx:
+        installed = {"runtime.pins": ctx._pins_chain,
+                     "runtime.live": (ctx._monitors or [None])[0],
+                     "runtime.metrics_port": ctx._metrics_exporter,
+                     "runtime.watchdog": ctx._watchdog,
+                     "runtime.journal": ctx._journal}
+        assert sum(v is not None for v in installed.values()) == 1
+        obj = installed[name]
+        assert obj is not None
+        live = getattr(obj, "_thread", None)
+    if live is not None:
+        assert not live.is_alive()
+    if name == "runtime.journal":
+        assert os.path.exists(os.path.join(value, "journal.0.jsonl"))
