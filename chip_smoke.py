@@ -2304,7 +2304,10 @@ def serve_path(dev_t, observe=None) -> dict:
 # runs in turns, and the h2d fit's sizes and repetitions
 OBSERVE = {"gemm": (4096, 512), "norm": (8 * 4096, 4096, 1024),
            "fatt": (32, 4096, 128), "potrf_p": (32768, 512),
-           "pins_walls": 3, "fit_sizes": (1 << 20, 1 << 24, 1 << 28),
+           "pins_walls": 3,
+           # the tile sizes the path moves: GEMM's and POTRF-P's 1 MiB,
+           # FATT's 2 MiB, NORM's 16 MiB
+           "fit_sizes": (1 << 20, 1 << 21, 1 << 22, 1 << 23, 1 << 24),
            "fit_reps": 5, "tune_topk": 2}
 
 
@@ -2312,8 +2315,11 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
                  out_dir=None) -> dict:
     """Phase 10: the profiling layer and the static analyses on the card.
       10a the card's h2d fit (the pinned buffer on the h2d stream, at
-          three sizes, fit_points), written under out_dir in the
-          BENCH_comm.json schema for the tuner's device pricing
+          the tile sizes the path moves, fit_points), written under
+          out_dir in the BENCH_comm.json schema for the tuner's device
+          pricing; a negative intercept fails the phase (the economics
+          would clamp it to 0), and the fit's error at each size is
+          printed
       10b phase 4's GEMM, NORM and FATT (`rng` replays main_path's draws)
           in one Context(nb_workers=4) with one PINS chain installed
           (DeviceActivity, TaskCounter, StragglerLog and a count of the
@@ -2333,14 +2339,18 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
       10d POTRF-P at (N, NB) with run(verify=True) and tp.plan(), its
           residual held to 1e-4
       10e autotune on GEMM: proposals priced with the card's fit, each
-          validated by a real run in a fresh Context under its knob
-          vector, the winner persisted under out_dir; then a fresh GEMM
-          run(tuned=True) applies it, C at phase 4's 1e-4 / 1e-3
+          validated by a real run in a fresh Context and CudaDevice
+          created under its knob vector, the winner persisted under
+          out_dir; a runtime created with the defaults refuses it, and
+          a fresh GEMM created under it runs with run(tuned=True), the
+          winner's knobs read back from the Context and the device, C
+          at phase 4's 1e-4 / 1e-3
       10f (serve given) phase 5's round with conformance on by default,
           the watchdog and the journal armed through their runtime.*
           parameters and tracing at level 1: coverage 1.0 required, the
           makespan ratio printed, the journal read back, and one
-          request's timeline (its stages sum to its latency)
+          request's timeline (its exec rows held to the trace's EXEC
+          spans of its scopes)
     Returns {"runs": {label: row}, "launches": the kernels' launches}."""
     import shutil
     import urllib.request
@@ -2353,7 +2363,11 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
     from parsec_tpu_torch.algos import (build_gemm, build_potrf_panels,
                                         potrf_flops)
     from parsec_tpu_torch.analysis import autotune
-    from parsec_tpu_torch.analysis.tune import apply_knobs, default_knobs
+    from parsec_tpu_torch.analysis.tune import (ACTED_KNOBS, apply_knobs,
+                                                bound_value, check_tuned,
+                                                default_knobs,
+                                                knobs_in_force,
+                                                resolve_tuned)
     from parsec_tpu_torch.comm.economics import (TransferEconomics,
                                                  fit_points)
     from parsec_tpu_torch.convert import to_collection, to_tensor
@@ -2366,6 +2380,7 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
                                             StragglerLog, TaskCounter,
                                             enable_pins)
     from parsec_tpu_torch.profiling.live import LiveMonitor
+    from parsec_tpu_torch.profiling.trace import KEY_EXEC
     from parsec_tpu_torch.utils import params as mca
     fa_mod = importlib.import_module("parsec_tpu_torch.ops.flash_attention")
     rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
@@ -2402,6 +2417,14 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
                              "gbps": size / best / 1e9})
         dev.stop()
     fit = fit_points(points)
+    if fit["fixed_overhead_us"] < 0:
+        raise AssertionError(
+            f"10a: the h2d fit's intercept {fit['fixed_overhead_us']} us "
+            "is negative: no fit of the card")
+    for r in rows_fit:
+        pred = (fit["fixed_overhead_us"] * 1e-6
+                + fit["per_byte_ns"] * 1e-9 * r["size_bytes"])
+        r["fit_rel_err"] = (pred - r["seconds"]) / r["seconds"]
     econ_path = os.path.join(out_dir, "econ.json")
     with open(econ_path, "w") as f:
         json.dump({"bench": "chip_smoke.py phase 10 h2d fit",
@@ -2413,8 +2436,9 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
     econ = TransferEconomics.load(econ_path)
     log(f"  10a h2d fit (pinned staging, h2d stream, min of "
         f"{dims['fit_reps']}): " + ", ".join(
-            f"{r['size_bytes']} B {r['seconds'] * 1e3:.3f} ms "
-            f"({r['gbps']:.2f} GB/s)" for r in rows_fit)
+            f"{r['size_bytes']} B {r['seconds'] * 1e3:.4f} ms "
+            f"({r['gbps']:.2f} GB/s, fit {r['fit_rel_err']:+.1%})"
+            for r in rows_fit)
         + f"; fit {fit['fixed_overhead_us']} us + {fit['per_byte_ns']} "
         f"ns/B (r2 {fit['r2']}) -> {econ_path}")
     out["runs"]["10a h2d fit"] = {"sizes": rows_fit, "fit": fit}
@@ -2714,8 +2738,10 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
         os.unlink(store_path)
     mca.set("tune.cache_path", store_path)
     try:
-        def gemm_run(tuned=None):
-            with pt.Context(nb_workers=4) as gctx:
+        def gemm_run(knobs=None, tuned=None):
+            # the acted knobs are read when the Context and CudaDevice
+            # are created: the run's runtime is created under the vector
+            with apply_knobs(knobs), pt.Context(nb_workers=4) as gctx:
                 A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
                 C = to_collection(np.zeros((n, n), np.float32), nb, nb)
                 for name, coll in (("A", A), ("B", B), ("C", C)):
@@ -2732,43 +2758,71 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
                 secs = time.perf_counter() - t
                 for k, v in kernels.LAUNCHES.items():
                     out["launches"][k] += v
+                force = knobs_in_force(gctx)
                 dev.stop()
-                return secs, C.to_dense(), tp.tuned_applied
+                return secs, C.to_dense(), tp.tuned_applied, force
+
+        def bound(knobs):
+            return {k: [bound_value(k, knobs[k])] for k in ACTED_KNOBS}
 
         def measure(knobs):
-            # the knobs bound at Context and device creation take effect:
-            # the run's runtime is created under the vector
-            with apply_knobs(knobs):
-                return gemm_run()[0]
+            secs, _, _, force = gemm_run(knobs)
+            check(f"candidate {knobs_note(knobs)} in force on its Context "
+                  "and CudaDevice", force == bound(knobs), f"{force}")
+            return secs
+
+        def knobs_note(knobs):
+            return {k: knobs[k] for k in ACTED_KNOBS if knobs[k] != dflt[k]}
+
+        dflt = default_knobs()
 
         with pt.Context(nb_workers=4) as tctx:
             A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
             C = to_collection(np.zeros((n, n), np.float32), nb, nb)
             for name, coll in (("A", A), ("B", B), ("C", C)):
                 coll.register(tctx, name)
-            probe = build_gemm(tctx, A, B, C, CudaDevice(tctx, device=dev_t))
+            tdev = CudaDevice(tctx, device=dev_t)
+            probe = build_gemm(tctx, A, B, C, tdev)
             t = time.perf_counter()
             res = autotune(probe, measure=measure, topk=dims["tune_topk"],
                            econ=econ, workers=4)
             t_tune = time.perf_counter() - t
-        dflt = default_knobs()
+            vec = resolve_tuned(probe, True)
+            # this runtime was created with the defaults: each candidate
+            # that moves an acted knob is refused on it, not passed for
+            # a tuned vector
+            refused = []
+            for r in res["validated"]:
+                if knobs_note(r["knobs"]):
+                    try:
+                        check_tuned(tctx, r["knobs"])
+                    except ValueError:
+                        refused.append(knobs_note(r["knobs"]))
+                        continue
+                    check(f"the defaults' runtime refuses "
+                          f"{knobs_note(r['knobs'])}", False)
+            tdev.stop()
         for r in res["validated"]:
-            moved = {k: v for k, v in r["knobs"].items() if v != dflt[k]}
-            log(f"  10e candidate {moved or 'defaults'}: predicted "
-                f"{r['predicted_ns'] / 1e6:.3f} ms, measured "
+            log(f"  10e candidate {knobs_note(r['knobs']) or 'defaults'}: "
+                f"predicted {r['predicted_ns'] / 1e6:.3f} ms, measured "
                 f"{r['measured_s'] * 1e3:.1f} ms "
                 f"(predicted/wall {r['predicted_vs_wall']})")
+        log(f"  10e the defaults' runtime refused {refused}")
         win = res["winner"]
-        secs, c_out, applied = gemm_run(tuned=True)
-        check("run(tuned=True) applied the persisted winner",
-              applied == win["knobs"])
+        check("the store holds the winner under GEMM's signature",
+              vec == win["knobs"])
+        secs, c_out, applied, force = gemm_run(knobs=vec, tuned=True)
+        check("run(tuned=True) holds the persisted winner", applied == vec)
+        check("the winner's knobs are in force on the tuned run's Context "
+              "and CudaDevice", force == bound(vec), f"{force}")
         check_close("10e GEMM C (tuned) vs torch.matmul",
                     to_tensor(c_out, dev_t),
                     torch.matmul(to_tensor(a, dev_t), to_tensor(b, dev_t)),
                     1e-4, 1e-3)
         log(f"  10e autotune {t_tune:.1f} s; winner measured "
             f"{win['measured_s'] * 1e3:.1f} ms, persisted to "
-            f"{res.get('store_path')}; run(tuned=True) {secs * 1e3:.1f} ms")
+            f"{res.get('store_path')}; run(tuned=True) {secs * 1e3:.1f} ms "
+            f"with {bound(vec)} in force")
         out["runs"]["10e tune"] = {
             "candidates": [{"knobs": {k: r["knobs"][k] for k in
                                       ("device.staging_slots",
@@ -2777,7 +2831,8 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
                             "predicted_ns": r["predicted_ns"],
                             "measured_s": r["measured_s"]}
                            for r in res["validated"]],
-            "tuned_wall_ms": secs * 1e3, "autotune_s": t_tune}
+            "tuned_wall_ms": secs * 1e3, "autotune_s": t_tune,
+            "in_force": bound(vec), "refused": refused}
     finally:
         mca.unset("tune.cache_path")
     del a, b
@@ -2833,8 +2888,24 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
         log(f"  10f request_timeline of request {h.rid} "
             f"({len(h.prompt)} prompt tokens): e2e {tl['e2e_ns'] / 1e6:.1f}"
             f" ms, stages (ms) {stages}, {len(tl['waves'])} wave rows")
-        check("the timeline's stages sum to its latency",
-              tl["stages_sum_ns"] == tl["e2e_ns"] > 0)
+        # the exec stage against the trace's own EXEC spans of the
+        # request's scopes (its lane's, in a shared decode scope); the
+        # lane_wait stage is the unattributed remainder, device tasks
+        # emitting no EXEC span
+        n_exec, ev = 0, tr.events
+        for sid, member in reg.request_scopes(h.rid):
+            # EXEC ends stamped with the scope (aux), lane in l0
+            m = (ev[:, 0] == KEY_EXEC) & (ev[:, 1] == 0) & (ev[:, 6] == sid)
+            if member is not None:
+                m &= ev[:, 3] == member
+            n_exec += int(m.sum())
+        span_sum = sum(w["dur_ns"] for w in tl["waves"])
+        check("the timeline's exec rows are the trace's EXEC spans of the "
+              "request's scopes",
+              len(tl["waves"]) == n_exec > 0
+              and 0 < tl["stages"]["exec_ns"] <= span_sum,
+              f"{len(tl['waves'])} rows, {n_exec} EXEC spans, exec "
+              f"{tl['stages']['exec_ns']} ns of {span_sum} ns of spans")
         out["runs"]["10f serve"] = {
             "tokens_per_s": r["tokens_per_s"], "pools": conf["pools"],
             "coverage": conf["coverage"],

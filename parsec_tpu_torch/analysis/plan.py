@@ -143,13 +143,10 @@ class CostModel:
 def _eager_threshold(ctx, econ=None) -> int:
     """The eager/rendezvous split the comm volume analysis models: the
     fitted transfer-economics crossover (falling back to the static
-    comm.eager_limit param).  The reference reads the live engine's
+    comm.eager_limit knob).  The reference reads the live engine's
     threshold first when comm is up; here no engine runs."""
-    from ..utils import params as _mca
-    try:
-        fallback = int(_mca.get("comm.eager_limit"))
-    except (TypeError, ValueError):
-        fallback = 64 * 1024
+    from ..comm.topology import COMM_KNOBS
+    fallback = int(COMM_KNOBS["comm.eager_limit"])
     if econ is None:
         from ..comm.economics import default_economics
         econ = default_economics()

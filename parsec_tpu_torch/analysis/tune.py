@@ -33,17 +33,13 @@ job — the closed loop.  Three layers:
   persistence `TuneStore`: winners keyed by (graph signature, host
               provenance fingerprint) in a JSON cache
               (PTC_MCA_tune_cache_path, default ~/.ptc/tuned.json) that
-              `Taskpool.run(tuned=True)` auto-applies — with MCA
-              snapshot/restore around the run so one pool's knobs can
-              never leak into the next pool in the same Context.
+              `Taskpool.run(tuned=True)` looks up and holds its run
+              to: the run raises unless the vector is in force on the
+              runtime the pool runs on (below).
 
 The knob vector is applied through `apply_knobs()`: both the Python MCA
 registry (programmatic set) and the PTC_MCA_* environment (the native
-comm/context layers read env at init), snapshotting and restoring both.
-Knobs bound at Context/comm/device creation take effect for runs that
-create their runtime under `apply_knobs` (the tuner's validation runs
-and the bench harnesses do); `Taskpool.run(tuned=)` covers the
-pool-scoped reads (commit, plan_check, the context's lazy start).
+context reads env at init), snapshotting and restoring both.
 
 Port of parsec_tpu/analysis/tune.py.  The knob registry is the
 reference's, so that the simulator prices the same vector to the same
@@ -51,9 +47,17 @@ nanosecond; but this package acts on three of its axes only:
 `ACTED_KNOBS` — device.staging_slots and device.cache_bytes (read by a
 CudaDevice at construction) and runtime.mag_batch (read by the native
 core at context creation).  device.wave_fuse waits for device/fuse.py
-and the comm.* and coll.* knobs for the comm engine: `apply_knobs`
-refuses to change them, and `ScheduleSimulator.knob_axes` (so `propose`
-and `autotune`) searches only the acted axes.  The closed-form
+and the comm.* and coll.* knobs for the comm engine: they are no MCA
+parameters here but constants at the reference's defaults
+(`FIXED_KNOBS`; device.wave_fuse at the card's dispatch, off),
+`apply_knobs` refuses to change them, and `ScheduleSimulator.knob_axes`
+(so `propose` and `autotune`) searches only the acted axes.  All three
+acted knobs are read when the runtime is created, so a vector takes
+effect only for a Context and CudaDevice created under
+`apply_knobs(vector)` (the tuner's validation runs do so);
+`Taskpool.run(tuned=)` checks that its vector is the one in force
+(`knobs_in_force`) and raises where it is not, instead of reporting a
+vector that changed nothing as applied.  The closed-form
 collective and streaming price models (the reference's
 price_collective / price_stream and their proposers) price the comm
 engine's collectives and streamed serve, and come with it.
@@ -76,6 +80,7 @@ import sys
 from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import _native as N
+from ..comm.topology import COMM_KNOBS
 from ..core import expr as E
 from ..core.taskclass import Mem, Ref
 from .flowgraph import FlowGraph, extract_flowgraph
@@ -115,13 +120,21 @@ ACTED_KNOBS: Tuple[str, ...] = (
     "device.cache_bytes",
     "runtime.mag_batch",
 )
+# The knobs of TUNE_KNOBS that are no MCA parameters here, at the
+# values the simulator prices: the comm engine's at the reference's
+# defaults, and device.wave_fuse at the card's batched dispatch (the
+# reference's default is on, and the simulator prices both).
+FIXED_KNOBS: Dict[str, object] = dict(
+    {k: v for k, v in COMM_KNOBS.items() if k in TUNE_KNOBS},
+    **{"device.wave_fuse": False})
 
 # Modeled dispatch-path constants (nanoseconds), the reference's,
 # calibrated against its committed BENCH_dispatch level-0 numbers (its
-# host, not this package's: the card's DTD launch costs ~1 ms of host): the per-task dispatch floor
-# at the default magazine batch (64) sits near the measured ~0.25 us
-# single-chain p50, and the magazine term prices the amortized
-# free-lock crossing a refill/spill costs (one mutex pair per batch).
+# host, not this package's: the card's DTD launch costs ~1 ms of
+# host): the per-task dispatch floor at the default magazine batch (64)
+# sits near the reference's measured ~0.25 us single-chain p50, and the
+# magazine term prices the amortized free-lock crossing a refill/spill
+# costs (one mutex pair per batch).
 DISPATCH_BASE_NS = 220.0
 DISPATCH_MAG_NS = 1600.0   # per-batch lock crossing, amortized /batch
 # Per-chunk envelope floor on the streamed rendezvous path (frame
@@ -280,22 +293,48 @@ def graph_signature(tp) -> str:
 
 # ------------------------------------------------------ knob handling
 def default_knobs() -> Dict[str, object]:
-    """The knob vector currently in force (MCA resolution order)."""
+    """The knob vector currently in force (MCA resolution order for the
+    registered knobs, FIXED_KNOBS for the rest)."""
     from ..utils import params as _mca
-    return {k: _mca.get(k) for k in TUNE_KNOBS}
+    return {k: FIXED_KNOBS[k] if k in FIXED_KNOBS else _mca.get(k)
+            for k in TUNE_KNOBS}
+
+
+def _refuse_unacted(name: str, value) -> object:
+    """The value of a knob this package does not act on, when `value`
+    leaves it unchanged; raises when it would change it (ValueError) or
+    when no such knob exists (KeyError).  Acted knobs pass through."""
+    from ..utils import params as reg
+    from ..utils.config import _coerce
+    if name in ACTED_KNOBS:
+        return value
+    if name in FIXED_KNOBS:
+        cur = FIXED_KNOBS[name]
+        same = _coerce(str(value), type(cur)) == cur
+    elif name in reg._reg:
+        cur = reg.get(name)
+        same = _coerce(str(value), reg._reg[name].type) == cur
+    else:
+        raise KeyError(f"unknown tuning knob {name!r}")
+    if not same:
+        raise ValueError(
+            f"tuning knob {name!r}: parsec_tpu_torch does not act on it "
+            f"yet (acted knobs: {', '.join(ACTED_KNOBS)})")
+    return cur
 
 
 @contextlib.contextmanager
 def apply_knobs(knobs: Optional[Dict[str, object]]):
     """Apply a knob vector for the duration of the with-block, through
     BOTH the MCA registry (Python-side reads) and the PTC_MCA_* env
-    spelling (native init paths + spawned SPMD ranks inherit it), then
-    RESTORE both — the snapshot/restore that keeps one pool's tuned
-    knobs from leaking into the next pool in the same Context/process.
-    Unknown knob names raise (a persisted cache from a newer version
-    must not be silently half-applied), and so does a CHANGE of a knob
-    this package does not act on yet (not in ACTED_KNOBS): a vector
-    that changes nothing on the card must not pass for a tuned one."""
+    spelling (the native core reads env at context creation), then
+    RESTORE both — the snapshot/restore that keeps one run's knobs from
+    leaking into the next.  The acted knobs are read when a Context or
+    CudaDevice is created, so create them inside the block.  Unknown
+    knob names raise (a persisted cache from a newer version must not
+    be silently half-applied), and so does a CHANGE of a knob this
+    package does not act on yet (not in ACTED_KNOBS): a vector that
+    changes nothing on the card must not pass for a tuned one."""
     if not knobs:
         yield {}
         return
@@ -305,16 +344,12 @@ def apply_knobs(knobs: Optional[Dict[str, object]]):
     applied: Dict[str, object] = {}
     try:
         for name, value in knobs.items():
-            p = reg._reg.get(name)
-            if p is None:
-                raise KeyError(f"unknown tuning knob {name!r}")
+            if name not in ACTED_KNOBS:
+                applied[name] = _refuse_unacted(name, value)
+                continue
+            p = reg._reg[name]
             saved_param[name] = (p.value, p.source)
-            before = reg.get(name)
             reg.set(name, value)
-            if name not in ACTED_KNOBS and reg.get(name) != before:
-                raise ValueError(
-                    f"tuning knob {name!r}: parsec_tpu_torch does not act "
-                    f"on it yet (acted knobs: {', '.join(ACTED_KNOBS)})")
             env = reg._env_name(name)
             saved_env[env] = os.environ.get(env)
             os.environ[env] = str(value)
@@ -331,13 +366,68 @@ def apply_knobs(knobs: Optional[Dict[str, object]]):
                 os.environ[env] = old
 
 
+def bound_value(name: str, value) -> int:
+    """An acted knob's value as the runtime binds it: the native core
+    keeps a magazine batch in [1, 8192] (else its default, 64), a
+    CudaDevice at least one staging slot, and a cache budget of 0 is
+    the device's default of 4 GiB."""
+    v = int(value or 0)
+    if name == "runtime.mag_batch":
+        return v if 1 <= v <= 8192 else 64
+    if name == "device.staging_slots":
+        return max(1, v)
+    return v or 4 << 30
+
+
+def knobs_in_force(ctx) -> Dict[str, List[int]]:
+    """The acted knobs' values bound on `ctx`'s runtime: the magazine
+    batch its native core read at creation, and each attached
+    CudaDevice's staging slots and cache budget (with no device
+    attached, the value a device created now would read)."""
+    from ..utils import params as _mca
+    devs = list(ctx._devices)
+
+    def fresh(name):
+        return [bound_value(name, _mca.get(name))]
+    return {
+        "runtime.mag_batch": [ctx.mag_batch],
+        "device.staging_slots": [d._pf_slots_max for d in devs]
+        or fresh("device.staging_slots"),
+        "device.cache_bytes": [d._cache_bytes for d in devs]
+        or fresh("device.cache_bytes"),
+    }
+
+
+def check_tuned(ctx, knobs: Dict[str, object]) -> None:
+    """Raise unless the vector `knobs` is the one in force on `ctx`'s
+    runtime: an unknown knob (KeyError), a change of a knob this
+    package does not act on, or an acted knob that the runtime holds
+    at another value (ValueError; create the Context and CudaDevice
+    under apply_knobs(knobs))."""
+    force = knobs_in_force(ctx)
+    off = {}
+    for name, value in knobs.items():
+        _refuse_unacted(name, value)
+        if name in ACTED_KNOBS and any(
+                v != bound_value(name, value) for v in force[name]):
+            off[name] = (bound_value(name, value), force[name])
+    if off:
+        raise ValueError(
+            "tuned knob vector not in force: " + ", ".join(
+                f"{k} wants {w}, the runtime holds {h}"
+                for k, (w, h) in off.items())
+            + " (these knobs are read when the Context and CudaDevice "
+            "are created: create them under analysis.tune.apply_knobs)")
+
+
 def hold_knobs(knobs: Dict[str, object]):
     """apply_knobs, held open: apply the vector NOW (same MCA + env
     double-write, same unknown-name check) and return a zero-argument
     `restore()` that puts the snapshot back — the ptc-pilot
     controller's hot-swap primitive, where the swap must outlive any
     single with-block (it stays in force across pools until the next
-    retune or teardown).  Restore is idempotent."""
+    retune or teardown; the acted knobs bind the Contexts and
+    CudaDevices created while it holds).  Restore is idempotent."""
     cm = apply_knobs(dict(knobs) if knobs else None)
     applied = cm.__enter__()
     done = []

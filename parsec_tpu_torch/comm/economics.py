@@ -278,9 +278,10 @@ class TransferEconomics:
                         cls: Optional[str] = None,
                         tmodel=None) -> str:
         """Pick the cheapest topology under the fitted model.  `override`
-        (or the PTC_MCA_coll_topo param when it is not 'auto') wins
-        unconditionally — the knob is the escape hatch when the model is
-        wrong for a deployment.  "hier" is only legal/offered alongside
+        (or the coll.topo knob when it is not 'auto': a constant here,
+        an MCA parameter in the reference) wins unconditionally — the
+        knob is the escape hatch when the model is wrong for a
+        deployment.  "hier" is only legal/offered alongside
         a multi-island `tmodel` (the tree needs island structure)."""
         hier_ok = tmodel is not None and getattr(tmodel, "n_islands", 1) > 1
         if override is None:

@@ -18,10 +18,12 @@ cost, page migration — asks this model instead of assuming flatness.
 
 Spec sources, in priority order:
 
-  1. PTC_MCA_comm_topology — an explicit hosts-and-islands string
-     (';' separates islands, '|' separates hosts, ',' separates ranks:
+  1. An explicit hosts-and-islands string (`TopologyModel.parse`;
+     ';' separates islands, '|' separates hosts, ',' separates ranks:
      "0,1|2,3;4,5|6,7" = two islands of two 2-rank hosts each), or a
      path to a JSON file {"islands": [[[0,1],[2,3]], [[4,5],[6,7]]]}.
+     The reference reads it from PTC_MCA_comm_topology; here that
+     parameter waits for the comm engine (COMM_KNOBS below).
   2. RTT auto-detect (`TopologyModel.from_rtts`): cluster this rank's
      measured PING/PONG round trips at the largest relative gap into a
      near set (my island) and a far set.  Per-rank and therefore NOT
@@ -42,10 +44,28 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 LINK_CLASSES = ("loopback", "host", "ici", "dcn")
 
-# Per-class MCA override suffixes that exist in the registry (loopback
-# and host always inherit the base knob — same-host transfers already
-# ride the fast path the base knobs were tuned for).
-_OVERRIDE_CLASSES = ("ici", "dcn")
+# The comm engine's knobs at the reference's defaults.  This package
+# runs no comm engine yet, so they are constants here, not MCA
+# parameters (they become parameters with the engine): the analyses
+# price the reference's defaults.  A per-class override ("" = inherit
+# the base knob) exists for the ici and dcn classes only.
+COMM_KNOBS: Dict[str, object] = {
+    "comm.eager_limit": 64 * 1024,
+    "comm.chunk_size": 1 << 20,
+    "comm.rails": 2,
+    "coll.topo": "auto",
+    "coll.max_slices": 16,
+    "comm.topology": "",
+    "comm.dcn_nonleader_penalty": 4.0,
+    "comm.chunk_size.ici": "",
+    "comm.chunk_size.dcn": "",
+    "comm.rails.ici": "",
+    "comm.rails.dcn": "",
+    "comm.eager_limit.ici": "",
+    "comm.eager_limit.dcn": "",
+    "coll.topo.ici": "",
+    "coll.topo.dcn": "",
+}
 
 
 class TopologyModel:
@@ -190,48 +210,25 @@ class TopologyModel:
 
 
 # ---------------------------------------------------------------- lookup
-_cached: Dict[Tuple[str, int], TopologyModel] = {}
-
-
 def default_topology(nranks: int,
                      rtts_ns: Optional[Dict[int, int]] = None,
                      my_rank: int = 0) -> TopologyModel:
-    """The process-default TopologyModel for an `nranks` mesh: explicit
-    PTC_MCA_comm_topology spec, else RTT auto-detect when probe data is
-    handed in, else flat.  Spec parses are cached per (spec, nranks)."""
-    from ..utils import params as _mca
-    spec = str(_mca.get("comm.topology") or "").strip()
-    if spec:
-        key = (spec, int(nranks))
-        if key not in _cached:
-            _cached[key] = TopologyModel.parse(spec)
-        return _cached[key]
+    """The process-default TopologyModel for an `nranks` mesh: RTT
+    auto-detect when probe data is handed in, else flat (the reference
+    first takes an explicit PTC_MCA_comm_topology spec, which comes
+    here with the comm engine)."""
     if rtts_ns:
         return TopologyModel.from_rtts(rtts_ns, my_rank, nranks)
     return TopologyModel.flat(nranks)
 
 
 def resolve_class_knob(name: str, cls: Optional[str] = None):
-    """Resolve an MCA knob with its per-class override: `{name}.{cls}`
-    (e.g. comm.chunk_size.dcn) wins when registered and non-empty, else
-    the base knob answers.  Per-class overrides are registered as
-    strings with '' = inherit so 0 stays a legal override value."""
-    from ..utils import params as _mca
-    base = _mca.get(name)
-    if cls in _OVERRIDE_CLASSES:
-        try:
-            ov = _mca.get(f"{name}.{cls}")
-        except KeyError:
-            return base
-        if ov is not None and str(ov).strip() != "":
-            if isinstance(base, bool):
-                return str(ov).strip().lower() in ("1", "true", "yes", "on")
-            if isinstance(base, int):
-                return int(str(ov).strip())
-            if isinstance(base, float):
-                return float(str(ov).strip())
-            return str(ov).strip()
-    return base
+    """A comm knob with its per-class override: `{name}.{cls}` (e.g.
+    comm.chunk_size.dcn) wins when non-empty, else the base knob
+    answers.  The reference resolves both through its MCA registry;
+    here both are COMM_KNOBS constants, so every override inherits."""
+    ov = COMM_KNOBS.get(f"{name}.{cls}", "")
+    return COMM_KNOBS[name] if ov == "" else ov
 
 
 def relay_beats_direct(nbytes: int, src: int, dst: int,
@@ -247,8 +244,7 @@ def relay_beats_direct(nbytes: int, src: int, dst: int,
     if econ is None:
         from .economics import default_economics
         econ = default_economics()
-    from ..utils import params as _mca
-    pen = float(_mca.get("comm.dcn_nonleader_penalty"))
+    pen = float(COMM_KNOBS["comm.dcn_nonleader_penalty"])
     ls = topo.leader_of(topo.island_of(src))
     ld = topo.leader_of(topo.island_of(dst))
     if src == ls and dst == ld:

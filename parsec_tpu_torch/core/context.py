@@ -16,6 +16,8 @@ namespace.
 from __future__ import annotations
 
 import ctypes as C
+import os
+import re
 import threading
 from typing import Callable, Dict, List, Optional
 
@@ -98,6 +100,12 @@ class Context:
         if scheduler is None:
             scheduler = _mca.get("runtime.sched")
         self._ptr = N.lib.ptc_context_new(nb_workers)
+        # the magazine batch the native core read at creation (it keeps
+        # no getter): atoi of the env, kept when in [1, 8192], else 64
+        m = re.match(r"\s*[+-]?\d+",
+                     os.environ.get("PTC_MCA_runtime_mag_batch", ""))
+        mag = int(m.group()) if m else 0
+        self.mag_batch = mag if 1 <= mag <= 8192 else 64
         # one rank until the comm engine is ported (set_rank mirrors a
         # change into the native core, which keeps no getter)
         self.myrank, self.nodes = 0, 1

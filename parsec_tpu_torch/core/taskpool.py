@@ -161,13 +161,12 @@ class Taskpool:
         `tuned=` opts into the autotuner's persisted knob vectors
         (analysis/tune.py): True looks up the winner recorded for this
         pool's (graph signature, host fingerprint) — a no-op when none
-        exists — and a dict applies that vector directly.  The vector is
-        applied through the MCA registry AND the PTC_MCA_* env for the
-        duration of THIS call (commit and the context's lazy start) and
-        then RESTORED, so one pool's tuned knobs never leak into the
-        next pool; the applied vector is `self.tuned_applied` (None when
-        nothing applied).  Knobs bound at Context or device creation
-        need the runtime created under the vector (apply_knobs)."""
+        exists — and a dict names a vector directly.  Every knob this
+        package acts on is read when the Context or CudaDevice is
+        created, so the vector must already be in force on this pool's
+        runtime (created under analysis.tune.apply_knobs(vector)): the
+        run raises ValueError where it is not, and otherwise records
+        the vector as `self.tuned_applied` (None when there is none)."""
         self.remap_applied = None
         if remap is not None and remap is not False:
             perm = remap if isinstance(remap, (list, tuple)) \
@@ -178,16 +177,11 @@ class Taskpool:
                 self.remap_applied = perm
         knobs = None
         if tuned:
-            from ..analysis.tune import resolve_tuned
+            from ..analysis.tune import check_tuned, resolve_tuned
             knobs = resolve_tuned(self, tuned)
+            if knobs is not None:
+                check_tuned(self.ctx, knobs)
         self.tuned_applied = knobs
-        if knobs is None:
-            return self._run_inner(verify)
-        from ..analysis.tune import apply_knobs
-        with apply_knobs(knobs):
-            return self._run_inner(verify)
-
-    def _run_inner(self, verify) -> "Taskpool":
         if verify:
             self.verify(mode=verify)
         self.commit()

@@ -18,13 +18,11 @@ is the recorder:
              runtime.journal_checkpoint_s the journal records this
              rank's recovery-relevant INVENTORY (live scope ids, QoS
              pool census, inflight EXEC bodies, registered providers
-             such as PagePool.frozen_keys) and replicates it to every
-             peer as a MSG_BLOB control frame — so a SIGKILLed rank's
-             last checkpoint survives on every peer.  The journal also
+             such as PagePool.frozen_keys) in its journal (the
+             reference also replicates it to every peer and journals
+             peer loss, which needs the comm engine).  The journal also
              arms the native fatal-signal crash dump
-             (<dir>/crash.<rank>.ptt; runtime.journal_crash_dump) and
-             polls the peer-loss flags, journalling a `peer_loss`
-             record that EMBEDS the dead peer's last inventory blob.
+             (<dir>/crash.<rank>.ptt; runtime.journal_crash_dump).
 
   FleetView  scrapes every replica's stats + health on a cadence —
              in-process serve.Server objects or remote /stats.json +

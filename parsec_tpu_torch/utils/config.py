@@ -12,8 +12,7 @@ prefetch_depth, staging_slots, out_of_core, overcommit), and the DTD
 front end's dtd.window_size and dtd.insert_batch, the observability
 hooks (runtime.pins, live, metrics_port, watchdog, journal and their
 settings), the analyses' plan.*, scope.*, tune.* and control.* params,
-and the knobs the analyses price (comm.*, coll.*, device.wave_fuse,
-runtime.mag_batch).
+runtime.mag_batch and coll.econ_path.
 """
 import os
 from typing import Any, Callable, Dict, Optional
@@ -220,9 +219,8 @@ register("runtime.journal_checkpoint_s", 5.0, float,
          "inventory checkpoint cadence in seconds: the journal "
          "periodically records recovery-relevant inventory (live scope "
          "ids, QoS pool census, registered providers such as frozen "
-         "page keys) and replicates it to every peer as a MSG_BLOB "
-         "control frame, so survivors hold a dead rank's last "
-         "checkpoint; <= 0 disables checkpoints")
+         "page keys) in the local journal (one rank: nothing is sent "
+         "to peers); <= 0 disables checkpoints")
 register("runtime.journal_crash_dump", True, bool,
          "arm the async-signal-safe SIGSEGV/SIGABRT/SIGBUS handler when "
          "the journal is enabled: on a fatal signal the flight-recorder "
@@ -350,13 +348,11 @@ register("control.budget_min_share", 0.10, float,
          "re-weights shares by prefix hit rate (keeps a cold tenant "
          "from being evicted to zero)")
 
-# knobs the analyses price (the tuner's knob registry, the transfer
-# economics, the topology model).  Registered with the reference's
-# defaults so that a prediction over the same vector is the same
-# number; nothing in this package acts on device.wave_fuse or on the
-# comm.* and coll.* knobs yet (they need device/fuse.py and the comm
-# engine), and analysis.tune.apply_knobs refuses to change them.
-# runtime.mag_batch is read by the native core at context creation.
+# runtime.mag_batch, one of the tuner's knob axes, is read by the
+# native core at context creation.  The tuner's other axes (the comm
+# engine's comm.* and coll.* knobs, device.wave_fuse) are no parameters
+# here: nothing in this package acts on them yet, and analysis/tune.py
+# and comm/topology.py keep the reference's defaults as constants.
 register("runtime.mag_batch", 64, int,
          "task/arena freelist magazine batch: items moved between a "
          "worker's private magazine and the shared pool per lock "
@@ -365,88 +361,9 @@ register("runtime.mag_batch", 64, int,
          "more memory per idle worker; read from the env at context "
          "creation (a live context keeps its batch).  One of the "
          "ptc-tune knob axes")
-register("device.wave_fuse", False, bool,
-         "wave mega-kernelization of the reference (device/fuse.py), not "
-         "ported yet: the CUDA device runs the per-group batched "
-         "dispatch, which is the reference's device.wave_fuse=0, so the "
-         "default is 0 here and the schedule simulator prices what the "
-         "card runs; nothing here acts on 1")
-register("comm.eager_limit", 64 * 1024, int,
-         "payloads <= this ride inline in ACTIVATE; larger ones are pulled "
-         "via GET rendezvous (reference: runtime_comm_short_limit, "
-         "remote_dep_mpi.c:241-253); negative disables rendezvous.  Set "
-         "the env form (PTC_MCA_comm_eager_limit) to the string 'auto' "
-         "to derive the threshold at comm init from the measured "
-         "per-peer round trip and host memcpy rate (see "
-         "comm.eager_adaptive)")
-register("comm.chunk_size", 1 << 20, int,
-         "rendezvous payloads above this stream as pipelined ranged "
-         "chunks (GET[offset,len] -> PUT_CHUNK) instead of one frame: "
-         "the wire, the producer's serve and the consumer's reassembly "
-         "overlap, and fences/activations interleave between chunks "
-         "instead of stalling behind one giant frame.  <= 0 disables "
-         "chunking (whole-payload pulls)")
-register("comm.rails", 2, int,
-         "striped TCP connections per peer (wire v4): PUT_CHUNK payload "
-         "frames round-robin across the rails (offset-addressed "
-         "reassembly makes chunk order irrelevant) so one in-order "
-         "stream cannot cap cross-rank throughput; everything order-"
-         "sensitive stays on rail 0.  Must be uniform across the job "
-         "(the accept handshake rejects mismatches); 1 = the v3 single-"
-         "connection mesh")
-register("coll.topo", "auto", str,
-         "runtime-native collective topology (the comm engine's collectives): "
-         "ring|binomial|star, or 'auto' to choose per (message size, "
-         "rank count) from the BENCH_comm.json transfer-economics fits "
-         "(fixed overhead + per-byte cost; see comm/economics.py).  The "
-         "fan-out legs of bcast/all_gather map star|chain|binomial onto "
-         "the native ACTIVATE_BCAST trees (comm.bcast_topo machinery)")
-register("coll.max_slices", 16, int,
-         "cap on slices per collective segment (bounds task count per "
-         "op; tiny messages collapse to one slice)")
 register("coll.econ_path", "", str,
          "path to a transfer-economics JSON (BENCH_comm.json schema) "
-         "for the topology selector; empty = the repo's BENCH_comm.json "
-         "when present, else built-in loopback defaults")
-register("comm.topology", "", str,
-         "hosts-and-islands topology spec (';' separates islands, '|' "
-         "hosts, ',' ranks: \"0,1|2,3;4,5|6,7\"), or a path to a JSON "
-         "file {\"islands\": [[[ranks...],...],...]}.  Empty = flat "
-         "mesh (every non-self pair classes 'ici'; pre-topo behavior "
-         "bit-exactly).  Drives link-class pricing, hierarchical "
-         "collective trees, plan.remap_ranks and the per-class stats "
-         "split (comm/topology.py)")
-register("comm.dcn_nonleader_penalty", 4.0, float,
-         "per-byte multiplier for DCN legs NOT between island leaders "
-         "(host uplinks into the inter-island network are "
-         "oversubscribed; the leader's uplink is the provisioned one). "
-         "Feeds relay_beats_direct: inter-island bulk pulls forward "
-         "through the leaders when the penalized direct leg costs more")
-register("comm.chunk_size.ici", "", str,
-         "per-class override of comm.chunk_size for intra-island "
-         "(ici) legs; '' = inherit comm.chunk_size")
-register("comm.chunk_size.dcn", "", str,
-         "per-class override of comm.chunk_size for inter-island "
-         "(dcn) legs — bigger chunks amortize the higher DCN fixed "
-         "cost; '' = inherit comm.chunk_size")
-register("comm.eager_limit.ici", "", str,
-         "per-class override of comm.eager_limit for ici legs; "
-         "'' = inherit comm.eager_limit")
-register("comm.eager_limit.dcn", "", str,
-         "per-class override of comm.eager_limit for dcn legs — the "
-         "eager/rendezvous crossover sits lower where per-byte cost is "
-         "higher; '' = inherit comm.eager_limit")
-register("comm.rails.ici", "", str,
-         "per-class override of comm.rails for ici legs; '' = inherit "
-         "comm.rails")
-register("comm.rails.dcn", "", str,
-         "per-class override of comm.rails for dcn legs (striping "
-         "cannot beat an oversubscribed uplink, so fewer DCN rails is "
-         "common); '' = inherit comm.rails")
-register("coll.topo.ici", "", str,
-         "per-class override of coll.topo for the intra-island phase "
-         "of hierarchical collectives; '' = inherit coll.topo")
-register("coll.topo.dcn", "", str,
-         "per-class override of coll.topo for the inter-island "
-         "(leader) phase of hierarchical collectives; '' = inherit "
-         "coll.topo")
+         "that the analyses price transfers with (plan, tune); empty = "
+         "the repo's BENCH_comm.json when present, else built-in "
+         "loopback defaults.  Neither is a fit of a CUDA card: pass a "
+         "fit measured on the card (chip_smoke.py phase 10 writes one)")

@@ -46,6 +46,7 @@ import parsec_tpu_torch.utils as tutils
 from parsec_tpu.data.collections import TwoDimBlockCyclic as JBC
 from parsec_tpu.dsl.jdf import compile_jdf as jcompile
 from parsec_tpu_torch.data.collections import TwoDimBlockCyclic as TBC
+from parsec_tpu_torch.device import CudaDevice
 from parsec_tpu_torch.dsl.jdf import compile_jdf as tcompile
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -859,12 +860,15 @@ def test_proposals_match_reference_on_a_host_graph():
 
 
 def test_apply_knobs_refuses_knobs_the_port_does_not_act_on():
-    before = tutils.params.get("comm.rails")
+    before = ttune.default_knobs()["comm.rails"]
+    assert before == jtune.default_knobs()["comm.rails"]
     with pytest.raises(ValueError, match="does not act"):
         with ttune.apply_knobs({"comm.rails": before + 1}):
             pass
-    assert tutils.params.get("comm.rails") == before
     assert "PTC_MCA_comm_rails" not in os.environ
+    # the comm engine's knobs are no parameters of the port yet
+    with pytest.raises(KeyError):
+        tutils.params.get("comm.rails")
     with pytest.raises(ValueError, match="does not act"):
         with ttune.apply_knobs({"device.wave_fuse": True}):
             pass
@@ -928,18 +932,29 @@ def test_autotune_persist_and_run_tuned(tmp_path):
             ttune.host_fingerprint()]
         assert rec["knobs"]["runtime.mag_batch"] == 128
         before = tutils.params.get("runtime.mag_batch")
+        rng = np.random.default_rng(2)
+        M = rng.standard_normal((48, 48)).astype(np.float32)
+        spd = M @ M.T + 48 * np.eye(48, dtype=np.float32)
+        # a runtime created without the winner in force: the run raises
         with tpt.Context(nb_workers=2) as ctx:
             A, tp = _potrf_pool(PORT, ctx)
-            rng = np.random.default_rng(2)
-            M = rng.standard_normal((48, 48)).astype(np.float32)
-            spd = M @ M.T + 48 * np.eye(48, dtype=np.float32)
-            A.from_dense(spd)
-            tp.run(tuned=True)
-            tp.wait()
-            assert tp.tuned_applied["runtime.mag_batch"] == 128
-            assert tutils.params.get("runtime.mag_batch") == before
-            assert "PTC_MCA_runtime_mag_batch" not in os.environ
-            L = np.tril(A.to_dense())
+            win = ttune.resolve_tuned(tp, True)
+            assert win["runtime.mag_batch"] == 128 != ctx.mag_batch
+            with pytest.raises(ValueError, match="not in force"):
+                tp.run(tuned=True)
+        # one created under it: the run holds the winner, and the
+        # registry and env are restored when the block ends
+        with ttune.apply_knobs(win):
+            with tpt.Context(nb_workers=2) as ctx:
+                A, tp = _potrf_pool(PORT, ctx)
+                A.from_dense(spd)
+                tp.run(tuned=True)
+                tp.wait()
+                assert ctx.mag_batch == 128
+                assert tp.tuned_applied["runtime.mag_batch"] == 128
+                L = np.tril(A.to_dense())
+        assert tutils.params.get("runtime.mag_batch") == before
+        assert "PTC_MCA_runtime_mag_batch" not in os.environ
         np.testing.assert_allclose(L @ L.T, spd, rtol=1e-4, atol=1e-3)
     finally:
         tutils.params.unset("tune.cache_path")
@@ -956,21 +971,13 @@ def test_autotune_persist_and_run_tuned(tmp_path):
 
 
 def test_two_pools_different_knobs_no_leak():
-    """Knobs a tuned run applies are restored when it returns: pool b
-    sees its own vector at commit, an untuned pool the defaults."""
-    seen = {}
-
-    class ProbePool(tpt.Taskpool):
-        def commit(self):
-            seen[self._probe] = (
-                tutils.params.get("device.staging_slots"),
-                os.environ.get("PTC_MCA_device_staging_slots"))
-            return super().commit()
-
-    def chain(ctx, name):
+    """Each runtime holds the vector it was created under: a device
+    created under a vector keeps its staging slots after the block, a
+    pool's run(tuned=) holds exactly that vector, and nothing leaks
+    into the registry, the env or the next runtime."""
+    def chain(ctx):
         ctx.register_arena("t", 8)
-        tp = ProbePool(ctx, globals={"NB": 3})
-        tp._probe = name
+        tp = tpt.Taskpool(ctx, globals={"NB": 3})
         k = tpt.L("k")
         tc = tp.task_class("Task")
         tc.param("k", 0, tpt.G("NB"))
@@ -982,15 +989,26 @@ def test_two_pools_different_knobs_no_leak():
         return tp
 
     default = tutils.params.get("device.staging_slots")
-    with tpt.Context(nb_workers=1) as ctx:
-        for name, tuned in (("a", {"device.staging_slots": 4}),
-                            ("b", {"device.staging_slots": 1}),
-                            ("c", None)):
-            tp = chain(ctx, name)
-            tp.run(tuned=tuned)
+    seen = {}
+    for name, slots in (("a", 4), ("b", 1), ("c", None)):
+        vec = {"device.staging_slots": slots} if slots else None
+        with ttune.apply_knobs(vec):
+            ctx = tpt.Context(nb_workers=1)
+            dev = CudaDevice(ctx, device="cpu")
+        with ctx:
+            tp = chain(ctx)
+            tp.run(tuned=vec)
             tp.wait()
-            assert tutils.params.get("device.staging_slots") == default
-    assert seen == {"a": (4, "4"), "b": (1, "1"), "c": (default, None)}
+            seen[name] = (dev._pf_slots_max, tp.tuned_applied)
+            other = {"device.staging_slots": (slots or default) + 1}
+            with pytest.raises(ValueError, match="not in force"):
+                chain(ctx).run(tuned=other)
+            dev.stop()
+        assert tutils.params.get("device.staging_slots") == default
+        assert "PTC_MCA_device_staging_slots" not in os.environ
+    assert seen == {"a": (4, {"device.staging_slots": 4}),
+                    "b": (1, {"device.staging_slots": 1}),
+                    "c": (default, None)}
 
 
 # --------------------------------------------------------------- control

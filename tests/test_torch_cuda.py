@@ -923,24 +923,31 @@ def test_pins_and_h2d_stall_histogram_match_the_card_stats(card):
 
 def test_plan_and_tuned_run_of_gemm_on_the_card(card, tmp_path):
     """GEMM on the card: verified, planned (its working set the tile
-    set), and run under a tuned knob vector that the run restores."""
+    set), and run under a tuned knob vector that its runtime was created
+    under (the registry restored after)."""
     import torch
+    from parsec_tpu_torch.analysis.tune import apply_knobs
     from parsec_tpu_torch.utils import params
     rng = np.random.default_rng(8)
     a = rng.standard_normal((512, 512)).astype(np.float32)
     b = rng.standard_normal((512, 512)).astype(np.float32)
     before = params.get("device.staging_slots")
-    with pt.Context(nb_workers=2) as ctx:
+    vec = {"device.staging_slots": before + 2}
+    with apply_knobs(vec):
+        ctx = pt.Context(nb_workers=2)
+        dev = CudaDevice(ctx, device=card)
+    assert params.get("device.staging_slots") == before
+    with ctx:
         A, B = to_collection(a, 128, 128), to_collection(b, 128, 128)
         C = to_collection(np.zeros_like(a), 128, 128)
         for name, coll in (("A", A), ("B", B), ("C", C)):
             coll.register(ctx, name)
-        dev = CudaDevice(ctx, device=card)
         tp = build_gemm(ctx, A, B, C, dev)
         plan = tp.plan()
         assert plan.est_bytes() == 3 * 512 * 512 * 4
-        tp.run(verify=True, tuned={"device.staging_slots": before + 2})
-        assert params.get("device.staging_slots") == before
+        tp.run(verify=True, tuned=vec)
+        assert tp.tuned_applied == vec
+        assert dev._pf_slots_max == before + 2
         tp.wait()
         dev.flush()
         dev.stop()

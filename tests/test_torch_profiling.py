@@ -694,8 +694,17 @@ def test_live_monitor_samples_latest_rotation(tmp_path):
 
 
 def test_live_monitor_via_mca_param(tmp_path, monkeypatch):
+    """runtime.live installs one monitor that samples the pool; the
+    port's default sink is under TMPDIR.  The reference's hook takes no
+    path and its default sink is a fixed file under /tmp, so its half
+    runs with that default moved under tmp_path."""
     monkeypatch.setenv("PTC_MCA_runtime_live", "0.05")
-    monkeypatch.setenv("TMPDIR", str(tmp_path))
+    monkeypatch.setenv("TMPDIR", str(tmp_path / "port"))
+    os.mkdir(tmp_path / "port")
+    init = jlive.LiveMonitor.__init__
+    monkeypatch.setattr(init, "__defaults__",
+                        (str(tmp_path / "ref_{rank}.jsonl"),)
+                        + init.__defaults__[1:])
 
     def run(P):
         with P.pt.Context(nb_workers=1) as ctx:
@@ -706,7 +715,6 @@ def test_live_monitor_via_mca_param(tmp_path, monkeypatch):
             _run(tp)
             mons = list(ctx._monitors)
         recs = [json.loads(x) for x in open(mons[0].path)]
-        os.unlink(mons[0].path)
         return len(mons), sum(recs[-1]["workers"]), mons[0].path
     import tempfile
     tempfile.tempdir = None  # re-read TMPDIR
@@ -715,9 +723,8 @@ def test_live_monitor_via_mca_param(tmp_path, monkeypatch):
     finally:
         tempfile.tempdir = None
     assert port[:2] == ref[:2] == (1, 51)
-    # the port's default sink honors TMPDIR; the reference's is /tmp
-    assert port[2] == str(tmp_path / "ptc_live_0.jsonl")
-    assert ref[2] == "/tmp/ptc_live_0.jsonl"
+    assert port[2] == str(tmp_path / "port" / "ptc_live_0.jsonl")
+    assert ref[2] == str(tmp_path / "ref_0.jsonl")
 
 
 def test_live_sample_device_rows(tmp_path):
