@@ -58,14 +58,25 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      device-dirty factor regridded, cast to float16 and column-reduced
      on the host; two devices on the card routed by affinity and by
      weight
-Then print the dense-LA line, the pipeline line, the DSL line, the
-runtime line and the kernels line (JSON; the kernels' launches are
-phase 4's, phase 7's, phase 8's and phase 9's) and, last, the device
-line (JSON).
+ 10. drive the profiling layer and the static analyses (observe_path):
+     the card's h2d fit, PINS and the histograms against the device's
+     stats, verify and plan, the tuner, serving with conformance, the
+     watchdog and the journal
+ 11. drive wave and chain fusion, plan_check and the chain hints
+     (fuse_path): phase 4's GEMM fused and unfused (device.wave_fuse=0)
+     in turns, bit for bit, spans and chains counted; NORM, FATT and
+     POTRF-T fused against unfused bit for bit; plan_check's peak bound,
+     its spill verdict on the out-of-core GEMM and its error mode; the
+     lane's hinted stages
+Phases 1-10 run with fusion on, the default.  Then print the dense-LA
+line, the pipeline line, the DSL line, the runtime line, the observe
+line, the fuse line and the kernels line (JSON; the kernels' launches
+are those of phases 4 and 7-11) and, last, the device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
 
+import hashlib
 import importlib
 import json
 import os
@@ -1639,6 +1650,8 @@ def runtime_path(dev_t, rng, dims=None, ptg_norm_o=None,
             ctx.profile_enable(0)
             tr = take_trace(ctx, class_names=names, meta={"path": label})
             st = dict(dev.stats)
+            st["fuse"] = dev.info()["fuse"]
+            st["chore_calls"] = sum(v[0] for v in dev.launches.values())
             if st["tasks"] != ntasks:
                 raise AssertionError(f"{label}: {st['tasks']} device tasks, "
                                      f"expected {ntasks}")
@@ -1653,10 +1666,21 @@ def runtime_path(dev_t, rng, dims=None, ptg_norm_o=None,
                 f"{tr.counts()}; tasks={st['tasks']} h2d_bytes="
                 f"{st['h2d_bytes']} h2d_stall={st['h2d_stall_ns'] / 1e6:.2f}"
                 f" ms; kernel launches {got}")
+            fs = st["fuse"]
+            log(f"    fuse: chains {fs['fused_chains']}, chained levels "
+                f"{fs['chain_waves']}, chain hits {fs['chain_hits']}, "
+                f"misses {fs['chain_misses']}, refused {fs['refused']}")
+            # a task completed from a parked chain result (device/fuse.py)
+            # is in stats tasks but opens no span, and each chained level
+            # is one chore call inside its chain's span
             checks = {
                 "dispatch begins == ends": s["dispatch_begins"]
                 == s["dispatch_ends"] > 0,
-                "lanes == stats tasks": s["lanes"] == st["tasks"],
+                "lanes + chain hits == stats tasks":
+                    s["lanes"] + fs["chain_hits"] == st["tasks"],
+                "spans + chained levels == chore calls":
+                    s["dispatch_begins"] + fs["chain_waves"]
+                    == st["chore_calls"],
                 "DEVICE_H2D bytes == stats h2d_bytes":
                     s["h2d_bytes"] == st["h2d_bytes"],
                 "ends' aux == stats h2d_stall_ns":
@@ -2532,6 +2556,7 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
                 if warm:
                     continue
                 launches = sum(v[0] for v in dev.launches.values())
+                fs = dev.info()["fuse"]
                 dw, dl, ds, db = (act.waves - a0[0], act.lanes - a0[1],
                                   act.stall_ns - a0[2],
                                   sum(act.h2d_bytes) - a0[3])
@@ -2544,12 +2569,18 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
                     f"{st['h2d_bytes']} stall="
                     f"{st['h2d_stall_ns'] / 1e6:.2f} ms; kernel launches "
                     f"{got}")
-                check(f"{label} waves == device launches", dw == launches,
-                      f"{dw} vs {launches}")
+                # a chained level is one launch inside its chain's wave
+                # (one span), and a task completed from its parked result
+                # is a lane of no wave (device/fuse.py)
+                check(f"{label} waves + chained levels == device launches",
+                      dw + fs["chain_waves"] == launches,
+                      f"{dw} + {fs['chain_waves']} vs {launches}")
                 if kname is not None and dev_t.type == "cuda":
                     check(f"{label} waves == {kname} launches",
                           dw == got[kname], f"{dw} vs {got[kname]}")
-                check(f"{label} lanes == device tasks", dl == st["tasks"])
+                check(f"{label} lanes + chain hits == device tasks",
+                      dl + fs["chain_hits"] == st["tasks"],
+                      f"{dl} + {fs['chain_hits']} vs {st['tasks']}")
                 check(f"{label} stall == stats h2d_stall_ns",
                       ds == st["h2d_stall_ns"])
                 check(f"{label} lane-split h2d bytes == stats h2d_bytes",
@@ -2917,6 +2948,579 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
     return out
 
 
+# phase 11 sizes: 11a/11d phase 4's GEMM (N, NB) in `turns` runs of each
+# mode and 11d's chain depth; 11b phase 4's NORM (rows, d, T) and FATT
+# (heads, L, D) and phase 6's POTRF-T (N, NB); 11c phase 7's out-of-core
+# GEMM (N, NB) at half its tile set
+FUSE = {"gemm": (4096, 512), "norm": (8 * 4096, 4096, 1024),
+        "fatt": (32, 4096, 128), "potrf_t": (16384, 1024),
+        "gemm_ooc": (8192, 1024), "turns": 3, "hint_depth": 4}
+
+
+def fuse_path(dev_t, rng, dims=None) -> dict:
+    """Phase 11: wave and chain fusion (device/fuse.py), the device's
+    pre-run plan_check and the lane's chain hints.  Every run is on a
+    fresh CudaDevice created under its knobs, with batch_wait_ms = 2.0
+    (a wave pops whole, as in the reference's tests).
+      11a phase 4's GEMM fused (device.wave_fuse on, the default) and
+          unfused (wave_fuse=0), `turns` runs of each in turns, then as
+          many again without the coalescing wait (batch_wait_ms = 0,
+          the device's default; the drain held): per run the
+          DEVICE_DISPATCH spans (a level-1 trace), their lanes and host
+          time, the k_gemm_nn calls and their widths, the fuse counters,
+          the drain invariant, the dispatch h2d stall and the wall.  C
+          is held to torch.matmul at 1e-4 / 1e-3 in every run; the runs
+          of 11a and 11d are grouped by the bits of their C, each with
+          the widths of its calls and the largest difference between
+          groups (the evidence of whether the batch count is why bits
+          differ), and one product at the tile shape is probed at 64,
+          8, 4, 2 and 1 lanes.  Required:
+          chain_hits > 0, chain_misses == 0, span lanes + chain_hits =
+          tasks, at most 7 chained levels a chain (the 2 GiB byte cap
+          over 256 MiB waves), and the median fused spans at least 3x
+          fewer than the unfused
+      11b NORM and FATT at phase 4's sizes and POTRF-T at phase 6's,
+          unfused, fused, fused, unfused: bit-identical, fused_waves > 0;
+          every refusal reason and the pool's chain certificates' host
+          time printed
+      11c plan_check: phase 4's GEMM under PTC_DEVICE_BATCH=1 (measured
+          cache_peak_bytes <= predicted peak <= 1.25x measured); phase
+          7's out-of-core GEMM at half its tile set, the knob armed in
+          warn mode (predicted spills > 0 and measured spills > 0, its
+          chains refused for residency pressure, C held); error mode
+          with out-of-core off raises PlanCheckError before any task is
+          scheduled; ctx.stats()["plan"] against each
+      11d the chain hints: the lane's hint stages, their dispatch hits
+          and the wasted stages in 11a's fused runs, and one fused run
+          with the chain cut to `hint_depth` waves (each chain hints the
+          next segment's A and B tiles), its C bit-identical to 11a's
+          fused C
+    Returns {"runs": ..., "launches": hand-written kernel launches}."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.algos import build_gemm, build_potrf
+    from parsec_tpu_torch.analysis import PlanCheckError
+    from parsec_tpu_torch.analysis.plan import chain_certificates
+    from parsec_tpu_torch.convert import to_collection, to_tensor
+    from parsec_tpu_torch.data import TwoDimBlockCyclic
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.device.bench_utils import (generate_spd_on_device,
+                                                     potrf_residual)
+    from parsec_tpu_torch.profiling import KEY_DEVICE
+    from parsec_tpu_torch.utils import params
+    fa_mod = importlib.import_module("parsec_tpu_torch.ops.flash_attention")
+    rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
+    dims = dims or FUSE
+    out = {"runs": {}, "launches": {name: 0 for name in kernels.LAUNCHES}}
+    fails = []
+
+    def check(what, ok, detail=""):
+        log(f"    check {what}: {bool(ok)} {detail}".rstrip())
+        if not ok:
+            fails.append(what)
+
+    def new_dev(ctx, knobs, cache_bytes=None, env=None):
+        """A CudaDevice created under `knobs` (and PTC_* `env`), both
+        restored after."""
+        saved = {k: os.environ.get(k) for k in (env or {})}
+        os.environ.update(env or {})
+        try:
+            for k, v in knobs.items():
+                params.set(k, v)
+            dev = CudaDevice(ctx, device=dev_t, cache_bytes=cache_bytes)
+        finally:
+            for k in knobs:
+                params.unset(k)
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        dev.batch_wait_ms = 2.0
+        return dev
+
+    def cert_ms(tp):
+        """Host ms of the chain certificates the wave compiler computes
+        for a pool (once, on the manager thread, before its first
+        chain); timed here outside the pool's wall."""
+        t = time.perf_counter()
+        chain_certificates(tp)
+        return (time.perf_counter() - t) * 1e3
+
+    def drained(fs, pinned):
+        return (fs["chain_parked"] == fs["chain_hits"] + fs["chain_misses"]
+                + fs["chain_drops"] + fs["parked"]
+                and fs["parked"] == 0 and pinned == 0)
+
+    # ------------------------------------------------ 11a, 11d: GEMM
+    n, nb = dims["gemm"]
+    nt = n // nb
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    b = rng.standard_normal((n, n), dtype=np.float32)
+    want = torch.matmul(to_tensor(a, dev_t), to_tensor(b, dev_t))
+    with pt.Context(nb_workers=4) as ctx:
+        A, B = to_collection(a, nb, nb), to_collection(b, nb, nb)
+        C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+
+        def gemm_run(fused, depth=None, wait_ms=2.0):
+            for t in C._tiles.values():  # C += A @ B: from zero each run
+                t[...] = 0
+            knobs = {"device.wave_fuse": fused}
+            if depth is not None:
+                knobs["device.wave_fuse_depth"] = depth
+            dev = new_dev(ctx, knobs)
+            dev.batch_wait_ms = wait_ms
+            tp = build_gemm(ctx, A, B, C, dev)
+            body = dev.bodies[(id(tp), tp.classes[0].id)]
+            widths, kern = [], body.kernel
+
+            def k_gemm_nn(a_, b_, c_):  # the chore, its widths recorded
+                widths.append(int(a_.shape[0]))
+                return kern(a_, b_, c_)
+            body.kernel = k_gemm_nn
+            certs = cert_ms(tp) if fused else None
+            ctx.profile_take()
+            ctx.profile_enable(1)
+            sync(dev_t)
+            t = time.perf_counter()
+            tp.run()
+            tp.wait()
+            dev.flush()
+            sync(dev_t)
+            wall = (time.perf_counter() - t) * 1e3
+            ctx.profile_enable(0)
+            ev = ctx.profile_take()
+            fs = dev.info()["fuse"]
+            pinned = dev._chain_pinned
+            dev.stop()
+            st = dict(dev.stats)
+            d, beg = ev[:, 0] == KEY_DEVICE, ev[:, 1] == 0
+            t0s, t1s = ev[d & beg, 7], ev[d & ~beg, 7]
+            row = {"fused": fused, "wait_ms": wait_ms, "wall_ms": wall,
+                   "stall_ms": st["h2d_stall_ns"] / 1e6,
+                   "certificates_ms": certs,
+                   "spans": int((d & beg).sum()),
+                   "span_ms": float((t1s.sum() - t0s.sum()) / 1e6)
+                   if len(t0s) == len(t1s) else None,
+                   "span_lanes": int(ev[d & beg, 3].sum()),
+                   "calls": dev.launches["k_gemm_nn"][0],
+                   "widths": widths, "tasks": st["tasks"],
+                   "fuse": fs, "drained": drained(fs, pinned),
+                   "hint_stages": st["prefetch_hint_stages"],
+                   "hint_hits": st["prefetch_hint_hits"],
+                   "hint_wasted": st["prefetch_hint_wasted"],
+                   "prefetch_hits": st["prefetch_hits"]}
+            got = C.to_dense()
+            row["max_abs_err"] = check_close(
+                f"11a GEMM {'fused' if fused else 'unfused'} C vs "
+                "torch.matmul", to_tensor(got, dev_t), want, 1e-4, 1e-3)
+            return row, got
+
+        rows = {True: [], False: []}
+        # every GEMM run of 11a and 11d by the bits of its C: (label, the
+        # widths of its k_gemm_nn calls, C)
+        runs_c = []
+        for turn in range(dims["turns"]):
+            for fused in (True, False):
+                row, got = gemm_run(fused)
+                runs_c.append((f"{'fused' if fused else 'unfused'} turn "
+                               f"{turn}", row["widths"], got))
+                rows[fused].append(row)
+                fs = row["fuse"]
+                log(f"  11a GEMM {'fused' if fused else 'unfused'} turn "
+                    f"{turn}: {row['wall_ms']:.1f} ms; {row['spans']} "
+                    f"DEVICE_DISPATCH spans of {row['span_lanes']} lanes, "
+                    f"{row['span_ms']:.1f} ms of host in them; "
+                    f"k_gemm_nn calls {row['calls']} widths "
+                    f"{row['widths']}; chains {fs['fused_chains']} levels "
+                    f"{fs['chain_waves']} parked {fs['chain_parked']} hits "
+                    f"{fs['chain_hits']} misses {fs['chain_misses']} drops "
+                    f"{fs['chain_drops']} fused_waves {fs['fused_waves']} "
+                    f"marshal plans (hit/miss) {fs['cache_hits']}/"
+                    f"{fs['cache_misses']} refused {fs['refused']}; drain "
+                    f"invariant {row['drained']}; dispatch h2d stall "
+                    f"{row['stall_ms']:.1f} ms")
+                check(f"11a GEMM turn {turn} span lanes + chain_hits == "
+                      "tasks", row["span_lanes"] + fs["chain_hits"]
+                      == row["tasks"] == nt ** 3)
+                check(f"11a GEMM turn {turn} spans + chained levels == "
+                      "k_gemm_nn calls", row["spans"] + fs["chain_waves"]
+                      == row["calls"] == len(row["widths"]))
+                if fused:
+                    check(f"11a GEMM turn {turn} chain_hits > 0, "
+                          "chain_misses == 0", fs["chain_hits"] > 0
+                          and fs["chain_misses"] == 0)
+                    check(f"11a GEMM turn {turn} drain invariant",
+                          row["drained"])
+                    check(f"11a GEMM turn {turn} at most 7 chained levels "
+                          "a chain", fs["fused_chains"] > 0
+                          and fs["chain_waves"] <= 7 * fs["fused_chains"])
+                else:
+                    check(f"11a GEMM turn {turn} unfused: no compiler",
+                          fs["enabled"] is False and fs["chain_hits"] == 0)
+        med = {m: sorted(r["spans"] for r in rows[m])[len(rows[m]) // 2]
+               for m in rows}
+        walls = {m: sorted(r["wall_ms"] for r in rows[m])[len(rows[m]) // 2]
+                 for m in rows}
+        log(f"  11a median spans fused {med[True]}, unfused {med[False]}; "
+            f"median wall fused {walls[True]:.1f} ms, unfused "
+            f"{walls[False]:.1f} ms")
+        check("11a median spans fused * 3 <= unfused",
+              med[True] * 3 <= med[False], f"{med[True]} vs {med[False]}")
+        out["runs"]["11a GEMM"] = {
+            "fused": rows[True], "unfused": rows[False],
+            "median_spans": {"fused": med[True], "unfused": med[False]},
+            "median_wall_ms": {"fused": walls[True],
+                               "unfused": walls[False]}}
+        # the same turns without the coalescing wait (the device's
+        # default, batch_wait_ms = 0, as phases 4 and 9-10 run): a pop of
+        # a few parked consumers then dispatches at once
+        nowait = {True: [], False: []}
+        for turn in range(dims["turns"]):
+            for fused in (True, False):
+                row, got = gemm_run(fused, wait_ms=0.0)
+                runs_c.append((f"{'fused' if fused else 'unfused'} no wait "
+                               f"turn {turn}", row["widths"], got))
+                nowait[fused].append(row)
+                fs = row["fuse"]
+                log(f"  11a GEMM {'fused' if fused else 'unfused'}, no "
+                    f"coalescing wait, turn {turn}: {row['wall_ms']:.1f} "
+                    f"ms; {row['spans']} spans, {row['span_ms']:.1f} ms "
+                    f"of host in them; widths {row['widths']}; chains "
+                    f"{fs['fused_chains']} hits {fs['chain_hits']} misses "
+                    f"{fs['chain_misses']}")
+                check(f"11a GEMM no wait turn {turn} drain invariant, no "
+                      "chain miss", row["drained"]
+                      and fs["chain_misses"] == 0)
+        nw = {m: sorted(r["wall_ms"] for r in nowait[m])[len(nowait[m]) // 2]
+              for m in nowait}
+        certs = sorted(r["certificates_ms"] for r in rows[True])
+        log(f"  11a no coalescing wait: median wall fused {nw[True]:.1f} "
+            f"ms, unfused {nw[False]:.1f} ms; the GEMM pool's chain "
+            f"certificates {certs[len(certs) // 2]:.1f} ms of host "
+            "(median; computed once a pool, before its first chain)")
+        out["runs"]["11a GEMM no wait"] = {
+            "fused": nowait[True], "unfused": nowait[False],
+            "median_wall_ms": {"fused": nw[True], "unfused": nw[False]}}
+
+        # 11d: the hints of 11a's fused runs, then a chain cut short
+        hs = {k: sum(r[k] for r in rows[True])
+              for k in ("hint_stages", "hint_hits", "hint_wasted")}
+        log(f"  11d 11a's fused runs: the lane staged {hs['hint_stages']} "
+            f"hinted tiles, {hs['hint_hits']} dispatch hits on them, "
+            f"{hs['hint_wasted']} wasted stages (a chain of 8 waves covers "
+            "the whole k range: no next segment to hint)")
+        row, got = gemm_run(True, depth=dims["hint_depth"])
+        runs_c.append((f"fused depth {dims['hint_depth']}", row["widths"],
+                       got))
+        fs = row["fuse"]
+        log(f"  11d GEMM fused, depth {dims['hint_depth']}: "
+            f"{row['wall_ms']:.1f} ms; {row['spans']} spans; chains "
+            f"{fs['fused_chains']} levels {fs['chain_waves']} hits "
+            f"{fs['chain_hits']} misses {fs['chain_misses']}; the lane "
+            f"staged {row['hint_stages']} hinted tiles, "
+            f"{row['hint_hits']} dispatch hits on them, "
+            f"{row['hint_wasted']} wasted; prefetch hits "
+            f"{row['prefetch_hits']}")
+        check("11d drain invariant, no chain miss",
+              row["drained"] and fs["chain_misses"] == 0)
+        out["runs"]["11d GEMM depth"] = row
+        hs["depth_run"] = {k: row[k] for k in hs}
+        out["runs"]["11d hints"] = hs
+
+        # bit identity of C across the GEMM runs above: each run is held
+        # to torch.matmul at 1e-4 / 1e-3; runs whose C bits differ are
+        # grouped with the widths of their k_gemm_nn calls, the evidence
+        # of whether the batch count is why, and one product is probed
+        # at the tile shape across batch counts
+        groups: dict = {}
+        for label, widths, got in runs_c:
+            key = hashlib.sha1(got.tobytes()).hexdigest()[:12]
+            groups.setdefault(key, []).append((label, widths, got))
+        keys = list(groups)
+        for key in keys:
+            members = groups[key]
+            diff = float(np.abs(members[0][2] - groups[keys[0]][0][2]).max())
+            log(f"  11a/11d GEMM C bits {key}: {len(members)} run(s), max "
+                f"diff to the first group {diff:.3e}; with a 1-lane call "
+                f"{sum(1 in w for _, w, _ in members)}; "
+                + "; ".join(f"{lb} widths {sorted(set(w))}"
+                            for lb, w, _ in members))
+        from parsec_tpu_torch.algos.gemm import k_gemm_nn
+        probe = {}
+        for side in sorted({nb, dims["potrf_t"][1]}):
+            ops = [to_tensor(rng.standard_normal((side, side),
+                                                 dtype=np.float32), dev_t)
+                   for _ in range(3)]
+            lane0 = {}
+            for w in (64, 8, 4, 2, 1):
+                st_ = [o.unsqueeze(0).expand(w, side, side).contiguous()
+                       for o in ops]
+                lane0[w] = k_gemm_nn(*st_)[0].clone()
+            probe[side] = {w: bool(torch.equal(lane0[w], lane0[64]))
+                           for w in lane0}
+            log(f"  11a probe: k_gemm_nn at {side}^2, lane 0 bit-identical "
+                f"to the 64-lane call at widths {probe[side]}")
+        out["runs"]["11a GEMM bits"] = {
+            "groups": {k: [(lb, sorted(set(w))) for lb, w, _ in m]
+                       for k, m in groups.items()},
+            "probe": {str(k): {str(w): v for w, v in p.items()}
+                      for k, p in probe.items()}}
+    del a, b, want, runs_c, groups
+    if dev_t.type == "cuda":
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------ 11b: the matrix
+    def pair(label, go, kname=None):
+        """go(fused) -> (outputs, fuse counters, certificate ms, ms to
+        leave out of the wall: the certificates' and a check's) on a
+        fresh device a run, unfused, fused, fused, unfused; every run
+        bit-identical to the first, fused_waves > 0 when fused.  The
+        wall runs from the pool's build to its flush."""
+        runs = []
+        for fused in (False, True, True, False):
+            kernels.reset_launches()
+            sync(dev_t)
+            t = time.perf_counter()
+            res, fs, certs, excluded = go(fused)
+            sync(dev_t)
+            wall = (time.perf_counter() - t) * 1e3 - excluded
+            for k, v in kernels.LAUNCHES.items():
+                out["launches"][k] += v
+            runs.append((fused, res, fs, wall, certs))
+            log(f"  11b {label} {'fused' if fused else 'unfused'}: "
+                f"{wall:.1f} ms; fused_waves {fs['fused_waves']} "
+                f"fused_tasks {fs['fused_tasks']} chains "
+                f"{fs['fused_chains']}; refused {fs['refused']}"
+                + (f"; chain certificates {certs:.1f} ms of host"
+                   if certs is not None else "")
+                + (f"; {kname} launches {kernels.LAUNCHES[kname]}"
+                   if kname else ""))
+        same = all(np.array_equal(x, y) for r in runs[1:]
+                   for x, y in zip(r[1], runs[0][1]))
+        check(f"11b {label} fused bit-identical to unfused", same)
+        check(f"11b {label} fused_waves > 0",
+              all(r[2]["fused_waves"] > 0 for r in runs if r[0]))
+        out["runs"][f"11b {label}"] = {
+            "bit_identical": same,
+            "fuse": [r[2] for r in runs if r[0]],
+            "wall_ms": {"fused": [r[3] for r in runs if r[0]],
+                        "unfused": [r[3] for r in runs if not r[0]]},
+            "certificates_ms": [r[4] for r in runs if r[0]]}
+
+    rows_, d, T = dims["norm"]
+    xn = rng.standard_normal((rows_, d), dtype=np.float32)
+    wn = rng.standard_normal((1, d), dtype=np.float32)
+    with pt.Context(nb_workers=4) as ctx:
+        Xc, Wc = to_collection(xn, T, d), to_collection(wn, 1, d)
+        Oc = to_collection(np.zeros_like(xn), T, d)
+
+        def norm(fused):
+            dev = new_dev(ctx, {"device.wave_fuse": fused})
+            tp = rn_mod.build_rms_norm(ctx, Xc, Wc, Oc, EPS, dev=dev)
+            certs = cert_ms(tp) if fused else None
+            tp.run()
+            tp.wait()
+            dev.flush()
+            fs = dev.info()["fuse"]
+            dev.stop()
+            return [Oc.to_dense()], fs, certs, certs or 0.0
+        pair("NORM", norm, "rms_norm")
+    del xn, Xc, Oc
+
+    H, L, D = dims["fatt"]
+    qn = rng.standard_normal((H * L, D), dtype=np.float32)
+    kn = rng.standard_normal((L, D), dtype=np.float32)
+    vn = rng.standard_normal((L, D), dtype=np.float32)
+    with pt.Context(nb_workers=4) as ctx:
+        Qc, Kc, Vc = (to_collection(qn, L, D), to_collection(kn, L, D),
+                      to_collection(vn, L, D))
+        OF = to_collection(np.zeros_like(qn), L, D)
+
+        def fatt(fused):
+            dev = new_dev(ctx, {"device.wave_fuse": fused})
+            tp = fa_mod.build_flash_attention(ctx, Qc, Kc, Vc, OF, dev=dev)
+            certs = cert_ms(tp) if fused else None
+            tp.run()
+            tp.wait()
+            dev.flush()
+            fs = dev.info()["fuse"]
+            dev.stop()
+            return [OF.to_dense()], fs, certs, certs or 0.0
+        pair("FATT", fatt, "flash_attention")
+    del qn, kn, vn
+
+    N, nbp = dims["potrf_t"]
+
+    def potrf(fused):
+        with pt.Context(nb_workers=4) as ctx:
+            Ap = TwoDimBlockCyclic(N, N, nbp, nbp)
+            Ap.register(ctx, "A")
+            held = 2 * N * N * 4
+            budget = 4 << 30
+            if dev_t.type == "cuda":
+                free, _ = torch.cuda.mem_get_info(dev_t)
+                budget = max(2 << 30, free - held - (8 << 30))
+            dev = new_dev(ctx, {"device.wave_fuse": fused},
+                          cache_bytes=budget)
+            a_st = generate_spd_on_device(dev, Ap, seed=SEED)
+            tp = build_potrf(ctx, Ap, dev=dev)
+            certs = cert_ms(tp) if fused else None
+            tp.run()
+            tp.wait()
+            excluded = certs or 0.0
+            if fused:
+                t = time.perf_counter()
+                check_rel = potrf_residual(dev, Ap, a_st)
+                excluded += (time.perf_counter() - t) * 1e3
+                log(f"    POTRF-T fused ||LL^T - A||_F / ||A||_F "
+                    f"{check_rel:.3e} (limit 1e-4)")
+                check("11b POTRF-T fused residual <= 1e-4",
+                      check_rel <= 1e-4)
+            dev.flush()
+            fs = dev.info()["fuse"]
+            dev.stop()
+            nt_ = N // nbp
+            low = [Ap.tile(m, k).copy() for m in range(nt_)
+                   for k in range(m + 1)]
+            del a_st
+        if dev_t.type == "cuda":
+            torch.cuda.empty_cache()
+        return low, fs, certs, excluded
+    pair(f"POTRF-T N={N} NB={nbp}", potrf)
+
+    # ------------------------------------------------ 11c: plan_check
+    with pt.Context(nb_workers=4) as ctx:
+        A, B = to_collection(rng.standard_normal((n, n), dtype=np.float32),
+                             nb, nb), \
+            to_collection(rng.standard_normal((n, n), dtype=np.float32),
+                          nb, nb)
+        C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+        dev = new_dev(ctx, {}, env={"PTC_DEVICE_BATCH": "1"})
+        tp = build_gemm(ctx, A, B, C, dev)
+        plan = tp.plan()
+        predicted = plan.peak_bytes(rank=0, device_only=True)
+        dev.plan_check(tp, mode="warn", plan=plan)
+        t = time.perf_counter()
+        tp.run()
+        tp.wait()
+        dev.flush()
+        wall = (time.perf_counter() - t) * 1e3
+        dev.stop()
+        measured = dev.stats["cache_peak_bytes"]
+        ps = ctx.stats()["plan"]
+        log(f"  11c GEMM {n}^2 in {nb}^2 tiles, PTC_DEVICE_BATCH=1: "
+            f"{wall:.1f} ms, {dev.stats['batches']} batched launches; "
+            f"cache_peak_bytes {measured}, predicted peak {predicted} "
+            f"({predicted / max(1, measured):.4f}x); stats()['plan'] {ps}")
+        check("11c measured peak <= predicted <= 1.25x measured",
+              0 < measured <= predicted <= 1.25 * measured)
+        check("11c stats()['plan'] one check, fits",
+              ps["checks"] == 1 and ps["over_budget"] == 0
+              and ps["last_peak_bytes"] == predicted)
+
+    # out-of-core: phase 7's GEMM (square) and the reference test's
+    # geometry (K = N / 4, tests/device/test_plan_check.py), each at half
+    # its tile set.  The plan's spill model evicts furthest-next-use
+    # first: for the square GEMM the dirty C tiles alone fit in half the
+    # tile set, so it predicts no spill where the device (LRU over lane
+    # stacks) spills; the verdict is held where the model predicts spills
+    n2, nb2 = dims["gemm_ooc"]
+    for label, k2 in (("phase 7's", n2), ("the reference test's", n2 // 4)):
+        a2 = rng.standard_normal((n2, k2), dtype=np.float32)
+        b2 = rng.standard_normal((k2, n2), dtype=np.float32)
+        tile_set = (2 * n2 * k2 + n2 * n2) * 4
+        with pt.Context(nb_workers=4) as ctx:
+            A, B = to_collection(a2, nb2, nb2), to_collection(b2, nb2, nb2)
+            C = to_collection(np.zeros((n2, n2), np.float32), nb2, nb2)
+            for name, coll in (("A", A), ("B", B), ("C", C)):
+                coll.register(ctx, name)
+            dev = new_dev(ctx, {}, cache_bytes=tile_set // 2)
+            tp = build_gemm(ctx, A, B, C, dev)
+            params.set("device.plan_check", "warn")
+            try:
+                t = time.perf_counter()
+                tp.run()
+            finally:
+                params.unset("device.plan_check")
+            tp.wait()
+            dev.flush()
+            sync(dev_t)
+            wall = (time.perf_counter() - t) * 1e3
+            fs = dev.info()["fuse"]
+            dev.stop()
+            ps = ctx.stats()["plan"]
+            spills = dev.stats["spills"]
+            pred = ps["predicted_spills"]
+            log(f"  11c {label} GEMM {n2}x{k2} @ {k2}x{n2} in {nb2}^2 tiles "
+                f"at half its tile set ({tile_set // 2} B), plan_check "
+                f"warn: {wall:.1f} ms; predicted spills {pred}, measured "
+                f"spills {spills} ({dev.stats['spill_bytes']} B); verdicts "
+                f"{'agree' if (pred > 0) == (spills > 0) else 'DISAGREE'}; "
+                f"chains {fs['fused_chains']}, refused {fs['refused']}; "
+                f"stats()['plan'] {ps}")
+            check(f"11c {label}: stats()['plan'] one check, over budget",
+                  ps["checks"] == 1 and ps["over_budget"] == 1
+                  and ps["last_budget_bytes"] == tile_set // 2)
+            check(f"11c {label}: the device spilled", spills > 0)
+            if k2 != n2:
+                check(f"11c {label}: predicted spills > 0, the verdicts "
+                      "agree", pred > 0 and spills > 0)
+            check(f"11c {label}: chains refused for residency pressure",
+                  fs["refused"].get("chain:residency-pressure", 0) > 0,
+                  f"(chains run: {fs['fused_chains']})")
+            check_close(f"11c {label} out-of-core GEMM C vs torch.matmul",
+                        to_tensor(C.to_dense(), dev_t),
+                        torch.matmul(to_tensor(a2, dev_t),
+                                     to_tensor(b2, dev_t)), 1e-4, 1e-3)
+            out["runs"][f"11c OOC {label}"] = {
+                "wall_ms": wall, "predicted_spills": pred, "spills": spills,
+                "plan": ps, "chains": fs["fused_chains"],
+                "refused": fs["refused"]}
+        del a2, b2
+    out["runs"]["11c resident"] = {"measured_peak": measured,
+                                   "predicted_peak": predicted}
+
+    with pt.Context(nb_workers=4) as ctx:
+        A, B = to_collection(np.ones((n, n), np.float32), nb, nb), \
+            to_collection(np.ones((n, n), np.float32), nb, nb)
+        C = to_collection(np.zeros((n, n), np.float32), nb, nb)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+        dev = new_dev(ctx, {"device.out_of_core": False},
+                      cache_bytes=3 * n * n * 4 // 2)
+        tp = build_gemm(ctx, A, B, C, dev)
+        params.set("device.plan_check", "error")
+        raised = None
+        try:
+            tp.run()
+        except PlanCheckError as e:
+            raised = str(e)
+        finally:
+            params.unset("device.plan_check")
+        ps = ctx.stats()["plan"]
+        log(f"  11c error mode, out-of-core off: PlanCheckError "
+            f"{raised!r}; committed {tp._committed}; device tasks "
+            f"{dev.stats['tasks']}; stats()['plan'] {ps}")
+        check("11c PlanCheckError before any task is scheduled",
+              raised is not None and not tp._committed
+              and dev.stats["tasks"] == 0)
+        check("11c stats()['plan'] one check, over budget, no spill "
+              "predicted", ps["checks"] == 1 and ps["over_budget"] == 1
+              and ps["predicted_spills"] == 0 and ps["enabled"] is False)
+        dev.stop()
+    if fails:
+        raise AssertionError(f"phase 11: {len(fails)} check(s) failed: "
+                             f"{fails}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3170,12 +3774,21 @@ def main() -> int:
         launches[name] += n
     log(f"  OBSERVE phase {time.perf_counter() - t:.1f} s; hand-written "
         f"kernel launches in it: {obs['launches']}")
+    log("phase 11: wave and chain fusion, plan_check and the chain hints")
+    t = time.perf_counter()
+    rng11 = np.random.default_rng(SEED + 11)
+    fz = fuse_path(dev_t, rng11)
+    for name, n in fz["launches"].items():
+        launches[name] += n
+    log(f"  FUSE phase {time.perf_counter() - t:.1f} s; hand-written "
+        f"kernel launches in it: {fz['launches']}")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
     print(json.dumps({"dsl": dsl["runs"]}))
     print(json.dumps({"runtime": rt["runs"]}))
     print(json.dumps({"observe": obs["runs"]}))
+    print(json.dumps({"fuse": fz["runs"]}))
 
     rows_out = []
     for name, r, err, repl in (

@@ -291,8 +291,14 @@ class Controller:
     def _apply_locked(self):
         """The pool-boundary hot swap: restore any previous hold, then
         apply the pending vector through tune.hold_knobs (MCA registry
-        + PTC_MCA_* env, snapshot kept for teardown)."""
-        from .tune import hold_knobs
+        + PTC_MCA_* env, snapshot kept for teardown).  Every knob this
+        package acts on binds when a Context or CudaDevice is created,
+        so the swap reaches the runtimes created after it, not the live
+        one: the control_apply record carries, beside the reference's
+        fields, what the live runtime holds after the swap
+        (`in_force`, tune.knobs_in_force) and the changed knobs it does
+        not hold (`not_held`)."""
+        from .tune import bound_value, hold_knobs, knobs_in_force
         pending, self._pending = self._pending, None
         if self._restore is not None:
             self._restore()
@@ -305,10 +311,16 @@ class Controller:
             return
         self._swaps += 1
         self._applied = pending
+        force = knobs_in_force(self.ctx)
+        not_held = sorted(
+            k for k, v in pending["changed"].items()
+            if k in force and any(h != bound_value(k, v)
+                                  for h in force[k]))
         self._record_locked("control_apply", ok=True,
                             knobs=dict(pending["changed"]),
                             before_ns=pending["before_ns"],
-                            after_ns=pending["after_ns"])
+                            after_ns=pending["after_ns"],
+                            in_force=force, not_held=not_held)
 
     # --------------------------------------------------------- budgets
     def poll(self):

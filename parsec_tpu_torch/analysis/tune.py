@@ -43,18 +43,17 @@ context reads env at init), snapshotting and restoring both.
 
 Port of parsec_tpu/analysis/tune.py.  The knob registry is the
 reference's, so that the simulator prices the same vector to the same
-nanosecond; but this package acts on three of its axes only:
-`ACTED_KNOBS` — device.staging_slots and device.cache_bytes (read by a
-CudaDevice at construction) and runtime.mag_batch (read by the native
-core at context creation).  device.wave_fuse waits for device/fuse.py
-and the comm.* and coll.* knobs for the comm engine: they are no MCA
+nanosecond; but this package acts on four of its axes only:
+`ACTED_KNOBS` — device.staging_slots, device.cache_bytes and
+device.wave_fuse (read by a CudaDevice at construction) and
+runtime.mag_batch (read by the native core at context creation).  The
+comm.* and coll.* knobs wait for the comm engine: they are no MCA
 parameters here but constants at the reference's defaults
-(`FIXED_KNOBS`; device.wave_fuse at the card's dispatch, off),
-`apply_knobs` refuses to change them, and `ScheduleSimulator.knob_axes`
-(so `propose` and `autotune`) searches only the acted axes.  All three
-acted knobs are read when the runtime is created, so a vector takes
-effect only for a Context and CudaDevice created under
-`apply_knobs(vector)` (the tuner's validation runs do so);
+(`FIXED_KNOBS`), `apply_knobs` refuses to change them, and
+`ScheduleSimulator.knob_axes` (so `propose` and `autotune`) searches
+only the acted axes.  All four acted knobs are read when the runtime is
+created, so a vector takes effect only for a Context and CudaDevice
+created under `apply_knobs(vector)` (the tuner's validation runs do so);
 `Taskpool.run(tuned=)` checks that its vector is the one in force
 (`knobs_in_force`) and raises where it is not, instead of reporting a
 vector that changed nothing as applied.  The closed-form
@@ -118,15 +117,14 @@ TUNE_KNOBS: Tuple[str, ...] = (
 ACTED_KNOBS: Tuple[str, ...] = (
     "device.staging_slots",
     "device.cache_bytes",
+    "device.wave_fuse",
     "runtime.mag_batch",
 )
-# The knobs of TUNE_KNOBS that are no MCA parameters here, at the
-# values the simulator prices: the comm engine's at the reference's
-# defaults, and device.wave_fuse at the card's batched dispatch (the
-# reference's default is on, and the simulator prices both).
-FIXED_KNOBS: Dict[str, object] = dict(
-    {k: v for k, v in COMM_KNOBS.items() if k in TUNE_KNOBS},
-    **{"device.wave_fuse": False})
+# The knobs of TUNE_KNOBS that are no MCA parameters here (the comm
+# engine's), at the reference's defaults, the values the simulator
+# prices.
+FIXED_KNOBS: Dict[str, object] = {
+    k: v for k, v in COMM_KNOBS.items() if k in TUNE_KNOBS}
 
 # Modeled dispatch-path constants (nanoseconds), the reference's,
 # calibrated against its committed BENCH_dispatch level-0 numbers (its
@@ -366,11 +364,14 @@ def apply_knobs(knobs: Optional[Dict[str, object]]):
                 os.environ[env] = old
 
 
-def bound_value(name: str, value) -> int:
+def bound_value(name: str, value):
     """An acted knob's value as the runtime binds it: the native core
     keeps a magazine batch in [1, 8192] (else its default, 64), a
-    CudaDevice at least one staging slot, and a cache budget of 0 is
-    the device's default of 4 GiB."""
+    CudaDevice at least one staging slot, a cache budget of 0 is the
+    device's default of 4 GiB, and wave fusion is on or off."""
+    if name == "device.wave_fuse":
+        from ..utils.config import _coerce
+        return _coerce(str(value), bool)
     v = int(value or 0)
     if name == "runtime.mag_batch":
         return v if 1 <= v <= 8192 else 64
@@ -379,11 +380,12 @@ def bound_value(name: str, value) -> int:
     return v or 4 << 30
 
 
-def knobs_in_force(ctx) -> Dict[str, List[int]]:
+def knobs_in_force(ctx) -> Dict[str, list]:
     """The acted knobs' values bound on `ctx`'s runtime: the magazine
     batch its native core read at creation, and each attached
-    CudaDevice's staging slots and cache budget (with no device
-    attached, the value a device created now would read)."""
+    CudaDevice's staging slots, cache budget and wave compiler (on when
+    it has one; with no device attached, the value a device created now
+    would read)."""
     from ..utils import params as _mca
     devs = list(ctx._devices)
 
@@ -395,6 +397,8 @@ def knobs_in_force(ctx) -> Dict[str, List[int]]:
         or fresh("device.staging_slots"),
         "device.cache_bytes": [d._cache_bytes for d in devs]
         or fresh("device.cache_bytes"),
+        "device.wave_fuse": [d._fuser is not None for d in devs]
+        or fresh("device.wave_fuse"),
     }
 
 
@@ -820,11 +824,11 @@ class ScheduleSimulator:
     def knob_axes(self) -> Dict[str, List[object]]:
         """Graph-relevant candidate values per knob.  Axes that cannot
         change this DAG's simulated cost (device knobs without device
-        chores) collapse to the current default so the search space
-        stays small and the proposals deterministic; so do the axes
-        this package does not act on (everything outside ACTED_KNOBS:
-        the comm, coll and wave-fusion knobs, which the reference
-        searches on multi-rank and fusable DAGs)."""
+        chores, wave fusion without a certified fusable wave) collapse
+        to the current default so the search space stays small and the
+        proposals deterministic; so do the axes this package does not
+        act on (everything outside ACTED_KNOBS: the comm and coll
+        knobs, which the reference searches on multi-rank DAGs)."""
         kv = default_knobs()
         axes: Dict[str, List[object]] = {k: [kv[k]] for k in TUNE_KNOBS}
         axes["runtime.mag_batch"] = [16, 64, 128, 256]
@@ -835,6 +839,10 @@ class ScheduleSimulator:
             if peak > 0:
                 cands += [peak, 2 * peak]
             axes["device.cache_bytes"] = cands
+        if self.has_device and self.fused_width:
+            # fusion width vs staging: only worth searching when a
+            # certified fusable wave exists for the compiler to fuse
+            axes["device.wave_fuse"] = [True, False]
         return axes
 
     # ------------------------------------------------------- search

@@ -176,6 +176,11 @@ class Context:
         # name -> Python collection object (or a shim for native linear
         # collections): rank_of + geometry, read by the static analyses
         self.collection_objs: Dict[str, object] = {}
+        # the devices' pre-run residency checks (device.plan_check;
+        # exported as the stats()["plan"] namespace)
+        self._plan_stats: Dict[str, int] = {
+            "checks": 0, "over_budget": 0, "predicted_spills": 0,
+            "last_peak_bytes": 0, "last_budget_bytes": 0}
         self.arenas: Dict[str, int] = {}
         self.arena_sizes: Dict[str, int] = {}  # name -> elem bytes
         self.datatypes: Dict[str, int] = {}
@@ -337,8 +342,10 @@ class Context:
         hits/misses/staged bytes, reserve failures, spill traffic,
         dispatch-time h2d stall), the counter-level overlap ratio — the
         share of h2d nanoseconds spent on the prefetch lane, overlapping
-        compute, rather than stalling a dispatch — and each device's
-        info object under "devices"."""
+        compute, rather than stalling a dispatch — the wave compiler's
+        counters under "fuse" (summed; `refused` merges the per-reason
+        refusal records) and each device's info object under
+        "devices"."""
         devs = [dev.info() for dev in self._devices]
         keys = ("tasks", "batches", "batched_tasks", "h2d_hits",
                 "h2d_bytes", "d2h_bytes", "h2d_stall_ns", "evictions",
@@ -353,6 +360,18 @@ class Context:
         moved = agg["prefetch_h2d_ns"] + agg["h2d_stall_ns"]
         agg["overlap_ratio"] = (
             round(agg["prefetch_h2d_ns"] / moved, 4) if moved else 0.0)
+        fuse_keys = ("fused_waves", "fused_tasks", "fused_chains",
+                     "chain_waves", "chain_parked", "chain_hits",
+                     "chain_misses", "chain_drops", "cache_hits",
+                     "cache_misses", "parked")
+        fuse = {k: sum(d["fuse"][k] for d in devs) for k in fuse_keys}
+        fuse["enabled"] = any(d["fuse"]["enabled"] for d in devs)
+        refused: Dict[str, int] = {}
+        for d in devs:
+            for reason, n in d["fuse"]["refused"].items():
+                refused[reason] = refused.get(reason, 0) + n
+        fuse["refused"] = refused
+        agg["fuse"] = fuse
         agg["devices"] = devs
         return agg
 
@@ -368,6 +387,8 @@ class Context:
           metrics -> always-on histogram subsystem health: enabled
                      flag, interned class count, exporter port and
                      watchdog status
+          plan    -> the devices' pre-run residency checks
+                     (device.plan_check; CudaDevice.plan_check)
           scope   -> request-scope rollups and plan-vs-measured
                      conformance (profiling/scope.py);
                      {"enabled": False} when no registry is attached
@@ -397,6 +418,9 @@ class Context:
                 "exporter_port": exp.port if exp is not None else 0,
                 "watchdog": wd.status() if wd is not None else None,
             },
+            "plan": dict(
+                enabled=_mca.get("device.plan_check") != "off",
+                **self._plan_stats),
             "scope": reg.stats() if reg is not None
             else {"enabled": False},
             "control": (self._controller.stats()

@@ -2,9 +2,8 @@
 parsec_taskpool_t, parsec/parsec_internal.h:119-161).
 
 Port of parsec_tpu/core/taskpool.py, with the static-analysis hooks
-(verify, plan, tuned and remap runs), without DTD's drain and the
-device's pre-run plan_check (device.plan_check, which comes with
-device/fuse.py)."""
+(verify, plan, tuned and remap runs and the devices' pre-run
+plan_check), without DTD's drain."""
 from __future__ import annotations
 
 import ctypes as C
@@ -166,7 +165,13 @@ class Taskpool:
         created, so the vector must already be in force on this pool's
         runtime (created under analysis.tune.apply_knobs(vector)): the
         run raises ValueError where it is not, and otherwise records
-        the vector as `self.tuned_applied` (None when there is none)."""
+        the vector as `self.tuned_applied` (None when there is none).
+
+        With device.plan_check armed (warn|error), every attached device
+        runs its pre-run residency check before the pool schedules:
+        predicted device peak against its byte budget (see
+        CudaDevice.plan_check); error mode raises PlanCheckError before
+        the pool is committed."""
         self.remap_applied = None
         if remap is not None and remap is not False:
             perm = remap if isinstance(remap, (list, tuple)) \
@@ -182,8 +187,16 @@ class Taskpool:
             if knobs is not None:
                 check_tuned(self.ctx, knobs)
         self.tuned_applied = knobs
+        return self._run_inner(verify)
+
+    def _run_inner(self, verify) -> "Taskpool":
         if verify:
             self.verify(mode=verify)
+        from ..utils import params as _mca
+        pc_mode = _mca.get("device.plan_check")
+        if pc_mode and pc_mode != "off" and self.classes:
+            for dev in list(self.ctx._devices):
+                dev.plan_check(self, mode=pc_mode)
         self.commit()
         rc = N.lib.ptc_context_add_taskpool(self.ctx._ptr, self._ptr)
         if rc != 0:

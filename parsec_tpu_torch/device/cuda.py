@@ -37,16 +37,27 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
     output is the next input of a declared consumer class runs that
     class's kernel right after the wave's launch; the consumer task
     then completes from the parked result, version-checked
+  - wave and chain fusion (device/fuse.py, the device.wave_fuse knob, on
+    by default): a popped wave is certified online and, where the static
+    chain certificates link it to its consumer waves, those waves' chores
+    run right after it on the exec stream and their results are parked;
+    the consumer tasks then complete from them with no launch.
+    device.wave_fuse=0 restores the per-group batched dispatch bit for
+    bit
+  - plan_check: the pre-run residency check of a pool's predicted device
+    working set against the byte budget (device.plan_check)
 
 A failing kernel fails its tasks (ctx.task_fail) and so the pool: there
 is no silent fallback to another path.
 
 Trace spans (profiling/trace.py; recorded when ctx.profile_enable is on,
 from the manager and lane threads, as worker -1):
-  - DEVICE_DISPATCH around each launch (_run_lanes): class = the task
-    class id (-1 for a DTD body), l0 = lanes, l1 = the device's queue;
-    the END's aux = the launch's dispatch-time h2d stall in ns, the same
-    nanoseconds stats["h2d_stall_ns"] counts for it
+  - DEVICE_DISPATCH around each launch (_run_lanes) and each chain:
+    class = the task class id (-1 for a DTD body), l0 = lanes (a chain's:
+    its producer wave's), l1 = the device's queue; the BEGIN's aux = the
+    fused mark (0 plain, n >= 1 a certified wave of a chain of n waves);
+    the END's aux = the dispatch-time h2d stall in ns since the last
+    END, the same nanoseconds stats["h2d_stall_ns"] counts for it
   - DEVICE_H2D around each dispatch-time staging (_h2d): l0 = bytes,
     l1 = the queue, class = the dispatching task's request scope or -1,
     aux 0; and around each stage off the dispatch path (the prefetch
@@ -85,6 +96,7 @@ from ..core.taskpool import Taskpool
 from ..dsl.dtd import DtdView
 from ..profiling.trace import KEY_DEVICE, KEY_H2D
 from ..utils import params as _knobs
+from .fuse import WaveFuser
 from .prefetch import _PrefetchLane
 
 _NP_TO_TORCH = {
@@ -254,9 +266,10 @@ class _CacheEnt:
         # CUDA event after which the bytes are valid on the card (the h2d
         # copy's, or the launch's that wrote them); None on the CPU
         self.event = event
-        # pf: staged ahead by the prefetch lane, not consumed yet (cleared,
-        # and counted as a prefetch hit, at the first stage-in)
-        self.pf = False
+        # pf: staged ahead by the prefetch lane (1; 2: a chain hint's
+        # stage), not consumed yet (cleared, and counted as a prefetch
+        # hit, at the first stage-in)
+        self.pf = 0
         # spilling: picked by the residency planner for an out-of-core
         # write-back + evict; whoever lands its d2h evicts it in the same
         # locked step, if it is still THIS object in the cache
@@ -295,6 +308,12 @@ class CudaDevice:
         # max tasks fused into one launch, and a byte cap on one launch's
         # lane stacks (the count cap alone is blind to tile size)
         self.batch_max = int(os.environ.get("PTC_DEVICE_BATCH", "128"))
+        # opt-in coalescing window (ms; a caller sets it): after a
+        # MULTI-task drain, keep popping for up to this long so that a
+        # wave being released by the workers lands in ONE dispatch (0 =
+        # off; a single-task pop never waits, so latency-bound chains are
+        # unaffected)
+        self.batch_wait_ms = 0.0
         self.batch_max_bytes = int(
             os.environ.get("PTC_DEVICE_BATCH_BYTES", str(2 << 30)))
         self.bodies: Dict[Tuple[int, int], _DeviceBody] = {}
@@ -333,16 +352,25 @@ class CudaDevice:
         # wakes the lane's idle wait now instead of at its poll interval
         # (the comm engine's deliveries will set it; tests set it)
         self._pf_wake = threading.Event()
-        # chain prefetch hints [(collection name, idx)] of the wave
-        # compiler, which is not ported: it stays empty and the lane
-        # stages the peeked lookahead only
+        # chain prefetch hints [(collection name, idx)]: the external
+        # tiles the wave compiler predicts the NEXT chain segment reads;
+        # the prefetch lane stages them beside the peeked lookahead
         self._pf_chain_hints: list = []
+        # bytes of the parked chain results' output stacks (fuse.py): they
+        # live outside the cache accounting until their tasks consume
+        # them, so the wave compiler's planner and the lane's reservation
+        # count them, and a chain under residency pressure is refused
+        self._chain_pinned = 0
+        # the fused mark of the NEXT DEVICE_DISPATCH begin (manager thread
+        # only): 0 plain, n >= 1 a certified wave of a chain of n waves
+        self._disp_fused = 0
         # bumped by every host-side overwrite of a mirrored copy: a lane
         # stage that began before one is discarded (it may have copied
         # the bytes being replaced)
         self._host_epoch = 0
-        # the current launch's dispatch-time h2d stall (manager thread
-        # only): reset at its DEVICE_DISPATCH begin, read at its end
+        # dispatch-time h2d stall since the last DEVICE_DISPATCH end
+        # (manager thread only): read and reset at each end, so a chain's
+        # staging before its span opens lands in that span's end aux
         self._disp_stall_ns = 0
         # every key pre-populated: the dict never resizes after init, so a
         # concurrent info() copy cannot hit a changed-size error.  Names
@@ -361,13 +389,22 @@ class CudaDevice:
                       "prefetch_wasted": 0, "reserve_fails": 0,
                       "spills": 0, "spill_bytes": 0,
                       "prefetch_h2d_ns": 0, "ooc_waits": 0,
-                      "prefetch_wakeups": 0}
+                      "prefetch_wakeups": 0,
+                      # the lane's stages of the wave compiler's chain
+                      # hints: staged, served at a stage-in, refused
+                      "prefetch_hint_stages": 0, "prefetch_hint_hits": 0,
+                      "prefetch_hint_wasted": 0}
         # chore name -> [launches, lanes]: one launch per kernel call of
         # the manager (epilogues included), written under self._lock
         self.launches: Dict[str, List[int]] = {}
         # parked speculative results: (dst body key, dst key) ->
         # (output stacks, src uid, src version); bounded by _spec_put
         self._spec: Dict[tuple, tuple] = {}
+        # the wave compiler (device.wave_fuse; None = off: the per-group
+        # batched dispatch, bit for bit)
+        self._fuser: Optional[WaveFuser] = None
+        if bool(_knobs.get("device.wave_fuse")):
+            self._fuser = WaveFuser(self)
         # native hooks, ONE callback per context fanning out to all its
         # devices (a per-device registration would overwrite the slot)
         if getattr(ctx, "_copy_release_cb", None) is None:
@@ -739,11 +776,13 @@ class CudaDevice:
         """Reserve budget BEFORE the lane stages a lookahead tile (the
         reserve half of the reserve/evict protocol): evicts clean tiles
         outside the lookahead if needed, never dirty ones, never the
-        lookahead and never an unconsumed prefetch.  False: the working
+        lookahead and never an unconsumed prefetch.  The parked chain
+        results' bytes count against the budget too.  False: the working
         set does not fit, the lane skips the tile and it is staged on
         demand at dispatch instead of thrashing."""
         with self._lock:
-            budget = self._cache_bytes - self._pf_reserved - nbytes
+            budget = (self._cache_bytes - self._pf_reserved
+                      - self._chain_pinned - nbytes)
             if self._cache_used <= budget:
                 self._pf_reserved += nbytes
                 return True
@@ -767,15 +806,15 @@ class CudaDevice:
             self._pf_reserved = max(0, self._pf_reserved - nbytes)
 
     def _cache_put_prefetch(self, uid, version, arr, nbytes, event,
-                            epoch: int) -> bool:
+                            epoch: int, hint: bool = False) -> bool:
         """Install a prefetched raw (flat uint8) mirror and release its
         reservation.  NEVER displaces an existing entry: the wave in
         flight may be reading it, and a dirty entry is newer than the
         host bytes this was staged from.  Also refused when a host-side
         overwrite happened since the stage began (`epoch`), or when some
         device holds a mirror of this version or a newer one (its bytes,
-        not the host's, are current).  Returns False on a refusal (a
-        wasted stage, counted)."""
+        not the host's, are current).  `hint`: a chain hint's stage.
+        Returns False on a refusal (a wasted stage, counted)."""
         with self._lock:
             self._pf_reserved = max(0, self._pf_reserved - nbytes)
             q, v = self.ctx.device_get_data_owner(uid)
@@ -785,7 +824,7 @@ class CudaDevice:
                 return False
             ent = _CacheEnt(uid, version, arr, nbytes, persistent=False,
                             raw=True, event=event)
-            ent.pf = True
+            ent.pf = 2 if hint else 1
             self._cache[uid] = ent
             self._charge(ent)
             self.stats["prefetch_staged"] += 1
@@ -794,15 +833,16 @@ class CudaDevice:
                                             version)
         return True
 
-    def _consume_pf(self, uid: int) -> bool:
+    def _consume_pf(self, uid: int) -> int:
         """First stage-in of a prefetched tile: clear the flag (so the hit
-        counts once and its staging slot can recycle) and report."""
+        counts once and its staging slot can recycle) and return it (0:
+        no unconsumed prefetch)."""
         with self._lock:
             ent = self._cache.get(uid)
             if ent is not None and ent.pf:
-                ent.pf = False
-                return True
-        return False
+                pf, ent.pf = ent.pf, 0
+                return pf
+        return 0
 
     def _cache_ent(self, uid, version) -> Optional[_CacheEnt]:
         with self._lock:
@@ -856,6 +896,74 @@ class CudaDevice:
         with self._lock:
             self._cache_bytes = int(nbytes)
 
+    def plan_check(self, tp, mode: Optional[str] = None, plan=None):
+        """Pre-run residency check: compare the pool's predicted per-rank
+        DEVICE working set (analysis.plan) against this device's byte
+        budget before anything schedules.
+
+          fits            -> silent (counters only)
+          over budget,
+          out_of_core=0   -> warn to stderr, or raise PlanCheckError with
+                             mode="error": the run would hold device
+                             memory past budget until it runs out
+          over budget,
+          out_of_core=1   -> warn with the PREDICTED SPILL COUNT (the run
+                             completes out-of-core; the number is the d2h
+                             write-back traffic to expect)
+
+        `mode` defaults to the device.plan_check knob; Taskpool.run calls
+        this when the knob is armed.  An analysis failure never blocks a
+        run (warned, no check counted).  Counts into the Context's
+        stats()["plan"].  Returns the (possibly supplied) Plan, or None
+        when the pool has no device-chore classes or analysis failed."""
+        if mode is None:
+            mode = _knobs.get("device.plan_check")
+        if not mode or mode == "off":
+            return None
+        try:
+            if plan is None:
+                plan = tp.plan()
+        except Exception as e:  # analysis must never kill a run
+            sys.stderr.write(f"ptc [plan]: plan_check skipped: {e}\n")
+            return None
+        if not plan.has_device_classes:
+            return None
+        rank = getattr(self.ctx, "myrank", 0)
+        peak = plan.peak_bytes(rank=rank if rank in plan.per_rank
+                               else None, device_only=True)
+        ps = self.ctx._plan_stats
+        with self._lock:
+            budget = self._cache_bytes
+        ps["checks"] += 1
+        ps["last_peak_bytes"] = int(peak or 0)
+        ps["last_budget_bytes"] = int(budget)
+        if plan.bounded and peak is None:
+            sys.stderr.write(
+                "ptc [plan]: plan_check inconclusive (symbolic bound "
+                "unavailable); proceeding\n")
+            return plan
+        if peak <= budget:
+            return plan
+        ps["over_budget"] += 1
+        if self._ooc:
+            spills = plan.predict_spills(budget, rank=rank,
+                                         device_only=True)
+            ps["predicted_spills"] += spills
+            sys.stderr.write(
+                f"ptc [plan]: predicted device working set {peak} B "
+                f"exceeds cache budget {budget} B; out-of-core will "
+                f"spill (~{spills} predicted write-backs)\n")
+            return plan
+        msg = (f"predicted device working set {peak} B exceeds the "
+               f"cache budget {budget} B with device.out_of_core=0: "
+               "the run would hold device memory past budget (raise the "
+               "budget, re-enable out-of-core, or shrink the tiling)")
+        if mode == "error":
+            from ..analysis.plan import PlanCheckError
+            raise PlanCheckError(msg)
+        sys.stderr.write(f"ptc [plan]: {msg}\n")
+        return plan
+
     def sync_handle(self, uid: int) -> None:
         """Coherence pull for ONE copy: if its device mirror is dirty,
         write it back to the host buffer (d2h stream) and clear the dirty
@@ -882,6 +990,7 @@ class CudaDevice:
             stats = dict(self.stats)
             attached = len(self.bodies)
         on_card = self.device.type == "cuda"
+        fz = self._fuser
         return {
             "device": str(self.device),
             "kind": torch.cuda.get_device_name(self.device) if on_card
@@ -893,6 +1002,13 @@ class CudaDevice:
             "cache_capacity": self._cache_bytes,
             "attached_classes": attached,
             "stats": stats,
+            # the wave compiler's counters (the same keys when it is off)
+            "fuse": fz.snapshot() if fz is not None else {
+                "enabled": False, "fused_waves": 0, "fused_tasks": 0,
+                "fused_chains": 0, "chain_waves": 0, "chain_parked": 0,
+                "chain_hits": 0, "chain_misses": 0, "chain_drops": 0,
+                "cache_hits": 0, "cache_misses": 0, "parked": 0,
+                "refused": {}},
         }
 
     def flush(self):
@@ -1129,6 +1245,8 @@ class CudaDevice:
             self._spec.clear()
             self._dtd_bodies.clear()
             self._cache_used = 0
+        if self._fuser is not None:
+            self._fuser.clear()
 
     def _manager(self):
         """Dispatch loop: drain every ready task, group by class (pop
@@ -1153,16 +1271,35 @@ class CudaDevice:
                     if not t2:
                         break
                     batch.append(t2)
+                if (len(batch) > 1 and self.batch_wait_ms > 0
+                        and len(batch) < self.batch_max):
+                    deadline = time.monotonic() + self.batch_wait_ms / 1e3
+                    while (len(batch) < self.batch_max
+                           and time.monotonic() < deadline):
+                        t2 = self.ctx.device_pop(self.qid, timeout_ms=1)
+                        if t2:
+                            batch.append(t2)
+                fz = self._fuser
                 groups: List[Tuple[Optional[_DeviceBody], List]] = []
                 index: Dict[int, int] = {}
                 for t in batch:
                     body = self._body_for(t)
                     gi = index.get(id(body))
                     if gi is None or body is None or not body.batch:
+                        if gi is not None and body is not None \
+                                and fz is not None:
+                            # >= 2 ready tasks of an unbatchable class: the
+                            # wave exists but cannot fuse (counted)
+                            fz._refuse("unbatchable-body")
                         index[id(body)] = len(groups)
                         groups.append((body, [t]))
                     else:
                         groups[gi][1].append(t)
+                if fz is not None and len(
+                        {id(b) for b, _ in groups if b is not None}) > 1:
+                    # the front as popped was not ONE wave (counted as
+                    # certify()'s heterogeneous refusals are)
+                    fz._refuse("heterogeneous-front")
                 for body, ts in groups:
                     if body is None:
                         for t in ts:
@@ -1255,26 +1392,30 @@ class CudaDevice:
         """Count a stage-in served by the cache (and a prefetch hit at a
         prefetched tile's first read)."""
         self._stats_add("h2d_hits")
-        if self._consume_pf(uid):
+        pf = self._consume_pf(uid)
+        if pf:
             self._stats_add("prefetch_hits")
+            if pf == 2:
+                self._stats_add("prefetch_hint_hits")
 
-    def _stage_from_host(self, view, body: _DeviceBody, flow):
-        """Dispatch-time h2d of one flow's host copy (a prefetch miss when
-        the lane runs)."""
-        host = view.data(flow, dtype=body.dtypes[flow],
-                         shape=body.shapes.get(flow), sync=False)
+    def _stage_from_host(self, host: np.ndarray, scope: int):
+        """Dispatch-time h2d of one host tile (a prefetch miss when the
+        lane runs); `scope` is the dispatching task's request scope, the
+        stall's owner (-1: none)."""
         if self._pf_lane is not None:
             self._stats_add("prefetch_misses")
-        # the dispatching task's request scope names the stall's owner
-        return self._h2d(host, int(N.lib.ptc_task_scope(view._ptr)) or -1)
+        return self._h2d(host, scope)
 
-    def _stage_in(self, view, body: _DeviceBody, flow):
-        """The current device tile of one task's read flow: a cache hit,
-        a copy of a sibling device's mirror, or an h2d of its host copy
-        (then cached)."""
-        _, uid, ver = self._flow_uid_ver(view, body, flow)
-        shape = body.shapes.get(flow)
-        dt = body.dtypes[flow]
+    def _view_host(self, view, body: _DeviceBody, flow):
+        """A task's read flow as (its host tile, the task's scope)."""
+        host = view.data(flow, dtype=body.dtypes[flow],
+                         shape=body.shapes.get(flow), sync=False)
+        return host, int(N.lib.ptc_task_scope(view._ptr)) or -1
+
+    def _stage_in(self, uid, ver, dt, shape, host_of: Callable):
+        """The current device tile of (uid, ver): a cache hit, a copy of a
+        sibling device's mirror, or an h2d of host_of()'s (host tile,
+        scope) (then cached)."""
         arr = self._cache_get_typed(uid, ver, dt, shape)
         if arr is not None:
             self._hit(uid)
@@ -1284,26 +1425,36 @@ class CudaDevice:
             arr = sarr.to(self.device, copy=True, non_blocking=True)
             self._cache_put(uid, ver, arr, arr.nbytes, event=self._record())
             return arr
-        arr, ev = self._stage_from_host(view, body, flow)
+        arr, ev = self._stage_from_host(*host_of())
         self._cache_put(uid, ver, arr, arr.nbytes, event=ev)
         return arr
 
     def _lanes_in(self, views, body: _DeviceBody, flow) -> torch.Tensor:
-        """One read flow of a wave as a [lanes, *shape] tensor:
+        """One read flow of a wave as a [lanes, *shape] tensor
+        (_lanes_of over the lanes' copies)."""
+        keys = [self._flow_uid_ver(v, body, flow)[1:] for v in views]
+        return self._lanes_of(
+            keys, self._flow_shape(views[0], body, flow), body.dtypes[flow],
+            lambda i: self._view_host(views[i], body, flow))
+
+    def _lanes_of(self, keys, shape, dt, host_of: Callable) -> torch.Tensor:
+        """The tiles (uid, version) `keys` as a [lanes, *shape] tensor;
+        host_of(i) gives lane i's (host tile, scope) for an h2d:
           - every lane reads the same tile: that tile, lane stride 0
           - every lane's tile is a row of ONE cached stack: a slice of it
             (or one index_select when the rows are not in lane order)
           - otherwise: a new stack, rows copied from the cache, a sibling
             or a fresh h2d (staged rows are then cached as rows of it); a
-            tile several lanes read is staged once and its row copied"""
-        n = len(views)
-        shape = self._flow_shape(views[0], body, flow)
-        keys = [self._flow_uid_ver(v, body, flow)[1:] for v in views]
+            tile several lanes read is staged once and its row copied
+        A dispatch's read flow and a chained level's collection input
+        (device/fuse.py) are stacked here alike."""
+        n = len(keys)
+        shape = tuple(shape)
         if all(k == keys[0] for k in keys):
             if n > 1:
                 self._stats_add("fused_flows")
                 self._stats_add("h2d_hits", n - 1)
-            t = self._stage_in(views[0], body, flow)
+            t = self._stage_in(*keys[0], dt, shape, lambda: host_of(0))
             return t.unsqueeze(0).expand(n, *shape)
         ents = [self._cache_ent(uid, ver) for uid, ver in keys]
         stack = ents[0].stack if ents[0] is not None else None
@@ -1320,12 +1471,11 @@ class CudaDevice:
                     0, torch.tensor(idxs, device=stack.device))
             return rows.reshape(n, *shape)
         self._stats_add("eager_gathers")
-        dt = body.dtypes[flow]
         out = torch.empty((n, *shape), dtype=_NP_TO_TORCH[np.dtype(dt)],
                           device=self.device)
         staged = []
         first: Dict[tuple, int] = {}  # (uid, ver) staged here -> its row
-        for i, (view, (uid, ver)) in enumerate(zip(views, keys)):
+        for i, (uid, ver) in enumerate(keys):
             j = first.get((uid, ver))
             if j is not None:
                 # an earlier lane of this gather staged the same tile: copy
@@ -1339,7 +1489,7 @@ class CudaDevice:
             else:
                 arr = self._sibling_mirror(uid, ver, dt, shape)
                 if arr is None:
-                    arr, _ = self._stage_from_host(view, body, flow)
+                    arr, _ = self._stage_from_host(*host_of(i))
                 staged.append((i, uid, ver))
                 first[(uid, ver)] = i
             out[i].copy_(arr.reshape(shape), non_blocking=True)
@@ -1463,23 +1613,39 @@ class CudaDevice:
     def _prof(self, phase: int, body: _DeviceBody, lanes: int) -> None:
         """A DEVICE_DISPATCH event: class = the task class id (-1 for a
         DTD body), l0 = lanes, l1 = this device's queue (so same-class
-        spans of sibling devices pair apart); the END's aux is the
-        launch's dispatch-time h2d stall in ns (0: every input was
-        resident or prefetched).  The begin resets that stall."""
-        if phase == 0:
-            self._disp_stall_ns = 0
+        spans of sibling devices pair apart).  The BEGIN's aux is the
+        fused mark (0 plain, n >= 1 a certified wave of a chain of n
+        waves: device/fuse.py); the END's aux is the dispatch-time h2d
+        stall in ns since the last END (0: every input was resident or
+        prefetched), and resets it and the mark."""
         cid = body.tc.id if body.tc is not None else -1
+        if phase == 0:
+            aux = self._disp_fused
+        else:
+            aux, self._disp_stall_ns, self._disp_fused = \
+                self._disp_stall_ns, 0, 0
         N.lib.ptc_prof_event(self.ctx._ptr, KEY_DEVICE, phase, cid, lanes,
-                             self.qid, self._disp_stall_ns if phase else 0)
+                             self.qid, aux)
 
     def _run_lanes(self, body: _DeviceBody, tasks: List):
-        """Every launch, of one task or a group, comes here: an epilogue's
-        destination tasks first try their parked result (no launch, no
-        span), the rest launch once inside a DEVICE_DISPATCH span."""
+        """Every launch, of one task or a group, comes here: tasks with a
+        parked chain result (device/fuse.py) or an epilogue's parked
+        result complete from it first (no launch, no span); a group of
+        the rest goes to the wave compiler, which runs it, with its
+        certified chain, or hands it back; what is left launches once
+        inside a DEVICE_DISPATCH span."""
+        fz = self._fuser
+        if fz is not None:
+            tasks = fz.consume_group(body, tasks)
+            if not tasks:
+                return
         if body.spec_src is not None:
             tasks = [t for t in tasks if not self._try_spec(body, t)]
             if not tasks:
                 return
+        if fz is not None and len(tasks) > 1 \
+                and fz.dispatch_group(body, tasks):
+            return
         self._prof(0, body, len(tasks))
         wb_stacks = None
         try:
@@ -1495,6 +1661,25 @@ class CudaDevice:
             return
         for t in tasks:
             self.ctx.task_complete(t)
+
+    def _outputs(self, body: _DeviceBody, out, lanes: int) -> tuple:
+        """A kernel's return value as one [lanes, *tile] stack per write
+        flow on this device (a DTD kernel's single tiles get their lane
+        axis); raises on a count, width or device that does not fit."""
+        outs = out if isinstance(out, tuple) else (out,)
+        if len(outs) != len(body.writes):
+            raise ValueError(
+                f"{body.name}: kernel returned {len(outs)} "
+                f"output(s) for {len(body.writes)} write flow(s)")
+        if body.tc is None:
+            outs = tuple(o.unsqueeze(0) for o in outs)
+        for f, ostack in zip(body.writes, outs):
+            if ostack.shape[0] != lanes or ostack.device != self.device:
+                raise ValueError(
+                    f"{body.name}.{f}: kernel output "
+                    f"{tuple(ostack.shape)} on {ostack.device}, "
+                    f"expected {lanes} lanes on {self.device}")
+        return outs
 
     def _launch(self, body: _DeviceBody, tasks: List) -> Optional[list]:
         """Stage the lanes' inputs, launch the kernel once, install the
@@ -1514,13 +1699,7 @@ class CudaDevice:
                 out = body.kernel(*ins)
             self._count_launch(body.kernel, len(tasks))
             ev = self._record()
-            outs = out if isinstance(out, tuple) else (out,)
-            if len(outs) != len(body.writes):
-                raise ValueError(
-                    f"{body.name}: kernel returned {len(outs)} "
-                    f"output(s) for {len(body.writes)} write flow(s)")
-            if body.tc is None:
-                outs = tuple(o.unsqueeze(0) for o in outs)
+            outs = self._outputs(body, out, len(tasks))
             epi, epi_lane, epi_key = body.epilogue, None, None
             if epi is not None:
                 for i, view in enumerate(views):
@@ -1530,12 +1709,6 @@ class CudaDevice:
                         break
             wb_stacks, epi_src = [], None
             for f, ostack in zip(body.writes, outs):
-                if ostack.shape[0] != len(tasks) \
-                        or ostack.device != self.device:
-                    raise ValueError(
-                        f"{body.name}.{f}: kernel output "
-                        f"{tuple(ostack.shape)} on {ostack.device}, "
-                        f"expected {len(tasks)} lanes on {self.device}")
                 uids = []
                 for i, view in enumerate(views):
                     uid, ver = self._write_out(view, body, f, ostack, i, ev)

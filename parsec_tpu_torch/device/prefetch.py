@@ -44,10 +44,10 @@ Each stage is traced as a DEVICE_H2D span (class -1, l0 = bytes, l1 =
 the device's queue, aux 1: the lane), bracketing the host's copy into
 pinned staging and the enqueue, as the reference's lane span does.
 
-The reference lane also stages the wave compiler's chain hints
-(`_stage_hints`); that compiler (device/fuse.py) is not ported, so the
-device's `_pf_chain_hints` list stays empty and the lane stages the
-peeked lookahead only.
+Chain hints: the wave compiler (device/fuse.py) publishes, at each chain
+it runs, the collection tiles the NEXT chain segment will read
+(`dev._pf_chain_hints`), and the lane stages them first (`_stage_hints`)
+through the same pinned staging, h2d stream and refusals of stale stages.
 """
 from __future__ import annotations
 
@@ -110,16 +110,19 @@ class _PrefetchLane:
         with dev._device_ctx(), torch.no_grad():
             while not self._stop.is_set():
                 try:
+                    hinted = self._stage_hints()
                     if N.lib.ptc_device_queue_depth(dev.ctx._ptr,
                                                     dev.qid) <= 0:
                         if dev._pf_pin:
                             with dev._lock:
                                 dev._pf_pin = set()
-                        wait(0.001)
+                        if not hinted:
+                            wait(0.001)
                         continue
                     if self._free_slots() <= 0:
-                        wait(0.0005)  # ahead by every slot: one frees soon
-                    elif self._sweep():
+                        if not hinted:  # ahead by every slot: one frees
+                            wait(0.0005)
+                    elif self._sweep() or hinted:
                         idle = 0
                     else:
                         wait(0.0005 * (1 << idle))
@@ -128,6 +131,70 @@ class _PrefetchLane:
                     self.error = e
                     traceback.print_exc()
                     time.sleep(0.01)
+
+    def _stage_hints(self) -> bool:
+        """Stage the wave compiler's chain hints: collection tiles the
+        NEXT certified chain segment will read.  Unlike the peeked
+        lookahead these tiles belong to tasks the runtime has not
+        released yet, so there is no copy to pin: each stage is stamped
+        with the version of the collection's host copy, and a stage-in
+        uses a mirror only at that version.  Each stage passes the lane's
+        refusals of stale stages (_cache_put_prefetch): a hinted tile
+        written in between wastes its stage and is never installed.
+        Collection host buffers are user Data and outlive the pool, so
+        reading them unpinned is safe.  Returns True if a tile was
+        staged."""
+        dev = self.dev
+        hints, dev._pf_chain_hints = dev._pf_chain_hints, []
+        if not hints:
+            return False
+        ctx = dev.ctx
+        staged = False
+        for coll_name, idx in hints:
+            if self._stop.is_set():
+                break
+            try:
+                coll = ctx.collection_objs.get(coll_name)
+                if coll is None or not hasattr(coll, "data_of"):
+                    continue
+                cptr = N.lib.ptc_data_host_copy(coll.data_of(*idx)._ptr)
+                uid = dev._copy_uid(cptr)
+                ver = N.lib.ptc_copy_version(cptr)
+                q, v = ctx.device_get_data_owner(uid)
+                if q >= 0 and v == ver:
+                    continue  # a current mirror already serves it
+                with dev._lock:
+                    if uid in dev._cache:
+                        continue
+                # the epoch BEFORE the host bytes are read: a host write
+                # from here on refuses the install
+                epoch = dev._host_epoch
+                host = np.ascontiguousarray(coll.tile(*idx))
+                size = int(host.nbytes)
+                if not dev._prefetch_reserve(size):
+                    continue
+                try:
+                    t0 = time.perf_counter_ns()
+                    dev._prof_h2d(0, size, -1, 1)
+                    arr, ev = dev._h2d_async(torch.from_numpy(
+                        host.reshape(-1).view(np.uint8)))
+                    dev._prof_h2d(1, size, -1, 1)
+                    dev._stats_add("prefetch_h2d_ns",
+                                   time.perf_counter_ns() - t0)
+                except Exception:
+                    dev._prefetch_unreserve(size)
+                    raise
+                dev._stats_add("h2d_bytes", size)
+                dev._stats_add("prefetch_hint_stages")
+                if dev._cache_put_prefetch(uid, ver, arr, size, ev, epoch,
+                                           hint=True):
+                    staged = True
+                else:
+                    dev._stats_add("prefetch_hint_wasted")
+            except Exception as e:  # advisory: record, report, go on
+                self.error = e
+                traceback.print_exc()
+        return staged
 
     def _free_slots(self) -> int:
         """Recycle slots whose every tile was consumed or dropped."""

@@ -8,7 +8,9 @@ Environment spelling: PTC_MCA_<name with '.' -> '_'>.  The config file is
 sched.*, serve.* (the reference's, read by nothing yet there either),
 the control.spec_* knobs of the serving engine, device.cache_bytes,
 device.affinity_skew and the device pipeline's knobs (device.prefetch,
-prefetch_depth, staging_slots, out_of_core, overcommit), and the DTD
+prefetch_depth, staging_slots, out_of_core, overcommit), the wave
+compiler's device.wave_fuse and wave_fuse_depth, the pre-run
+device.plan_check, and the DTD
 front end's dtd.window_size and dtd.insert_batch, the observability
 hooks (runtime.pins, live, metrics_port, watchdog, journal and their
 settings), the analyses' plan.*, scope.*, tune.* and control.* params,
@@ -306,6 +308,30 @@ register("device.overcommit", 1.5, float,
          "budget, but at overcommit * cache_bytes it drains the "
          "writeback lane between waves (bounded memory under "
          "out-of-core pressure); <= 1 drains at any overrun")
+register("device.plan_check", "off", str,
+         "pre-run static residency check (parsec_tpu_torch.analysis."
+         "plan): off|warn|error.  At Taskpool.run, every attached device "
+         "plans the pool's device-class working set and compares the "
+         "predicted per-rank peak against its cache_bytes budget: "
+         "over-budget with device.out_of_core=0 warns (or raises with "
+         "'error'); with out-of-core on it reports the predicted spill "
+         "count instead.  Counters export as stats()['plan']")
+register("device.wave_fuse", True, bool,
+         "wave fusion (device/fuse.py): certified homogeneous waves "
+         "popped by the device manager dispatch through the wave "
+         "compiler — counted and span-marked — and waves the static "
+         "plan proves form a producer->consumer chain run as ONE chain: "
+         "the consumer waves' kernels run right after the producer "
+         "wave's on the exec stream, fed from its output stacks on the "
+         "card, and their results are parked, so their tasks complete "
+         "with ZERO device launches (every parked result is "
+         "version-checked against the real task's input copies at "
+         "consumption — any mismatch falls back to a normal dispatch).  "
+         "0 reproduces the per-group batched dispatch bit-exactly")
+register("device.wave_fuse_depth", 8, int,
+         "max waves fused into one chain (the chain segment length): "
+         "each extra wave removes one dispatch but holds one more wave "
+         "of output stacks on the card until its tasks consume them")
 
 # the static analyses (analysis/) and the controller
 register("plan.max_instances", 200_000, int,
@@ -349,10 +375,10 @@ register("control.budget_min_share", 0.10, float,
          "from being evicted to zero)")
 
 # runtime.mag_batch, one of the tuner's knob axes, is read by the
-# native core at context creation.  The tuner's other axes (the comm
-# engine's comm.* and coll.* knobs, device.wave_fuse) are no parameters
-# here: nothing in this package acts on them yet, and analysis/tune.py
-# and comm/topology.py keep the reference's defaults as constants.
+# native core at context creation.  The comm engine's comm.* and coll.*
+# axes are no parameters here: nothing in this package acts on them
+# yet, and analysis/tune.py and comm/topology.py keep the reference's
+# defaults as constants.
 register("runtime.mag_batch", 64, int,
          "task/arena freelist magazine batch: items moved between a "
          "worker's private magazine and the shared pool per lock "

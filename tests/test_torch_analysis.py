@@ -808,8 +808,8 @@ def _fan_plan(P):
 
 def test_simulator_wave_fuse_pricing_matches_reference():
     """A certified fusable device wave: the same price with the wave
-    knob on and off on both packages.  The reference searches that
-    axis; the port does not act on it, so it stays collapsed there."""
+    knob on and off on both packages, and both search that axis (the
+    port acts on it since device/fuse.py)."""
     def run(P):
         sim = P.tune.ScheduleSimulator(_fan_plan(P), workers=2)
         base = dict(P.tune.default_knobs())
@@ -820,8 +820,7 @@ def test_simulator_wave_fuse_pricing_matches_reference():
     ref, port = both(run)
     assert port[:3] == ref[:3]
     assert port[1]["makespan_ns"] < port[2]["makespan_ns"]
-    assert ref[3] == [True, False]
-    assert port[3] == [False]
+    assert ref[3] == port[3] == [True, False]
 
 
 def test_knob_axes_search_only_acted_knobs():
@@ -869,8 +868,10 @@ def test_apply_knobs_refuses_knobs_the_port_does_not_act_on():
     # the comm engine's knobs are no parameters of the port yet
     with pytest.raises(KeyError):
         tutils.params.get("comm.rails")
+    topo = ttune.default_knobs()["coll.topo"]
     with pytest.raises(ValueError, match="does not act"):
-        with ttune.apply_knobs({"device.wave_fuse": True}):
+        with ttune.apply_knobs({"coll.topo": "star" if topo != "star"
+                                else "ring"}):
             pass
     # an unchanged value of such a knob passes (a full vector)
     with ttune.apply_knobs(ttune.default_knobs()) as applied:
@@ -878,6 +879,34 @@ def test_apply_knobs_refuses_knobs_the_port_does_not_act_on():
     with pytest.raises(KeyError):
         with ttune.apply_knobs({"not.a.knob": 1}):
             pass
+
+
+def test_apply_knobs_acts_on_wave_fuse():
+    """device.wave_fuse is an acted knob: a device created under
+    apply_knobs({"device.wave_fuse": False}) has no wave compiler, and
+    knobs_in_force reads that back, so a tuned run holds its vector to
+    it in both directions."""
+    assert ttune.default_knobs()["device.wave_fuse"] is True \
+        is jtune.default_knobs()["device.wave_fuse"]
+    with ttune.apply_knobs({"device.wave_fuse": False}) as applied:
+        assert applied == {"device.wave_fuse": False}
+        assert os.environ["PTC_MCA_device_wave_fuse"] == "False"
+        ctx = tpt.Context(nb_workers=1)
+        dev = CudaDevice(ctx, device="cpu")
+    assert "PTC_MCA_device_wave_fuse" not in os.environ
+    with ctx:
+        assert dev._fuser is None
+        force = ttune.knobs_in_force(ctx)
+        assert force["device.wave_fuse"] == [False]
+        ttune.check_tuned(ctx, {"device.wave_fuse": False})
+        with pytest.raises(ValueError, match="not in force"):
+            ttune.check_tuned(ctx, {"device.wave_fuse": True})
+        dev2 = CudaDevice(ctx, device="cpu")
+        assert dev2._fuser is not None
+        assert ttune.knobs_in_force(ctx)["device.wave_fuse"] == \
+            [False, True]
+        dev2.stop()
+        dev.stop()
 
 
 def test_apply_knobs_snapshot_restore():
@@ -1080,8 +1109,20 @@ def test_controller_decisions_match_reference(scenario):
     decision log — the same log, stats and scope events on both
     packages."""
     ref, port = both(_control_run, scenario)
+    # the port's control_apply records carry two fields more: what the
+    # live runtime holds after the swap, and the changed knobs it does
+    # not hold (they bind when a Context or CudaDevice is created)
+    applies = [e for e in port[1] + port[2]
+               if e.get("kind", "control_apply") == "control_apply"
+               and "not_held" in e]
+    extra = [(e.pop("in_force"), e.pop("not_held")) for e in applies]
     assert port == ref
     stats, log, _, puts, knobs = port
+    if scenario == "swap":
+        assert len(extra) == 2  # the log entry and its scope event
+        force, not_held = extra[0]
+        assert not_held == ["runtime.mag_batch"]
+        assert force["runtime.mag_batch"] == [64] != [knobs[1]]
     assert log
     if scenario == "drift":
         assert stats["retunes"] == 1 and stats["pending"]

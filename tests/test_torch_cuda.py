@@ -978,3 +978,90 @@ def test_serving_conformance_covers_every_pool_on_the_card(card):
     assert all(h.state == "done" for h in hs)
     assert conf["pools"] > 0 and conf["coverage"] == 1.0
     assert dev.stats["tasks"] > 0
+
+
+def _card_gemm(card, fused, depth=None):
+    """GEMM 1024^2 in 128^2 tiles (an 8-deep k chain, 512 tasks) on a
+    fresh device created under device.wave_fuse=`fused`, whole waves per
+    pop: (C, the fuse counters, the residency pin, k_gemm_nn calls and
+    their widths)."""
+    from parsec_tpu_torch.utils import params
+    rng = np.random.default_rng(21)
+    a = rng.standard_normal((1024, 1024)).astype(np.float32)
+    b = rng.standard_normal((1024, 1024)).astype(np.float32)
+    with pt.Context(nb_workers=2) as ctx:
+        A, B = to_collection(a, 128, 128), to_collection(b, 128, 128)
+        C = to_collection(np.zeros_like(a), 128, 128)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+        params.set("device.wave_fuse", fused)
+        try:
+            dev = CudaDevice(ctx, device=card)
+        finally:
+            params.unset("device.wave_fuse")
+        dev.batch_wait_ms = 2.0
+        tp = build_gemm(ctx, A, B, C, dev)
+        body = dev.bodies[(id(tp), tp.classes[0].id)]
+        widths, kern = [], body.kernel
+
+        def k_gemm_nn(x, y, z):
+            widths.append(int(x.shape[0]))
+            return kern(x, y, z)
+        body.kernel = k_gemm_nn
+        tp.run()
+        tp.wait()
+        dev.flush()
+        fs = dev.info()["fuse"]
+        pinned = dev._chain_pinned
+        dev.stop()
+        out = C.to_dense()
+    return out, fs, pinned, widths, a @ b
+
+
+def test_gemm_chain_on_the_card_fused_against_unfused(card):
+    """A small GEMM chain on the card: the fused run completes its
+    chained waves from parked results (no miss), runs each chained
+    level with the unfused dispatch's widths, and its C equals the
+    unfused C bit for bit when the widths of both runs agree (the same
+    cuBLAS calls); both within 1e-4 / 1e-3 of the host product."""
+    c1, fs, _, w1, want = _card_gemm(card, True)
+    c0, fs0, _, w0, _ = _card_gemm(card, False)
+    assert fs["fused_chains"] > 0 and fs["chain_hits"] > 0
+    assert fs["chain_misses"] == 0 and fs0["enabled"] is False
+    assert sum(w1) == sum(w0) == 512
+    if sorted(w1) == sorted(w0):
+        assert c1.tobytes() == c0.tobytes()
+    for c in (c1, c0):
+        np.testing.assert_allclose(c, want, rtol=1e-4, atol=1e-3)
+
+
+def test_gemm_chain_on_the_card_drains_its_parked_results(card):
+    """Every parked chain result is consumed, missed or dropped by the
+    end of the pool, and the residency pin goes with it."""
+    _, fs, pinned, _, _ = _card_gemm(card, True)
+    assert fs["chain_parked"] > 0
+    assert fs["chain_parked"] == fs["chain_hits"] + fs["chain_misses"] \
+        + fs["chain_drops"] + fs["parked"]
+    assert fs["parked"] == 0 and pinned == 0
+
+
+def test_plan_check_error_mode_on_the_card(card, monkeypatch):
+    """device.plan_check=error with out-of-core off: Taskpool.run raises
+    PlanCheckError before the pool is committed or a task reaches the
+    card."""
+    from parsec_tpu_torch.analysis import PlanCheckError
+    monkeypatch.setenv("PTC_MCA_device_out_of_core", "0")
+    monkeypatch.setenv("PTC_MCA_device_plan_check", "error")
+    a = np.ones((512, 512), np.float32)
+    with pt.Context(nb_workers=2) as ctx:
+        A, B = to_collection(a, 128, 128), to_collection(a, 128, 128)
+        C = to_collection(np.zeros_like(a), 128, 128)
+        for name, coll in (("A", A), ("B", B), ("C", C)):
+            coll.register(ctx, name)
+        dev = CudaDevice(ctx, device=card, cache_bytes=3 * a.nbytes // 2)
+        tp = build_gemm(ctx, A, B, C, dev)
+        with pytest.raises(PlanCheckError):
+            tp.run()
+        assert not tp._committed and dev.stats["tasks"] == 0
+        assert ctx.stats()["plan"]["over_budget"] == 1
+        dev.stop()

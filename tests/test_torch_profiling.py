@@ -507,14 +507,14 @@ def test_exporter_endpoints():
 
 def test_unified_stats_namespaces():
     """stats() carries the reference's namespaces but the comm engine's
-    (comm, coll) and the plan check's, with the same keys in each."""
+    (comm, coll), with the same keys in each (plan included)."""
     def run(P):
         with P.pt.Context(nb_workers=1) as ctx:
             s = ctx.stats()
             return {k: sorted(v) if isinstance(v, dict) else v
                     for k, v in s.items() if k != "device"}
     ref, port = both(run)
-    assert set(ref) - set(port) == {"comm", "coll", "plan"}
+    assert set(ref) - set(port) == {"comm", "coll"}
     for k in port:
         if k == "trace":
             assert set(port[k]) == set(ref[k]) - {"clock"}
