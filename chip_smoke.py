@@ -68,11 +68,22 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      POTRF-T fused against unfused bit for bit; plan_check's peak bound,
      its spill verdict on the out-of-core GEMM and its error mode; the
      lane's hinted stages
+ 12. drive the comm engine (comm_path): two ranks as two spawned
+     processes on this one card over the loopback transport run the
+     distributed GEMM at phase 4's size under three broadcast topologies
+     and with comm.eager_limit=0, fused against unfused (12a); phase 4's
+     NORM as a two-rank chain whose intermediate crosses through the
+     device data plane, streamed and not (12b); the collectives over 64
+     MiB and the k-split GEMM panel reduction (12d); a traced GEMM merged
+     on the clock offsets (12e); then two colocated ranks in this
+     process move 12b's intermediate as on-card clones (12c).  A rank
+     that fails or times out fails the phase
 Phases 1-10 run with fusion on, the default.  Then print the dense-LA
 line, the pipeline line, the DSL line, the runtime line, the observe
-line, the fuse line and the kernels line (JSON; the kernels' launches
-are those of phases 4 and 7-11) and, last, the device line (JSON).
-Exits non-zero, printing no result, when there is no CUDA card.
+line, the fuse line, the comm line and the kernels line (JSON; the
+kernels' launches are those of phases 4, 7-11 and 12, both ranks') and,
+last, the device line (JSON).  Exits non-zero, printing no result, when
+there is no CUDA card.
 """
 from __future__ import annotations
 
@@ -3521,6 +3532,743 @@ def fuse_path(dev_t, rng, dims=None) -> dict:
     return out
 
 
+# phase 12 sizes: GEMM (N, NB) as phase 4's; NORM (rows, d, T) as phase
+# 4's (32 tiles of 16 MiB); the collectives' buffer in float32 elements
+# (64 MiB); the panel reduction's (M, K, N), integer-valued
+COMM = {"gemm": (4096, 512), "norm": (8 * 4096, 4096, 1024),
+        "coll_elems": 16 << 20, "panel": (2048, 2048, 2048),
+        "timeout": 240.0}
+
+
+def _owned_on(owner: int):
+    """A TwoDimBlockCyclic whose every tile lives on rank `owner` (rank 0
+    holds X, rank 1 holds O in phase 12b)."""
+    from parsec_tpu_torch.data.collections import TwoDimBlockCyclic
+
+    class OwnedBy(TwoDimBlockCyclic):
+        def rank_of(self, m: int, n: int) -> int:
+            return owner
+    return OwnedBy
+
+
+def _digest(a: np.ndarray) -> str:
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def comm_norm_chain(ctx, rank: int, nodes: int, dev_t, dims, label: str,
+                    make_dev, tag: str = "", trace: bool = False,
+                    reset: bool = True) -> dict:
+    """Phase 12b/12c's program on one rank: NORM twice across the ranks.
+    N0(r) on rank 0 normalizes X's row tile r (X on rank 0) on the card
+    into an arena tile Y; N1(r) on rank 1 reads Y, device-resident, through
+    the data plane, normalizes it again and writes O's tile r (O on rank
+    1).  W is rank-replicated.  X is drawn on the card from a seeded torch
+    generator (every rank draws the same).  Returns the run's counters,
+    and on rank 1 O's digest and its error against the plain version
+    applied twice.  `tag` suffixes the collections' and arenas' names
+    (a second run on one Context); `trace` records the run at level 2
+    and returns the device's and the wire's spans (trace_summary).
+    `reset=False` leaves the kernels' launch counts to the caller (the
+    colocated ranks share them); `chore_calls`, this rank's device's
+    calls of the NORM chore, each one launch of the RMSNorm kernel on
+    the card, shows this rank's own launches."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.data.collections import ReplicatedLocal
+    rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
+    rows, d, T = dims["norm"]
+    R = rows // T
+    gen = torch.Generator(device=dev_t).manual_seed(SEED + 12)
+    xt = torch.randn((rows, d), generator=gen, device=dev_t)
+    wt = torch.randn((d,), generator=gen, device=dev_t)
+    X = _owned_on(0)(rows, d, T, d, P=nodes, nodes=nodes, myrank=rank)
+    O = _owned_on(1)(rows, d, T, d, P=nodes, nodes=nodes, myrank=rank)
+    W = ReplicatedLocal(1, d, 1, d, nodes=nodes, myrank=rank)
+    W.tile(0, 0)[...] = wt.cpu().numpy()
+    if rank == 0:
+        xh = xt.cpu().numpy()
+        for r in range(R):
+            X.tile(r, 0)[...] = xh[r * T:(r + 1) * T]
+        del xh
+    xn, on, wn, yn, otn = (n + tag for n in ("X", "O", "W", "Y", "Ot"))
+    X.register(ctx, xn)
+    O.register(ctx, on)
+    W.register(ctx, wn)
+    tile_bytes = T * d * 4
+    ctx.register_arena(yn, tile_bytes)
+    ctx.register_arena(otn, tile_bytes)
+    dev = make_dev(ctx)
+    tp = pt.Taskpool(ctx, globals={"R": R - 1})
+    r_ = pt.L("r")
+    n0 = tp.task_class("N0")
+    n0.param("r", 0, pt.G("R"))
+    n0.affinity(xn, r_, 0)
+    n0.flow("X", "READ", pt.In(pt.Mem(xn, r_, 0)))
+    n0.flow("W", "READ", pt.In(pt.Mem(wn, 0, 0)))
+    n0.flow("Y", "W", pt.Out(pt.Ref("N1", r_, flow="Y")), arena=yn)
+    n1 = tp.task_class("N1")
+    n1.param("r", 0, pt.G("R"))
+    n1.affinity(on, r_, 0)
+    n1.flow("Y", "READ", pt.In(pt.Ref("N0", r_, flow="Y")), arena=yn)
+    n1.flow("W", "READ", pt.In(pt.Mem(wn, 0, 0)))
+    n1.flow("O", "W", pt.Out(pt.Mem(on, r_, 0)), arena=otn)
+    eps = EPS
+
+    def k_norm(x, w):
+        # x [lanes, T, d]; w [lanes, 1, d], the one scale tile
+        return rn_mod.rms_norm(x, w[0, 0], eps)
+
+    shp, wshp = (T, d), (1, d)
+    dev.attach(n0, tp, kernel=k_norm, reads=["X", "W"], writes=["Y"],
+               shapes={"X": shp, "W": wshp, "Y": shp}, dtype=np.float32)
+    dev.attach(n1, tp, kernel=k_norm, reads=["Y", "W"], writes=["O"],
+               shapes={"Y": shp, "W": wshp, "O": shp}, dtype=np.float32)
+    if reset:
+        kernels.reset_launches()
+    if trace:
+        ctx.profile_take()
+        ctx.profile_enable(2)
+    s0 = ctx.comm_stats()
+    sync(dev_t)
+    t = time.perf_counter()
+    tp.run()
+    t_run = time.perf_counter()
+    tp.wait()
+    t_wait = time.perf_counter()
+    ctx.comm_fence()
+    sync(dev_t)
+    wall = (time.perf_counter() - t) * 1e3
+    # the wall's parts: tp.run() returning, the pool's tasks, the fence
+    parts = {"run_ms": (t_run - t) * 1e3, "wait_ms": (t_wait - t_run) * 1e3,
+             "fence_ms": wall - (t_wait - t) * 1e3}
+    launches = dict(kernels.LAUNCHES)
+    chore_calls = dev.launches.get("k_norm", [0, 0])[0]
+    spans = None
+    if trace:
+        from parsec_tpu_torch.profiling import (KEY_COMM_RECV, KEY_STREAM,
+                                                take_trace)
+        ctx.profile_enable(0)
+        tr = take_trace(ctx, class_names=[c.name for c in tp.classes])
+        ev = tr.events
+        t_min = ev[:, 7].min() if len(ev) else 0
+        recv = ev[(ev[:, 0] == KEY_COMM_RECV) & (ev[:, 1] == 0), 7]
+        spans = trace_summary(tr)
+        spans["stream_span_ms"] = sum(
+            (t1 - t0) / 1e6 for (_, _, key, _, _, _, _, t0, t1)
+            in tr.spans() if key == KEY_STREAM)
+        spans["comm_recv"] = int(len(recv))
+        spans["comm_recv_first_last_ms"] = (
+            [float(recv.min() - t_min) / 1e6, float(recv.max() - t_min)
+             / 1e6] if len(recv) else None)
+    st = dict(dev.stats)  # before any flush
+    s1 = ctx.comm_stats()
+    out = {"label": label, "rank": rank, "wall_ms": wall, "parts": parts,
+           "spans": spans,
+           "launches": launches, "chore_calls": chore_calls,
+           "payload_bytes": R * tile_bytes,
+           "bytes_sent": s1["bytes_sent"] - s0["bytes_sent"],
+           "bytes_recv": s1["bytes_recv"] - s0["bytes_recv"],
+           "stream": ctx.comm_stream_stats(),
+           "dev": {k: st[k] for k in (
+               "dp_sends", "dp_recv_bytes", "dp_d2d_bytes", "dp_errors",
+               "dp_serve_bytes", "dp_serve_d2h_ns", "dp_serve_copy_ns",
+               "d2h_bytes", "h2d_bytes", "stream_serves", "stream_slices",
+               "stream_d2h_ns", "stream_copy_ns", "stream_bytes",
+               "tasks")}}
+    if st["dp_errors"]:
+        raise AssertionError(f"{label} rank {rank}: dp_errors "
+                             f"{st['dp_errors']}")
+    if dev_t.type == "cuda" and (
+            chore_calls <= 0 or launches["rms_norm"] < chore_calls):
+        raise AssertionError(
+            f"{label} rank {rank}: {chore_calls} NORM chore calls, "
+            f"{launches['rms_norm']} rms_norm launches in the process")
+    if rank == 0:
+        if st["dp_sends"] != R or st["d2h_bytes"] != 0:
+            raise AssertionError(
+                f"{label} rank 0: dp_sends {st['dp_sends']} (want {R}), "
+                f"d2h_bytes {st['d2h_bytes']} (want 0: the intermediate's "
+                "host copy is never written)")
+    dev.flush()
+    if rank == 1:
+        moved = st["dp_d2d_bytes"] if ctx._colocated else \
+            st["dp_recv_bytes"]
+        other = st["dp_recv_bytes"] if ctx._colocated else \
+            st["dp_d2d_bytes"]
+        if moved != R * tile_bytes or other != 0:
+            way = "clone" if ctx._colocated else "wire"
+            raise AssertionError(
+                f"{label} rank 1: {st['dp_recv_bytes']} B delivered, "
+                f"{st['dp_d2d_bytes']} B cloned on the card; want "
+                f"{R * tile_bytes} B the {way} way only")
+        # W's 16 KiB tile may be staged more than once (the lane and a
+        # dispatch can race for it), a 16 MiB intermediate never
+        if st["h2d_bytes"] >= tile_bytes or st["h2d_bytes"] % (d * 4):
+            raise AssertionError(f"{label} rank 1: h2d_bytes "
+                                 f"{st['h2d_bytes']}: only W's {d * 4} B "
+                                 "tile may be staged, no intermediate")
+        o = np.concatenate([O.tile(r, 0) for r in range(R)])
+        want = rn_mod.rms_norm_plain(rn_mod.rms_norm_plain(xt, wt, eps), wt,
+                                     eps)
+        out["max_abs_err"] = check_close(
+            f"12 {label} O vs the plain version twice",
+            torch.from_numpy(o).to(dev_t), want, 2e-5, 2e-5)
+        out["o_digest"] = _digest(o)
+    dev.stop()
+    return out
+
+
+def _comm_gemm(ctx, rank, nodes, dev_t, dims, label, want_c, mats, c0,
+               fused=True, trace_path=None) -> dict:
+    """One run of build_gemm_dist on this rank (12a): C reset to c0, a
+    fresh CudaDevice (device.wave_fuse as asked), run, fence, flush;
+    owned C tiles held to phase 4's 1e-4 / 1e-3 against want_c (on the
+    card); returns the wall, the wire counters, the k_gemm_nn widths and
+    the owned C's digest."""
+    import torch
+
+    from parsec_tpu_torch.algos.gemm import build_gemm_dist
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.profiling import take_trace
+    from parsec_tpu_torch.utils import params as _knobs
+    n, nb = dims["gemm"]
+    (A, B, C), names = mats
+    for m in range(C.mt):
+        for k in range(C.nt):
+            if C.rank_of(m, k) == rank:
+                C.tile(m, k)[...] = c0[m * nb:(m + 1) * nb,
+                                       k * nb:(k + 1) * nb]
+    _knobs.set("device.wave_fuse", fused)
+    try:
+        dev = CudaDevice(ctx, device=dev_t)
+    finally:
+        _knobs.unset("device.wave_fuse")
+    tp = build_gemm_dist(ctx, A, B, C, dev, names=names)
+    body = dev.bodies[(id(tp), tp.class_by_name("Gemm").id)]
+    widths, kern = [], body.kernel
+
+    def k_gemm_nn(a_, b_, c_):  # the chore, its widths recorded
+        widths.append(int(a_.shape[0]))
+        return kern(a_, b_, c_)
+    body.kernel = k_gemm_nn
+    if trace_path:
+        ctx.profile_take()
+        ctx.profile_enable(1)
+    s0, r0 = ctx.comm_stats(), ctx.comm_rdv_stats()
+    sync(dev_t)
+    t = time.perf_counter()
+    tp.run()
+    tp.wait()
+    ctx.comm_fence()
+    dev.flush()
+    sync(dev_t)
+    wall = (time.perf_counter() - t) * 1e3
+    s1, rdv = ctx.comm_stats(), ctx.comm_rdv_stats()
+    if trace_path:
+        ctx.profile_enable(0)
+        take_trace(ctx, class_names=[c.name for c in tp.classes]) \
+            .save(trace_path)
+    st = dict(dev.stats)
+    dev.stop()
+    if st["dp_errors"]:
+        raise AssertionError(f"12a {label}: dp_errors {st['dp_errors']}")
+    if s1["msgs_sent"] - s0["msgs_sent"] <= 0:
+        raise AssertionError(f"12a {label}: no message sent")
+    if rdv["registered_bytes"] or rdv["pending_pulls"]:
+        raise AssertionError(f"12a {label}: after the fence {rdv}")
+    rows = [m for m in range(C.mt) if C.rank_of(m, 0) == rank]
+    got = np.concatenate([np.concatenate([C.tile(m, k) for k in
+                                          range(C.nt)], axis=1)
+                          for m in rows])
+    want = torch.cat([want_c[m * nb:(m + 1) * nb] for m in rows])
+    err = check_close(f"12a GEMM {label} rank {rank} owned C vs "
+                      "torch.matmul", torch.from_numpy(got).to(dev_t), want,
+                      1e-4, 1e-3)
+    return {"label": label, "wall_ms": wall, "fused": fused,
+            "bytes_sent": s1["bytes_sent"] - s0["bytes_sent"],
+            "bytes_recv": s1["bytes_recv"] - s0["bytes_recv"],
+            "msgs_sent": s1["msgs_sent"] - s0["msgs_sent"],
+            "gets": rdv["gets_sent"] - r0["gets_sent"],
+            "widths": sorted(set(widths)), "calls": len(widths),
+            "tasks": st["tasks"], "max_abs_err": err,
+            "c_digest": _digest(got)}
+
+
+def _comm_colls(ctx, rank, nodes, dims, topos) -> dict:
+    """12d: the four collectives over a 64 MiB float32 buffer per rank
+    (integer values, so every reduction order gives the same bits),
+    under each topology; every result against numpy's rank-order sum.
+    Returns per (topology, op) the host wall and the result's digest."""
+    from parsec_tpu_torch.comm import coll
+    elems = dims["coll_elems"]
+    alls = [np.random.default_rng(SEED + 100 + r).integers(
+        -50, 50, size=elems).astype(np.float32) for r in range(nodes)]
+    total = np.sum(np.stack(alls), axis=0, dtype=np.float32)
+    seg = -(-elems // nodes)
+    root = 1 % nodes
+    want = {"all_reduce": total,
+            "reduce_scatter": total[rank * seg:(rank + 1) * seg],
+            "all_gather": np.concatenate(alls), "broadcast": alls[root]}
+    out = {}
+    for topo in topos:
+        for op in ("all_reduce", "reduce_scatter", "all_gather",
+                   "broadcast"):
+            ctx.comm_fence()
+            t = time.perf_counter()
+            if op == "broadcast":
+                got = coll.broadcast(ctx, alls[rank].copy(), root=root,
+                                     topo=topo)
+            else:
+                got = getattr(coll, op)(ctx, alls[rank], topo=topo)
+            ms = (time.perf_counter() - t) * 1e3
+            if not np.array_equal(got, want[op]):
+                raise AssertionError(f"12d {op} topo={topo} rank {rank}: "
+                                     "differs from numpy's sum")
+            out[f"{topo}/{op}"] = {"ms": ms, "digest": _digest(got)}
+    ctx.comm_fence()
+    return out
+
+
+def _comm_panels(ctx, rank, nodes, dims) -> dict:
+    """12d: gemm_panel_reduce, the runtime-native collective against the
+    DAG chain, each bit for bit against numpy (integer-valued)."""
+    from parsec_tpu_torch.algos.gemm import gemm_panel_reduce
+    M, K, Nc = dims["panel"]
+    rng = np.random.default_rng(SEED + 3)
+    a = rng.integers(-4, 4, size=(M, K)).astype(np.float32)
+    b = rng.integers(-4, 4, size=(K, Nc)).astype(np.float32)
+    ks = K // nodes
+    ref = sum(a[:, r * ks:(r + 1) * ks] @ b[r * ks:(r + 1) * ks]
+              for r in range(nodes))
+    out = {}
+    for mode in ("coll", "chain"):
+        ctx.comm_fence()
+        t = time.perf_counter()
+        c = gemm_panel_reduce(ctx, a[:, rank * ks:(rank + 1) * ks].copy(),
+                              b[rank * ks:(rank + 1) * ks].copy(),
+                              reduce=mode)
+        ms = (time.perf_counter() - t) * 1e3
+        if not np.array_equal(c, ref):
+            raise AssertionError(f"12d gemm_panel_reduce {mode} rank "
+                                 f"{rank}: differs from numpy")
+        out[mode] = {"ms": ms, "digest": _digest(c)}
+    ctx.comm_fence()
+    return out
+
+
+def comm_rank(rank, nodes, port, q, dev_s, dims, out_dir):
+    """One spawned rank of phase 12 (12a, 12b, 12d, 12e): pushes ("ok",
+    rank, results) or ("err", rank, traceback)."""
+    import traceback
+    try:
+        q.put(("ok", rank, _comm_rank(rank, nodes, port, dev_s, dims,
+                                      out_dir)))
+    except Exception:
+        q.put(("err", rank, traceback.format_exc()))
+
+
+def _comm_rank(rank, nodes, port, dev_s, dims, out_dir) -> dict:
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch.convert import to_tensor
+    from parsec_tpu_torch.data.collections import TwoDimBlockCyclic
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.utils import params as _knobs
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev_t = torch.device(dev_s)
+    if dev_t.type == "cuda":
+        torch.cuda.set_device(dev_t)
+    n, nb = dims["gemm"]
+    rng = np.random.default_rng(SEED + 12)
+    a = rng.standard_normal((n, n), dtype=np.float32)
+    b = rng.standard_normal((n, n), dtype=np.float32)
+    c0 = rng.standard_normal((n, n), dtype=np.float32)
+    want_c = to_tensor(c0, dev_t) + torch.matmul(to_tensor(a, dev_t),
+                                                 to_tensor(b, dev_t))
+    res = {"rank": rank, "gemm": [], "norm": []}
+
+    def collections(ctx, tag):
+        mats, names = [], []
+        for name, src in (("A", a), ("B", b), ("C", None)):
+            m = TwoDimBlockCyclic(n, n, nb, nb, P=nodes, Q=1, nodes=nodes,
+                                  myrank=rank)
+            m.register(ctx, name + tag)
+            if src is not None:
+                m.from_dense(src)
+            mats.append(m)
+            names.append(name + tag)
+        return mats, tuple(names)
+
+    # pass 1: the default knobs (comm.eager_limit 64 KiB, comm.stream and
+    # device.stream_serve on)
+    ctx = pt.Context(nb_workers=4)
+    ctx.set_rank(rank, nodes)
+    ctx.comm_init(port)
+    mats = collections(ctx, "1")
+    for topo in ("star", "chain", "binomial"):
+        ctx.comm_set_topology(topo)
+        res["gemm"].append(_comm_gemm(ctx, rank, nodes, dev_t, dims, topo,
+                                      want_c, mats, c0))
+    ctx.comm_set_topology("star")
+    res["gemm"].append(_comm_gemm(ctx, rank, nodes, dev_t, dims,
+                                  "star unfused", want_c, mats, c0,
+                                  fused=False))
+    res["gemm"].append(_comm_gemm(
+        ctx, rank, nodes, dev_t, dims, "star traced", want_c, mats, c0,
+        trace_path=os.path.join(out_dir, f"phase12_r{rank}.ptt")))
+    res["norm"].append(comm_norm_chain(
+        ctx, rank, nodes, dev_t, dims, "NORM stream on",
+        lambda c: CudaDevice(c, device=dev_t)))
+    res["norm_traced"] = comm_norm_chain(
+        ctx, rank, nodes, dev_t, dims, "NORM stream on, traced",
+        lambda c: CudaDevice(c, device=dev_t), tag="t", trace=True)
+    res["coll"] = _comm_colls(ctx, rank, nodes, dims,
+                              ("ring", "binomial", "star"))
+    res["panel"] = _comm_panels(ctx, rank, nodes, dims)
+    res["coll_stats"] = ctx.coll_stats()
+    res["clock"] = ctx.comm_clock()
+    ctx.comm_fini()
+    ctx.destroy()
+    # pass 2: comm.eager_limit = 0, comm.stream and device.stream_serve
+    # off (the engine reads its knobs at comm_init)
+    os.environ["PTC_MCA_comm_eager_limit"] = "0"
+    os.environ["PTC_MCA_comm_stream"] = "0"
+    _knobs.set("device.stream_serve", False)
+    ctx = pt.Context(nb_workers=4)
+    ctx.set_rank(rank, nodes)
+    ctx.comm_init(port + 8)
+    res["gemm"].append(_comm_gemm(ctx, rank, nodes, dev_t, dims,
+                                  "star eager_limit=0", want_c,
+                                  collections(ctx, "2"), c0))
+    res["norm"].append(comm_norm_chain(
+        ctx, rank, nodes, dev_t, dims, "NORM stream off",
+        lambda c: CudaDevice(c, device=dev_t)))
+    res["coll_off"] = _comm_colls(ctx, rank, nodes, dims, ("ring",))
+    ctx.comm_fini()
+    ctx.destroy()
+    if "jax" in sys.modules:
+        raise AssertionError("phase 12 rank imported jax")
+    return res
+
+
+def comm_colocated(dev_t, dims, port: int) -> list:
+    """12c: phase 12b's NORM chain with two Contexts in this process, one
+    thread each, declared colocated, both devices on one card: the
+    intermediate moves as by-reference tokens and on-card clones."""
+    from parsec_tpu_torch.device import CudaDevice
+    import parsec_tpu_torch as pt
+    results, nodes = {}, 2
+
+    def worker(rank):
+        import traceback
+        try:
+            ctx = pt.Context(nb_workers=2)
+            ctx.set_rank(rank, nodes)
+            ctx.comm_init(port)
+            ctx.comm_set_colocated([r for r in range(nodes) if r != rank])
+            out = comm_norm_chain(ctx, rank, nodes, dev_t, dims,
+                                  "NORM colocated",
+                                  lambda c: CudaDevice(c, device=dev_t),
+                                  reset=False)
+            out["bytes_sent_total"] = ctx.comm_stats()["bytes_sent"]
+            ctx.comm_fini()
+            ctx.destroy()
+            results[rank] = ("ok", out)
+        except Exception:
+            results[rank] = ("err", traceback.format_exc())
+
+    threads = [threading.Thread(target=worker, args=(r,), daemon=True)
+               for r in range(nodes)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=dims["timeout"])
+    bad = [results.get(r, ("err", f"rank {r} did not finish"))
+           for r in range(nodes)
+           if results.get(r, ("err",))[0] != "ok"]
+    if any(t.is_alive() for t in threads):
+        import faulthandler
+        faulthandler.dump_traceback(file=sys.stdout, all_threads=True)
+    if bad:
+        raise AssertionError("12c: " + "\n".join(str(b[1]) for b in bad))
+    return [results[r][1] for r in range(nodes)]
+
+
+def comm_path(dev_t, dims=None, out_dir=None) -> dict:
+    """Phase 12: the comm engine on the card, two ranks as two spawned
+    processes on the one card over the loopback transport (the card
+    time-slices them: the walls include it), then two colocated ranks in
+    this process.
+      12a build_gemm_dist at phase 4's size on P=2 x Q=1 ranks under the
+          star, chain and binomial broadcasts and with
+          comm.eager_limit=0; owned C tiles against torch.matmul at
+          1e-4 / 1e-3; fused (the default) against device.wave_fuse=0
+          bit for bit, or grouped by the widths of their k_gemm_nn calls
+      12b phase 4's NORM as a two-rank chain through the data plane (the
+          RMSNorm kernel on both ranks), with comm.stream and
+          device.stream_serve on and off, O bit-identical between them,
+          and once more streamed and traced at level 2 (the device's
+          and the wire's spans per rank)
+      12c 12b colocated: by-reference tokens and on-card clones
+      12d the four collectives over 64 MiB under ring, binomial and
+          star, comm.stream off bit-exact, and gemm_panel_reduce coll
+          against chain
+      12e 12a's GEMM traced on both ranks, merged on the clock offsets
+    Returns the runs and the hand-written kernels' launches (12b's on
+    both ranks, traced run included, and 12c's)."""
+    import multiprocessing as mp
+
+    import torch
+
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.comm.launch import free_port_base
+    from parsec_tpu_torch.profiling import Trace
+    dims = dims or COMM
+    out_dir = out_dir or os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build", "phase12")
+    os.makedirs(out_dir, exist_ok=True)
+    nodes = 2
+    port = free_port_base(32)
+    mpctx = mp.get_context("spawn")
+    q = mpctx.Queue()
+    dev_s = str(dev_t)
+    procs = [mpctx.Process(target=comm_rank, args=(r, nodes, port, q, dev_s,
+                                                   dims, out_dir))
+             for r in range(nodes)]
+    t0 = time.perf_counter()
+    for p in procs:
+        p.start()
+    import queue
+    got = []
+    try:
+        for _ in range(nodes):
+            got.append(q.get(timeout=dims["timeout"]))
+    except queue.Empty:
+        got.append(("err", -1, f"a rank sent nothing in "
+                    f"{dims['timeout']:.0f} s (timed out)"))
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    errs = [g for g in got if g[0] != "ok"]
+    if errs:
+        raise AssertionError("phase 12 rank failed:\n" +
+                             "\n".join(g[2] for g in errs))
+    if any(p.exitcode != 0 for p in procs):
+        raise AssertionError(f"phase 12 ranks exited "
+                             f"{[p.exitcode for p in procs]}")
+    ranks = [g[2] for g in sorted(got, key=lambda g: g[1])]
+    spmd_s = time.perf_counter() - t0
+    launches = {name: 0 for name in kernels.LAUNCHES}
+    runs = {"spmd_s": spmd_s}
+
+    # 12a: walls and wire bytes per run; fused against unfused
+    gem = list(zip(*[r["gemm"] for r in ranks]))
+    runs["gemm"] = []
+    for per_rank in gem:
+        lb = per_rank[0]["label"]
+        row = {"label": lb,
+               "wall_ms": [g["wall_ms"] for g in per_rank],
+               "bytes_sent": [g["bytes_sent"] for g in per_rank],
+               "msgs_sent": [g["msgs_sent"] for g in per_rank],
+               "widths": [g["widths"] for g in per_rank],
+               "max_abs_err": max(g["max_abs_err"] for g in per_rank),
+               "c_digest": [g["c_digest"] for g in per_rank]}
+        runs["gemm"].append(row)
+        log(f"  12a GEMM {lb}: walls {[f'{w:.1f}' for w in row['wall_ms']]}"
+            f" ms, bytes sent {row['bytes_sent']}, messages "
+            f"{row['msgs_sent']}, k_gemm_nn widths {row['widths']}, C "
+            f"{row['c_digest']}")
+    # phase 11a's one-lane rule: a rank's owned C bits differ between
+    # runs only where one of them made a 1-lane product (cuBLAS's lone
+    # 512^2 product); every run is held to torch.matmul above.  The runs
+    # are grouped per rank by their bits, with the widths as the evidence
+    runs["gemm_groups"] = []
+    for r in range(nodes):
+        groups: dict = {}
+        for r_ in runs["gemm"]:
+            groups.setdefault(r_["c_digest"][r], []).append(
+                (r_["label"], r_["widths"][r]))
+        runs["gemm_groups"].append(groups)
+        log(f"  12a rank {r} owned C bits: " + "; ".join(
+            f"{k}: " + ", ".join(f"{lb} {w}" for lb, w in m)
+            for k, m in groups.items()))
+        if len(groups) > 1 and sum(
+                not any(1 in w for _, w in m) for m in groups.values()) > 1:
+            raise AssertionError(f"12a rank {r}: two groups of runs with "
+                                 "no 1-lane product differ in their bits")
+    by = {r_["label"]: r_ for r_ in runs["gemm"]}
+    f_, u_ = by["star"], by["star unfused"]
+    runs["gemm_fused_bits"] = "identical" if \
+        f_["c_digest"] == u_["c_digest"] else "grouped by widths"
+    log(f"  12a fused against unfused owned C: {runs['gemm_fused_bits']}")
+
+    # 12b: the data plane, stream on and off
+    runs["norm"] = []
+    for i in range(2):
+        r0, r1 = ranks[0]["norm"][i], ranks[1]["norm"][i]
+        for name, n_ in r0["launches"].items():
+            launches[name] += n_ + r1["launches"][name]
+        gbps = r1["payload_bytes"] / (r1["wall_ms"] / 1e3) / 1e9
+        st = r0["stream"]
+        row = {"label": r0["label"], "wall_ms": [r0["wall_ms"],
+                                                 r1["wall_ms"]],
+               "payload_gbps": gbps, "o_digest": r1["o_digest"],
+               "max_abs_err": r1["max_abs_err"],
+               "stream_slices": r0["dev"]["stream_slices"],
+               "stream_d2h_ns": r0["dev"]["stream_d2h_ns"],
+               "stream_copy_ns": r0["dev"]["stream_copy_ns"],
+               "stream_bytes": r0["dev"]["stream_bytes"],
+               "serve_bytes": r0["dev"]["dp_serve_bytes"],
+               "serve_d2h_ns": r0["dev"]["dp_serve_d2h_ns"],
+               "serve_copy_ns": r0["dev"]["dp_serve_copy_ns"],
+               "overlap_fraction": st["overlap_fraction"],
+               "wire_ns": st["wire_ns"], "sessions": st["sessions"],
+               "dev": [r0["dev"], r1["dev"]],
+               "parts": [r0["parts"], r1["parts"]],
+               "launches": [r0["launches"], r1["launches"]]}
+        # the serve's host wall (streamed: paced by the wire) and its
+        # copies alone (CUDA events on the d2h stream)
+        d2h_ns = row["stream_d2h_ns"] or row["serve_d2h_ns"]
+        copy_ns = row["stream_copy_ns"] or row["serve_copy_ns"]
+        d2h_b = row["stream_bytes"] or row["serve_bytes"]
+        row["serve_wall_gbps"] = d2h_b / d2h_ns if d2h_ns else None
+        row["serve_d2h_gbps"] = d2h_b / copy_ns if copy_ns else None
+        if dev_t.type == "cuda" and not copy_ns:
+            raise AssertionError(f"12b {row['label']}: no serve copy timed")
+        runs["norm"].append(row)
+        log(f"  12b {row['label']}: walls {row['wall_ms'][0]:.1f} / "
+            f"{row['wall_ms'][1]:.1f} ms, {r1['payload_bytes']} B over the "
+            f"wire at {gbps:.3f} GB/s of the chain's wall, serve "
+            f"{d2h_b} B in {d2h_ns / 1e6:.1f} ms of host wall "
+            f"({row['serve_wall_gbps']} GB/s), its d2h copies "
+            f"{copy_ns / 1e6:.2f} ms ({row['serve_d2h_gbps']} GB/s), "
+            f"stream_slices {row['stream_slices']}, stream_d2h_ns "
+            f"{row['stream_d2h_ns']}, overlap_fraction "
+            f"{row['overlap_fraction']}, O {row['o_digest']}, launches "
+            f"{row['launches']}; wall parts (run, wait, fence ms) "
+            + ", ".join(f"rank {k}: " + "/".join(
+                f"{v:.1f}" for v in p_.values())
+                for k, p_ in enumerate(row["parts"])))
+    runs["norm_traced"] = []
+    for r_ in ranks:
+        tr_ = r_["norm_traced"]
+        for name, n_ in tr_["launches"].items():
+            launches[name] += n_
+        sp = tr_["spans"]
+        runs["norm_traced"].append({"wall_ms": tr_["wall_ms"], **sp})
+        per = {k: round(v["dispatch_ms"], 1) for k, v in
+               sp["per_class"].items()}
+        log(f"  12b traced rank {r_['rank']}: wall {tr_['wall_ms']:.1f} ms "
+            f"(run/wait/fence " + "/".join(f"{v:.1f}" for v in
+                                            tr_["parts"].values()) + "),"
+            f" window {sp['window_ms']:.1f} ms; dispatch spans {per} ms, "
+            f"stall {sp['stall_ns'] / 1e6:.1f} ms, lane h2d "
+            f"{sp['lane_h2d_ms']:.1f} ms, release {sp['release_ms']:.1f} "
+            f"ms, STREAM spans {sp['stream_span_ms']:.1f} ms; "
+            f"{sp['comm_recv']} deliveries from "
+            f"{sp['comm_recv_first_last_ms']} ms; O "
+            f"{tr_.get('o_digest')}")
+    if ranks[1]["norm_traced"]["o_digest"] != runs["norm"][0]["o_digest"]:
+        raise AssertionError("12b: the traced run's O differs")
+    if runs["norm"][0]["o_digest"] != runs["norm"][1]["o_digest"]:
+        raise AssertionError("12b: O differs between comm.stream on and "
+                             "off")
+    if runs["norm"][0]["stream_slices"] <= 0 or \
+            runs["norm"][1]["stream_slices"] != 0:
+        raise AssertionError("12b: the stream on run streamed no slice, or "
+                             "the off run streamed")
+
+    # 12c: colocated in this process
+    kernels.reset_launches()
+    t = time.perf_counter()
+    colo = comm_colocated(dev_t, dims, free_port_base(4))
+    colo_s = time.perf_counter() - t
+    for name, n_ in kernels.LAUNCHES.items():
+        launches[name] += n_
+    c0_, c1_ = colo
+    if c1_["o_digest"] != runs["norm"][0]["o_digest"]:
+        raise AssertionError("12c: O differs from 12b's")
+    # both ranks launch from this process: its count is theirs together
+    if dev_t.type == "cuda" and kernels.LAUNCHES["rms_norm"] != \
+            c0_["chore_calls"] + c1_["chore_calls"]:
+        raise AssertionError(
+            f"12c: {kernels.LAUNCHES['rms_norm']} rms_norm launches for "
+            f"{c0_['chore_calls']} + {c1_['chore_calls']} NORM chore calls")
+    if c0_["bytes_sent_total"] * 100 > c0_["payload_bytes"]:
+        raise AssertionError(f"12c: rank 0 sent {c0_['bytes_sent_total']} "
+                             f"B for a {c0_['payload_bytes']} B payload")
+    clone_gbps = c1_["payload_bytes"] / (c1_["wall_ms"] / 1e3) / 1e9
+    # the on-card clone alone: comm/ici.py device_transfer of one of the
+    # chain's tiles, CUDA events
+    tile_ms = None
+    if dev_t.type == "cuda":
+        from parsec_tpu_torch.comm.ici import device_transfer
+        rows_, d_, T_ = dims["norm"]
+        tile = torch.randn((T_, d_), device=dev_t)
+        tile_ms = time_ms(lambda: device_transfer(tile, dev_t), 20)
+        log(f"  12c one {T_}x{d_} f32 tile cloned on the card by "
+            f"device_transfer: {tile_ms:.4f} ms = "
+            f"{tile.nbytes / tile_ms / 1e6:.1f} GB/s of payload")
+        del tile
+    runs["colocated"] = {"wall_ms": [c0_["wall_ms"], c1_["wall_ms"]],
+                         "payload_gbps": clone_gbps, "tile_clone_ms": tile_ms,
+                         "bytes_sent": c0_["bytes_sent_total"],
+                         "dev": [c0_["dev"], c1_["dev"]],
+                         "launches": dict(kernels.LAUNCHES),
+                         "phase_s": colo_s}
+    log(f"  12c NORM colocated: walls {c0_['wall_ms']:.1f} / "
+        f"{c1_['wall_ms']:.1f} ms, {c1_['dev']['dp_d2d_bytes']} B cloned "
+        f"on the card ({clone_gbps:.3f} GB/s of the chain's wall), rank 0 "
+        f"sent {c0_['bytes_sent_total']} B on the wire, O bit for bit "
+        f"12b's; rms_norm launched {c0_['chore_calls']} + "
+        f"{c1_['chore_calls']} times by ranks 0 + 1")
+
+    # 12d: the collectives
+    runs["coll"] = {}
+    for key in ranks[0]["coll"]:
+        ms = [r["coll"][key]["ms"] for r in ranks]
+        runs["coll"][key] = ms
+        log(f"  12d {key} 64 MiB: {ms[0]:.1f} / {ms[1]:.1f} ms")
+    for key in ranks[0]["coll_off"]:
+        for r in ranks:
+            if r["coll_off"][key]["digest"] != r["coll"][key]["digest"]:
+                raise AssertionError(f"12d {key}: comm.stream=0 differs")
+    log("  12d comm.stream=0 ring: bit for bit the streamed results")
+    runs["panel"] = {m: [r["panel"][m]["ms"] for r in ranks]
+                     for m in ("coll", "chain")}
+    log(f"  12d gemm_panel_reduce {dims['panel']} coll "
+        f"{runs['panel']['coll']} ms, chain {runs['panel']['chain']} ms; "
+        f"coll_stats {ranks[0]['coll_stats']}")
+
+    # 12e: the merged trace
+    traces = [Trace.load(os.path.join(out_dir, f"phase12_r{r}.ptt"))
+              for r in range(nodes)]
+    m = Trace.merge(traces)
+    off = traces[1].meta.get("clock_offset_ns")
+    if off is None or m.meta["clock_offsets_ns"][1] != off:
+        raise AssertionError(f"12e: rank 1's clock offset {off} not "
+                             f"applied ({m.meta['clock_offsets_ns']})")
+    fl = m.flows()
+    if len(fl) == 0 or not (fl[:, 6] >= 0).all():
+        raise AssertionError(f"12e: {len(fl)} flows, "
+                             f"{int((fl[:, 6] < 0).sum())} receives "
+                             "before their send")
+    runs["trace"] = {"flows": int(len(fl)), "clock_offset_ns": off,
+                     "clock_err_ns": traces[1].meta.get("clock_err_ns"),
+                     "latency_ns_p50": float(np.median(fl[:, 6]))}
+    log(f"  12e merged trace: {len(fl)} cross-rank flows, every receive at "
+        f"or after its send; rank 1 clock offset {off} ns (err "
+        f"{runs['trace']['clock_err_ns']} ns), wire latency p50 "
+        f"{runs['trace']['latency_ns_p50'] / 1e3:.1f} us")
+    return {"runs": runs, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3782,6 +4530,21 @@ def main() -> int:
         launches[name] += n
     log(f"  FUSE phase {time.perf_counter() - t:.1f} s; hand-written "
         f"kernel launches in it: {fz['launches']}")
+    log("phase 12: the comm engine on the card: two ranks as two "
+        "processes on this card over the loopback transport (12a GEMM, 12b "
+        "the data plane, 12d collectives, 12e merged trace), then two "
+        "colocated ranks in this process (12c)")
+    t = time.perf_counter()
+    cm = comm_path(dev_t)
+    comm_s = time.perf_counter() - t
+    for name, n in cm["launches"].items():
+        launches[name] += n
+    cm["runs"]["phase_s"] = comm_s
+    log(f"  COMM phase {comm_s:.1f} s (its ranks' processes "
+        f"{cm['runs']['spmd_s']:.1f} s of it); hand-written kernel launches "
+        f"in it (both ranks): {cm['launches']}")
+    if comm_s > 90.0:
+        raise AssertionError(f"phase 12 took {comm_s:.1f} s (> 90 s)")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
@@ -3789,6 +4552,7 @@ def main() -> int:
     print(json.dumps({"runtime": rt["runs"]}))
     print(json.dumps({"observe": obs["runs"]}))
     print(json.dumps({"fuse": fz["runs"]}))
+    print(json.dumps({"comm": cm["runs"]}))
 
     rows_out = []
     for name, r, err, repl in (

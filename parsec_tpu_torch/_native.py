@@ -116,6 +116,23 @@ DATA_OF_CB_T = C.CFUNCTYPE(C.c_void_p, C.c_void_p, C.POINTER(C.c_int64), C.c_int
 COPY_RELEASE_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_int64)
 COPY_SYNC_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_int64)
 COPY_INVALIDATE_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_int64)
+# the device data plane (ptc_set_dataplane): register a current device
+# mirror as a transfer tag, serve a pull's bytes, retire a serve, deliver
+# a payload to a device, bind the consumer's host copy
+DP_REGISTER_CB_T = C.CFUNCTYPE(C.c_int64, C.c_void_p, C.c_int64, C.c_int64,
+                               C.c_int64)
+DP_SERVE_CB_T = C.CFUNCTYPE(C.c_int64, C.c_void_p, C.c_int64, C.c_int32,
+                            C.c_int32, C.POINTER(C.c_void_p),
+                            C.POINTER(C.c_int64))
+DP_SERVE_DONE_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_int64)
+DP_DELIVER_CB_T = C.CFUNCTYPE(C.c_int64, C.c_void_p, C.c_void_p, C.c_int64,
+                              C.c_int64)
+DP_BOUND_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_int64, C.c_void_p,
+                            C.c_int64, C.c_int32)
+# progressive-serve offer (wire v4 streaming): (user, tag, from, xfer_ok,
+# stream_id, total) -> 1 accept / 0 decline
+DP_STREAM_CB_T = C.CFUNCTYPE(C.c_int32, C.c_void_p, C.c_int64, C.c_int32,
+                             C.c_int32, C.c_uint64, C.c_int64)
 TP_COMPLETE_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.c_void_p)
 PINS_CB_T = C.CFUNCTYPE(None, C.c_void_p, C.POINTER(C.c_int64))
 
@@ -289,12 +306,43 @@ _sigs = {
     "ptc_crash_update_meta": (None, [C.c_void_p]),
     "ptc_crash_disarm": (None, [C.c_void_p]),
     "ptc_crash_dump_now": (C.c_int32, [C.c_void_p]),
-    # rank identity (one rank here: the comm engine is not ported) and
-    # the rank permutation a plan's remap installs
-    "ptc_comm_enabled": (C.c_int32, [C.c_void_p]),
+    # rank identity and the rank permutation a plan's remap installs
     "ptc_context_set_rank": (None, [C.c_void_p, C.c_uint32, C.c_uint32]),
     "ptc_context_set_rank_map": (None, [C.c_void_p,
                                         C.POINTER(C.c_int32), C.c_int32]),
+    # the comm engine (native/comm.cpp): transport, fences, termination
+    # detection, counters, the clock-sync estimate and peer blobs
+    "ptc_comm_init": (C.c_int32, [C.c_void_p, C.c_int32]),
+    "ptc_comm_fence": (C.c_int32, [C.c_void_p]),
+    "ptc_comm_quiesce": (C.c_int32, [C.c_void_p, C.c_void_p]),
+    "ptc_comm_set_topology": (None, [C.c_void_p, C.c_int32]),
+    "ptc_comm_fini": (C.c_int32, [C.c_void_p]),
+    "ptc_comm_enabled": (C.c_int32, [C.c_void_p]),
+    "ptc_comm_stats": (None, [C.c_void_p, C.POINTER(C.c_int64)]),
+    "ptc_comm_rdv_stats": (None, [C.c_void_p, C.POINTER(C.c_int64)]),
+    "ptc_comm_tuning": (None, [C.c_void_p, C.POINTER(C.c_int64)]),
+    "ptc_comm_stream_stats": (None, [C.c_void_p, C.POINTER(C.c_int64)]),
+    "ptc_comm_clock_stats": (None, [C.c_void_p, C.POINTER(C.c_int64)]),
+    "ptc_comm_clock_sync": (C.c_int64, [C.c_void_p]),
+    "ptc_comm_share_blob": (C.c_int32, [C.c_void_p, C.c_char_p, C.c_int64]),
+    "ptc_comm_peer_blob": (C.c_int64, [C.c_void_p, C.c_int32, C.c_void_p,
+                                       C.c_int64]),
+    "ptc_comm_peers_lost": (C.c_int32, [C.c_void_p, C.POINTER(C.c_int64),
+                                        C.c_int32]),
+    "ptc_comm_peer_stats": (C.c_int32, [C.c_void_p, C.POINTER(C.c_int64),
+                                        C.c_int32]),
+    "ptc_comm_probe_rtts": (C.c_int32, [C.c_void_p]),
+    # runtime-native collectives' counters (the ptc_coll_* classes)
+    "ptc_coll_stats": (None, [C.c_void_p, C.POINTER(C.c_int64)]),
+    # the device data plane
+    "ptc_set_dataplane": (None, [C.c_void_p, DP_REGISTER_CB_T, DP_SERVE_CB_T,
+                                 DP_SERVE_DONE_CB_T, DP_DELIVER_CB_T,
+                                 DP_BOUND_CB_T, C.c_void_p]),
+    "ptc_set_dp_can_pull": (None, [C.c_void_p, C.c_int32]),
+    "ptc_set_dp_stream": (None, [C.c_void_p, DP_STREAM_CB_T]),
+    "ptc_dp_serve_progress": (C.c_int32, [C.c_void_p, C.c_uint64,
+                                          C.c_void_p, C.c_uint64,
+                                          C.c_uint64]),
     "ptc_tp_scope": (C.c_int64, [C.c_void_p]),
 }
 

@@ -141,12 +141,22 @@ class CostModel:
 
 
 def _eager_threshold(ctx, econ=None) -> int:
-    """The eager/rendezvous split the comm volume analysis models: the
+    """The eager/rendezvous split the comm volume analysis models:
+    the live engine's effective threshold when comm is up, else the
     fitted transfer-economics crossover (falling back to the static
-    comm.eager_limit knob).  The reference reads the live engine's
-    threshold first when comm is up; here no engine runs."""
-    from ..comm.topology import COMM_KNOBS
-    fallback = int(COMM_KNOBS["comm.eager_limit"])
+    comm.eager_limit param)."""
+    try:
+        if getattr(ctx, "comm_enabled", False):
+            lim = int(ctx.comm_tuning()["eager_limit"])
+            if lim > 0:
+                return lim
+    except Exception:
+        pass
+    from ..utils import params as _mca
+    try:
+        fallback = int(_mca.get("comm.eager_limit"))
+    except (TypeError, ValueError):
+        fallback = 64 * 1024
     if econ is None:
         from ..comm.economics import default_economics
         econ = default_economics()

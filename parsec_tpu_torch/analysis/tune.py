@@ -47,9 +47,11 @@ nanosecond; but this package acts on four of its axes only:
 `ACTED_KNOBS` — device.staging_slots, device.cache_bytes and
 device.wave_fuse (read by a CudaDevice at construction) and
 runtime.mag_batch (read by the native core at context creation).  The
-comm.* and coll.* knobs wait for the comm engine: they are no MCA
-parameters here but constants at the reference's defaults
-(`FIXED_KNOBS`), `apply_knobs` refuses to change them, and
+comm.* and coll.* axes are MCA parameters since the comm engine came
+(utils/config.py), but the tuner does not act on them yet (ROADMAP
+Queue A item 6b): the simulator prices the values in force
+(`FIXED_KNOBS`, read from the registry), `apply_knobs` refuses to
+change them, and
 `ScheduleSimulator.knob_axes` (so `propose` and `autotune`) searches
 only the acted axes.  All four acted knobs are read when the runtime is
 created, so a vector takes effect only for a Context and CudaDevice
@@ -79,7 +81,7 @@ import sys
 from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import _native as N
-from ..comm.topology import COMM_KNOBS
+from ..comm.topology import comm_knob
 from ..core import expr as E
 from ..core.taskclass import Mem, Ref
 from .flowgraph import FlowGraph, extract_flowgraph
@@ -120,11 +122,13 @@ ACTED_KNOBS: Tuple[str, ...] = (
     "device.wave_fuse",
     "runtime.mag_batch",
 )
-# The knobs of TUNE_KNOBS that are no MCA parameters here (the comm
-# engine's), at the reference's defaults, the values the simulator
-# prices.
-FIXED_KNOBS: Dict[str, object] = {
-    k: v for k, v in COMM_KNOBS.items() if k in TUNE_KNOBS}
+# The knobs of TUNE_KNOBS this package prices but does not tune yet (the
+# comm engine's and the collectives'): the simulator prices the values in
+# force (comm.topology.comm_knob: the MCA registry, else the constant of
+# a knob that is no parameter here) and apply_knobs refuses to change
+# them.
+FIXED_KNOBS: Tuple[str, ...] = tuple(
+    k for k in TUNE_KNOBS if k not in ACTED_KNOBS)
 
 # Modeled dispatch-path constants (nanoseconds), the reference's,
 # calibrated against its committed BENCH_dispatch level-0 numbers (its
@@ -291,11 +295,9 @@ def graph_signature(tp) -> str:
 
 # ------------------------------------------------------ knob handling
 def default_knobs() -> Dict[str, object]:
-    """The knob vector currently in force (MCA resolution order for the
-    registered knobs, FIXED_KNOBS for the rest)."""
-    from ..utils import params as _mca
-    return {k: FIXED_KNOBS[k] if k in FIXED_KNOBS else _mca.get(k)
-            for k in TUNE_KNOBS}
+    """The knob vector currently in force (MCA resolution order; a comm
+    knob that is no parameter here answers its constant)."""
+    return {k: comm_knob(k) for k in TUNE_KNOBS}
 
 
 def _refuse_unacted(name: str, value) -> object:
@@ -306,12 +308,12 @@ def _refuse_unacted(name: str, value) -> object:
     from ..utils.config import _coerce
     if name in ACTED_KNOBS:
         return value
-    if name in FIXED_KNOBS:
-        cur = FIXED_KNOBS[name]
-        same = _coerce(str(value), type(cur)) == cur
-    elif name in reg._reg:
+    if name in reg._reg:
         cur = reg.get(name)
         same = _coerce(str(value), reg._reg[name].type) == cur
+    elif name in FIXED_KNOBS:
+        cur = comm_knob(name)
+        same = _coerce(str(value), type(cur)) == cur
     else:
         raise KeyError(f"unknown tuning knob {name!r}")
     if not same:

@@ -23,7 +23,8 @@ Spec sources, in priority order:
      "0,1|2,3;4,5|6,7" = two islands of two 2-rank hosts each), or a
      path to a JSON file {"islands": [[[0,1],[2,3]], [[4,5],[6,7]]]}.
      The reference reads it from PTC_MCA_comm_topology; here that
-     parameter waits for the comm engine (COMM_KNOBS below).
+     parameter is still a COMM_KNOBS constant (flat), to be registered
+     with the tuner's comm axes.
   2. RTT auto-detect (`TopologyModel.from_rtts`): cluster this rank's
      measured PING/PONG round trips at the largest relative gap into a
      near set (my island) and a far set.  Per-rank and therefore NOT
@@ -44,28 +45,30 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 LINK_CLASSES = ("loopback", "host", "ici", "dcn")
 
-# The comm engine's knobs at the reference's defaults.  This package
-# runs no comm engine yet, so they are constants here, not MCA
-# parameters (they become parameters with the engine): the analyses
-# price the reference's defaults.  A per-class override ("" = inherit
-# the base knob) exists for the ici and dcn classes only.
+# The comm knobs that are no MCA parameters here, at the reference's
+# defaults: nothing in the port acts on them (the engine's rails, an
+# explicit topology spec, the relay's DCN penalty), but the analyses
+# price them.  Every other comm.* and coll.* knob is registered
+# (utils/config.py) and read only there; `comm_knob` answers for both.
+# A per-class override ("" = inherit the base knob) exists for the ici
+# and dcn classes only.
 COMM_KNOBS: Dict[str, object] = {
-    "comm.eager_limit": 64 * 1024,
-    "comm.chunk_size": 1 << 20,
     "comm.rails": 2,
-    "coll.topo": "auto",
-    "coll.max_slices": 16,
-    "comm.topology": "",
-    "comm.dcn_nonleader_penalty": 4.0,
-    "comm.chunk_size.ici": "",
-    "comm.chunk_size.dcn": "",
     "comm.rails.ici": "",
     "comm.rails.dcn": "",
-    "comm.eager_limit.ici": "",
-    "comm.eager_limit.dcn": "",
-    "coll.topo.ici": "",
-    "coll.topo.dcn": "",
+    "comm.topology": "",
+    "comm.dcn_nonleader_penalty": 4.0,
 }
+
+
+def comm_knob(name: str):
+    """A comm knob's value in force: the MCA registry's for a registered
+    knob, else its COMM_KNOBS constant (KeyError when it is neither)."""
+    from ..utils import params as _mca
+    try:
+        return _mca.get(name)
+    except KeyError:
+        return COMM_KNOBS[name]
 
 
 class TopologyModel:
@@ -225,10 +228,24 @@ def default_topology(nranks: int,
 def resolve_class_knob(name: str, cls: Optional[str] = None):
     """A comm knob with its per-class override: `{name}.{cls}` (e.g.
     comm.chunk_size.dcn) wins when non-empty, else the base knob
-    answers.  The reference resolves both through its MCA registry;
-    here both are COMM_KNOBS constants, so every override inherits."""
-    ov = COMM_KNOBS.get(f"{name}.{cls}", "")
-    return COMM_KNOBS[name] if ov == "" else ov
+    answers; both read through `comm_knob`.  Per-class overrides are
+    strings with '' = inherit, so 0 stays a legal override value."""
+    base = comm_knob(name)
+    if cls not in ("ici", "dcn"):
+        return base
+    try:
+        ov = comm_knob(f"{name}.{cls}")
+    except KeyError:
+        return base
+    if ov is None or str(ov).strip() == "":
+        return base
+    if isinstance(base, bool):
+        return str(ov).strip().lower() in ("1", "true", "yes", "on")
+    if isinstance(base, int):
+        return int(str(ov).strip())
+    if isinstance(base, float):
+        return float(str(ov).strip())
+    return str(ov).strip()
 
 
 def relay_beats_direct(nbytes: int, src: int, dst: int,
@@ -244,7 +261,7 @@ def relay_beats_direct(nbytes: int, src: int, dst: int,
     if econ is None:
         from .economics import default_economics
         econ = default_economics()
-    pen = float(COMM_KNOBS["comm.dcn_nonleader_penalty"])
+    pen = float(comm_knob("comm.dcn_nonleader_penalty"))
     ls = topo.leader_of(topo.island_of(src))
     ld = topo.leader_of(topo.island_of(dst))
     if src == ls and dst == ld:

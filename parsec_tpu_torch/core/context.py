@@ -7,11 +7,10 @@ for data collections, arenas and datatypes.
 
 Port of parsec_tpu/core/context.py, with its observability hooks (PINS,
 the live sampler, the metrics exporter, the watchdog, the journal), the
-metrics accessors and the controller.  The comm engine, which arrives
-with the device data plane, is not there: a context is one rank
-(`myrank` 0 of `nodes` 1, `comm_enabled` read from the native core), a
-trace carries no clock offset, and stats() has no comm or coll
-namespace.
+metrics accessors, the controller and the comm engine's surface
+(comm_init and the rest of the comm_* methods, coll_stats, the clock-
+sync estimate, and the comm/coll/clock namespaces of stats(), whose
+schema is the same when comm is off).
 """
 from __future__ import annotations
 
@@ -106,9 +105,17 @@ class Context:
                      os.environ.get("PTC_MCA_runtime_mag_batch", ""))
         mag = int(m.group()) if m else 0
         self.mag_batch = mag if 1 <= mag <= 8192 else 64
-        # one rank until the comm engine is ported (set_rank mirrors a
-        # change into the native core, which keeps no getter)
+        # one rank until set_rank (which mirrors a change into the native
+        # core, which keeps no getter)
         self.myrank, self.nodes = 0, 1
+        # peer ranks whose devices share this process (comm_set_colocated)
+        self._colocated: set = set()
+        # the collective builder's op-level records and its name counter
+        # (comm/coll.py)
+        self._coll_py_stats = None
+        self._coll_uid = 0
+        # fence epochs completed (the journal's time ruler)
+        self._fence_epoch = 0
         if scheduler != "lfq":
             N.lib.ptc_context_set_scheduler(self._ptr, scheduler.encode())
         if _mca.get("runtime.profile"):
@@ -243,8 +250,6 @@ class Context:
 
     @property
     def comm_enabled(self) -> bool:
-        """Whether the native comm engine runs (never, until it is
-        ported: a context here is one rank)."""
         return bool(N.lib.ptc_comm_enabled(self._ptr))
 
     def set_rank(self, myrank: int, nodes: int):
@@ -267,6 +272,212 @@ class Context:
                              f"0..{len(perm) - 1}, got {perm}")
         arr = (C.c_int32 * len(perm))(*perm)
         N.lib.ptc_context_set_rank_map(self._ptr, arr, len(perm))
+
+    # ------------------------------------------------------------ comm (L4)
+    def comm_init(self, base_port: Optional[int] = None):
+        """Bring up the distributed control plane: a full-mesh loopback
+        TCP transport carrying dependency activations, memory write-backs,
+        DTD completion broadcasts and fences (reference: the comm engine
+        and remote_dep protocol, parsec/parsec_comm_engine.h,
+        parsec/remote_dep.c).  Call set_rank first; blocks until all
+        ranks are connected.  A no-op on one rank."""
+        if base_port is None:
+            base_port = _mca.get("comm.base_port")
+        if N.lib.ptc_comm_init(self._ptr, base_port) != 0:
+            raise RuntimeError("comm engine init failed")
+        topo = _mca.get("comm.bcast_topo")
+        if topo != "star":
+            self.comm_set_topology(topo)
+
+    def comm_set_colocated(self, ranks):
+        """Declare peer ranks whose devices live in this process (several
+        Contexts over one card, or several cards of one process).  Device-
+        resident payloads to and from them are handed off by reference
+        and cloned on the card instead of crossing the host transport:
+        the colocated peers MUST run a CudaDevice.  Reference seam: comm-
+        engine put/get on registered memory, parsec_comm_engine.h:139-160."""
+        self._colocated = {int(r) for r in ranks}
+
+    def comm_set_topology(self, topo):
+        """Activation-broadcast propagation topology: "star" (direct
+        per-rank sends), "chain" (pipeline along the ring), "binomial"
+        (log-depth tree).  Reference: runtime_comm_coll_bcast,
+        parsec/remote_dep.c:39-47."""
+        names = {"star": 0, "chain": 1, "binomial": 2}
+        if isinstance(topo, str):
+            if topo not in names:
+                raise ValueError(
+                    f"unknown broadcast topology {topo!r} "
+                    f"(comm.bcast_topo): expected one of {sorted(names)}")
+            t = names[topo]
+        else:
+            t = int(topo)
+            if t not in (0, 1, 2):
+                raise ValueError(
+                    f"unknown broadcast topology {topo!r}: expected 0 (star),"
+                    " 1 (chain), 2 (binomial)")
+        N.lib.ptc_comm_set_topology(self._ptr, t)
+
+    def comm_fence(self):
+        """Flush + all-to-all fence: on return, every message sent by any
+        rank before its fence has been applied everywhere.  Raises when a
+        peer's connection died, or on timeout when
+        PTC_MCA_comm_fence_timeout_s is set (default infinite: a slow peer
+        is not a dead peer).  Each completed fence is one epoch of the
+        journal's time ruler."""
+        rc = N.lib.ptc_comm_fence(self._ptr)
+        jr = self._journal
+        if rc == 0:
+            self._fence_epoch += 1
+            if jr is not None:
+                jr.record("fence", epoch=self._fence_epoch)
+        elif jr is not None:
+            jr.record("fence", epoch=self._fence_epoch,
+                      error="peer_lost" if rc == -2 else "timeout")
+        if rc == -2:
+            raise RuntimeError("comm fence failed: peer lost")
+        if rc != 0:
+            raise RuntimeError("comm fence timed out")
+
+    def comm_quiesce(self, tp=None):
+        """Counting termination detection (reference: the fourcounter
+        termdet module, mca/termdet/fourcounter): blocks until every rank
+        is idle (for `tp`, its task count zero; context-wide otherwise)
+        with no application message in flight.  For DSLs that cannot
+        count tasks a priori (DTD).  Raises like comm_fence."""
+        tptr = tp._ptr if tp is not None else None
+        rc = N.lib.ptc_comm_quiesce(self._ptr, tptr)
+        if rc == -2:
+            raise RuntimeError("termdet quiesce failed: peer lost")
+        if rc != 0:
+            raise RuntimeError("termdet quiesce timed out")
+
+    def comm_fini(self):
+        N.lib.ptc_comm_fini(self._ptr)
+
+    def comm_stats(self) -> dict:
+        buf = (C.c_int64 * 4)()
+        N.lib.ptc_comm_stats(self._ptr, buf)
+        return {"msgs_sent": buf[0], "msgs_recv": buf[1],
+                "bytes_sent": buf[2], "bytes_recv": buf[3]}
+
+    def comm_rdv_stats(self) -> dict:
+        """Rendezvous-protocol counters.  After a fence, registered_bytes
+        and pending_pulls must both be 0 (bounded comm memory)."""
+        buf = (C.c_int64 * 4)()
+        N.lib.ptc_comm_rdv_stats(self._ptr, buf)
+        return {"gets_sent": buf[0], "gets_served": buf[1],
+                "registered_bytes": buf[2], "pending_pulls": buf[3]}
+
+    def comm_tuning(self) -> dict:
+        """The transfer path's tuning in force and the chunk protocol's
+        counters: the eager/rendezvous threshold (fixed, or derived by
+        the adaptive calibration from the measured RTT and memcpy rate),
+        the chunk and window knobs, the chunks moved, and the streaming
+        counters under "stream"."""
+        buf = (C.c_int64 * 8)()
+        N.lib.ptc_comm_tuning(self._ptr, buf)
+        out = {"eager_limit": buf[0], "chunk_size": buf[1],
+               "inflight": buf[2], "rtt_ns": buf[3],
+               "memcpy_bps": buf[4], "chunks_sent": buf[5],
+               "chunks_recv": buf[6], "eager_adaptive": bool(buf[7])}
+        out["stream"] = self.comm_stream_stats()
+        return out
+
+    def comm_stream_stats(self) -> dict:
+        """Cross-rank streaming counters (wire v4): progressive-serve
+        sessions, ranged GETs parked above the d2h watermark, the per-hop
+        span sums (d2h window, wire window, their overlap), peer-loss
+        reaps and the rail count.  overlap_fraction is the share of the
+        producer's d2h time the wire was already moving under."""
+        buf = (C.c_int64 * 8)()
+        N.lib.ptc_comm_stream_stats(self._ptr, buf)
+        d2h = buf[3]
+        return {"sessions": buf[0], "parked_gets": buf[1],
+                "overlap_ns": buf[2], "d2h_ns": d2h, "wire_ns": buf[4],
+                "reaps": buf[5], "rails": buf[6],
+                "stream_enabled": bool(buf[7]),
+                "overlap_fraction":
+                    round(buf[2] / d2h, 4) if d2h > 0 else None}
+
+    def comm_peer_stats(self) -> list:
+        """Per-peer wire counters: one dict per peer rank with bytes and
+        messages sent and received, parked streaming GETs, and the min
+        probed RTT to that peer (0 until a probe ran).  Empty when comm
+        is off."""
+        cap = max(1, self.nodes)
+        buf = (C.c_int64 * (cap * 6))()
+        n = N.lib.ptc_comm_peer_stats(self._ptr, buf, cap)
+        out = []
+        for r in range(n):
+            b = buf[r * 6:r * 6 + 6]
+            out.append({"bytes_sent": int(b[0]), "bytes_recv": int(b[1]),
+                        "msgs_sent": int(b[2]), "msgs_recv": int(b[3]),
+                        "parked_gets": int(b[4]), "rtt_ns": int(b[5])})
+        return out
+
+    def comm_probe_rtts(self) -> int:
+        """PING every peer and wait (<= 2 s) for per-peer min RTTs (the
+        link-class auto-detect input, TopologyModel.from_rtts).  Returns
+        the number of peers with a measured RTT."""
+        return int(N.lib.ptc_comm_probe_rtts(self._ptr))
+
+    def comm_topo_stats(self) -> dict:
+        """Per-link-class wire counters: the per-peer native counters
+        folded through the TopologyModel in force, plus the class matrix.
+        The schema is the same when comm is off (every class present,
+        zeroed; matrix empty)."""
+        from ..comm.topology import LINK_CLASSES, default_topology
+        keys = ("bytes_sent", "bytes_recv", "msgs_sent", "msgs_recv",
+                "parked_gets")
+        classes = {c: {k: 0 for k in keys} for c in LINK_CLASSES}
+        peers = self.comm_peer_stats()
+        rtts = {r: p["rtt_ns"] for r, p in enumerate(peers)
+                if p["rtt_ns"] > 0}
+        topo = default_topology(self.nodes, rtts_ns=rtts or None,
+                                my_rank=self.myrank)
+        for r, p in enumerate(peers):
+            row = classes[topo.class_of(self.myrank, r)]
+            for k in keys:
+                row[k] += p[k]
+        return {"classes": classes,
+                "matrix": topo.matrix() if peers else [],
+                "n_islands": topo.n_islands,
+                "source": topo.source}
+
+    def coll_stats(self) -> dict:
+        """Runtime-native collective counters (the ptc_coll_* task-class
+        family built by comm/coll.py): the native step/frame/byte
+        counters plus the builder's op-level records (ops built, the
+        topology chosen per op)."""
+        buf = (C.c_int64 * 6)()
+        N.lib.ptc_coll_stats(self._ptr, buf)
+        py = self._coll_py_stats or {"ops": 0, "by_kind": {}, "by_topo": {}}
+        return {
+            "steps": buf[0],
+            "send_msgs": buf[1], "send_bytes": buf[2],
+            "recv_msgs": buf[3], "recv_bytes": buf[4],
+            "ops": py["ops"],
+            "by_kind": dict(py["by_kind"]),
+            "by_topo": dict(py["by_topo"]),
+        }
+
+    def comm_clock(self) -> dict:
+        """Clock-sync estimate against rank 0: offset_ns such that
+        local_t + offset_ns ~ rank 0's clock, measured from PING/PONG
+        midpoints at comm bring-up and refreshed at each fence (the
+        minimum-RTT sample wins; err_ns is that RTT).  Trace.merge applies
+        it.  measured is False before the first sample (and on one
+        rank)."""
+        buf = (C.c_int64 * 4)()
+        N.lib.ptc_comm_clock_stats(self._ptr, buf)
+        return {"offset_ns": buf[0], "err_ns": buf[1],
+                "samples": buf[2], "measured": bool(buf[3])}
+
+    def comm_clock_sync(self) -> int:
+        """Force a fresh clock-sync probe burst (blocks up to ~2 s for at
+        least one sample); returns the samples accumulated."""
+        return N.lib.ptc_comm_clock_sync(self._ptr)
 
     def rusage(self) -> dict:
         """Process resource usage (the reference's per-EU rusage dumps,
@@ -340,7 +551,9 @@ class Context:
         """Counters aggregated across this context's devices (the keys
         of the device module's stats, the pipeline's included: prefetch
         hits/misses/staged bytes, reserve failures, spill traffic,
-        dispatch-time h2d stall), the counter-level overlap ratio — the
+        dispatch-time h2d stall, the progressive serve's stream_*
+        counters; the data plane's dp_* counters stay per device, in
+        "devices"), the counter-level overlap ratio — the
         share of h2d nanoseconds spent on the prefetch lane, overlapping
         compute, rather than stalling a dispatch — the wave compiler's
         counters under "fuse" (summed; `refused` merges the per-reason
@@ -355,7 +568,8 @@ class Context:
                 "prefetch_staged", "prefetch_bytes", "prefetch_hits",
                 "prefetch_misses", "prefetch_wasted", "reserve_fails",
                 "spills", "spill_bytes", "prefetch_h2d_ns", "ooc_waits",
-                "prefetch_wakeups")
+                "prefetch_wakeups", "stream_serves", "stream_slices",
+                "stream_d2h_ns", "stream_bytes")
         agg = {k: sum(d["stats"][k] for d in devs) for k in keys}
         moved = agg["prefetch_h2d_ns"] + agg["h2d_stall_ns"]
         agg["overlap_ratio"] = (
@@ -382,8 +596,11 @@ class Context:
                      counters per tenant (serve.Server.stats());
                      {"enabled": False} when no Server is attached
           device  -> device_stats()
-          trace   -> tracing health: level and the flight recorder's
-                     ring/drop state
+          comm    -> the engine's counter groups (engine, rdv, tuning,
+                     stream, topo); present, zeroed, when comm is off
+          coll    -> coll_stats()
+          trace   -> tracing health: level, the flight recorder's
+                     ring/drop state and the clock-sync estimate
           metrics -> always-on histogram subsystem health: enabled
                      flag, interned class count, exporter port and
                      watchdog status
@@ -403,14 +620,26 @@ class Context:
             serve_ns["enabled"] = True
         reg = self._scope_registry
         wd, exp = self._watchdog, self._metrics_exporter
+        tuning = self.comm_tuning()
         return {
             "sched": self.sched_stats(),
             "serve": serve_ns,
             "device": self.device_stats(),
+            "comm": {
+                "enabled": self.comm_enabled,
+                "engine": self.comm_stats(),
+                "rdv": self.comm_rdv_stats(),
+                "tuning": tuning,
+                # the same snapshot as tuning["stream"]: one native read
+                "stream": tuning["stream"],
+                "topo": self.comm_topo_stats(),
+            },
+            "coll": self.coll_stats(),
             "trace": {
                 "level": self.profile_level(),
                 "ring_bytes": self.profile_ring(),
                 "dropped_events": self.profile_dropped(),
+                "clock": self.comm_clock(),
             },
             "metrics": {
                 "enabled": self.metrics_enabled,
@@ -472,6 +701,8 @@ class Context:
             lines.append(f"device[{i}] queue={dev.qid} "
                          f"depth={self.device_queue_depth(dev.qid)}")
             lines.append(f"device[{i}] info: {dev.info()}")
+        if self.comm_enabled:
+            lines.append(f"comm: {self.comm_stats()}")
         return "\n".join(lines)
 
     # ------------------------------------------------------- QoS taskpools

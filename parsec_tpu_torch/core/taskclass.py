@@ -23,6 +23,24 @@ import numpy as np
 from .. import _native as N
 from .expr import Compr, CompileCtx, ExprLike, Range, compile_expr
 
+_COPY_PULL: Optional[Callable[[int], None]] = None
+
+
+def register_copy_pull(fn: Callable[[int], None]) -> None:
+    """Install the coherence pull that a host read of a task's copy
+    makes first (the device module does so when it is imported)."""
+    global _COPY_PULL
+    _COPY_PULL = fn
+
+
+def _sync_copy(cptr) -> None:
+    """The coherence pull before a host read of a task's copy.  Only a
+    device module can have staged the copy (its handle), and it installs
+    the pull at import, so until then there is nothing to pull, and a
+    pure host DAG never pays its import (torch's)."""
+    if _COPY_PULL is not None:
+        _COPY_PULL(cptr)
+
 # directories whose frames are builder plumbing, not authorship: the
 # source location of a dep/class is the first frame OUTSIDE these (the
 # algos/ops/dsl module or user code that called In()/Out()/task_class();
@@ -408,8 +426,7 @@ class TaskView:
                 f"{self._tc.name}: flow {flow!r} has no data attached")
         cptr = N.lib.ptc_task_copy(self._ptr, fi)
         if sync:
-            from ..device.cuda import maybe_sync_copy
-            maybe_sync_copy(cptr)
+            _sync_copy(cptr)
         size = N.lib.ptc_copy_size(cptr)
         dt = np.dtype(dtype)
         count = size // dt.itemsize

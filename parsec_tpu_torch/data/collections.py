@@ -14,8 +14,7 @@ Reference analogs:
 A collection supplies rank_of(*idx) (owner-computes placement) and
 data_of(*idx) (the local datum).  Local tiles are numpy arrays; the CUDA
 device layer mirrors them into device tensors on demand.  Port of
-parsec_tpu/data/collections.py; its ReplicatedLocal (the placement of
-tensor-parallel serving) comes with the comm engine.
+parsec_tpu/data/collections.py.
 """
 from __future__ import annotations
 
@@ -173,6 +172,28 @@ class TwoDimBlockCyclic(Collection):
     def data_of(self, m: int, n: int) -> Optional[Data]:
         return _once(self._datas, (m, n), lambda: self._ctx.data(
             self.key_of(m, n), self.tile(m, n)))
+
+
+class ReplicatedLocal(TwoDimBlockCyclic):
+    """Rank-replicated tiled matrix: every rank holds (and owns) its own
+    private instance of every tile.  rank_of always answers the local
+    rank, so in a multi-rank context tasks touching the collection see
+    purely local Mem edges on whichever rank they were anchored to: the
+    placement of SPMD-replicated shard state (per-rank KV page pools,
+    slot collections) in tensor-parallel serving, where the only
+    cross-rank traffic is the explicit ptc_coll_* reduction wire.
+    """
+
+    def __init__(self, M: int, N: int, mb: int, nb: int, nodes: int = 1,
+                 myrank: int = 0, dtype=np.float32,
+                 init: Optional[Callable] = None):
+        # storage is per-rank private: build the tile store single-rank,
+        # then stamp the real (nodes, myrank) identity rank_of answers
+        super().__init__(M, N, mb, nb, dtype=dtype, init=init)
+        self.nodes, self.myrank = nodes, myrank
+
+    def rank_of(self, m: int, n: int) -> int:
+        return self.myrank
 
 
 class SymTwoDimBlockCyclic(_SymStorage, TwoDimBlockCyclic):

@@ -46,6 +46,14 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
     bit
   - plan_check: the pre-run residency check of a pool's predicted device
     working set against the byte budget (device.plan_check)
+  - the data plane (ptc_set_dataplane): a remote dependency whose copy
+    has a current mirror here is served from the card, by one d2h into
+    pinned memory, or streamed in comm.chunk_size slices from the
+    writeback lane (device.stream_serve), or, to a colocated rank, as a
+    by-reference token whose tensor is cloned on the consumer's device;
+    a payload that arrives is staged on the least-loaded device as a raw
+    mirror.  A failed callback hands the dependency to the host path,
+    as in the reference, and counts in stats["dp_errors"]
 
 A failing kernel fails its tasks (ctx.task_fail) and so the pool: there
 is no silent fallback to another path.
@@ -64,10 +72,14 @@ from the manager and lane threads, as worker -1):
     lane; _h2d_ahead: stage_collection, the panel DAGs' index segments):
     class -1, aux 1.  Every byte stats["h2d_bytes"] counts is in one
     of these spans.
-Both bracket what the HOST does, as the reference's spans do: from the
-start of the copy into pinned staging (or of the launch's staging) to
-the asynchronous enqueue.  The copies and kernels themselves run on the
-card's streams after the span ends; torch.profiler times those.
+  - STREAM around each progressive serve (_stream_serve, on the
+    writeback lane): l0 = bytes, l1 = the queue; it brackets the slices'
+    d2h copies and their pushes to the wire.
+The first two bracket what the HOST does, as the reference's spans do:
+from the start of the copy into pinned staging (or of the launch's
+staging) to the asynchronous enqueue.  The copies and kernels
+themselves run on the card's streams after the span ends;
+torch.profiler times those.
 
 `CudaDevice(ctx)` runs on the card and raises where there is none;
 `CudaDevice(ctx, device="cpu")` runs the same module with torch CPU
@@ -77,6 +89,7 @@ the streams are None.
 from __future__ import annotations
 
 import contextlib
+import ctypes as C
 import os
 import queue
 import sys
@@ -90,11 +103,12 @@ import numpy as np
 import torch
 
 from .. import _native as N
+from ..comm.ici import device_transfer
 from ..core.context import Context
-from ..core.taskclass import Mem, TaskClass, TaskView
+from ..core.taskclass import Mem, TaskClass, TaskView, register_copy_pull
 from ..core.taskpool import Taskpool
 from ..dsl.dtd import DtdView
-from ..profiling.trace import KEY_DEVICE, KEY_H2D
+from ..profiling.trace import KEY_DEVICE, KEY_H2D, KEY_STREAM
 from ..utils import params as _knobs
 from .fuse import WaveFuser
 from .prefetch import _PrefetchLane
@@ -238,6 +252,254 @@ def maybe_sync_copy(cptr) -> None:
     h = N.lib.ptc_copy_handle(cptr)
     if h:
         sync_copy_handle(h)
+
+
+register_copy_pull(maybe_sync_copy)
+
+
+# ---------------------------------------------------------------- data plane
+# Device side of the comm engine's PK_DEVICE rendezvous (native seam:
+# ptc_set_dataplane; reference: comm-engine put/get on registered memory,
+# parsec_comm_engine.h:139-160).  A remote dep whose copy has a current
+# device mirror is advertised as a transfer tag; at pull time the payload
+# is served EITHER as bytes (one d2h on the d2h stream into pinned memory,
+# the host transport carries them; or, streamed, in comm.chunk_size slices
+# from the writeback lane) OR, when the pulling rank is colocated (another
+# Context of this process), as a 16-byte by-reference token, and the tile
+# itself is cloned on the consumer's device.  The consumer's host bytes
+# then materialize lazily through the ordinary dirty-mirror coherence
+# pull.
+#
+# A pinned payload is a tensor no later write reaches: an output row is
+# cloned out of its launch's stack at registration (a later wave writes a
+# fresh stack and installs it as a new cache entry; nothing writes a stack
+# in place), and the clone is ordered after the row's event on the d2h
+# stream.  Every serve and delivery is ordered by events, never by a
+# device-wide synchronize.
+_DP_LOCK = threading.Lock()
+_DP_STATE = {"next_tag": 1}
+# tag -> [payload tensor, refcount, (copy handle, version), raw, owning
+# device, event after which the payload is valid (None on the CPU)]; a
+# (copy, version) advertised to several ranks or batches shares one tag
+_DP_REG: Dict[int, list] = {}
+_DP_BY_KEY: Dict[tuple, int] = {}
+# tag -> [pinned host buffers], one entry per live serve (two pulls of one
+# tag can be mid-serve at once with the chunked rendezvous); popped by
+# dp_serve_done
+_DP_SERVING: Dict[int, list] = {}
+# colocated by-reference handoff: pull id -> (tensor, raw, event)
+_DP_XFER: Dict[int, tuple] = {}
+_DP_REF_MAGIC = b"PTCDPRF1"
+
+
+def _dp_error(ctx, where: str, dev=None) -> None:
+    """A data-plane callback failed: print the traceback, log it and count
+    it in dp_errors (of `dev`, else of the context's first device).  The
+    callback's return value then hands the dependency to the host path, as
+    the reference's does, so a job still finishes; dp_errors is what makes
+    the fallback visible."""
+    traceback.print_exc()
+    sys.stderr.write(f"ptc [device]: data plane {where} failed; the host "
+                     "path carries this dependency\n")
+    if dev is None and ctx._devices:
+        dev = ctx._devices[0]
+    if dev is not None:
+        dev._stats_add("dp_errors")
+
+
+def _dp_pin(dev: "CudaDevice", ent: "_CacheEnt"):
+    """(payload tensor, event) for a current mirror: the entry's own tensor
+    when it owns its storage, else (a row of a launch's or a gather's
+    stack) a clone of the row on the d2h stream after the row's event."""
+    arr = ent.arr
+    if ent.stack is None:
+        return arr, ent.event
+    if dev._stream is None:
+        return arr.clone(), None
+    with torch.cuda.stream(dev._d2h_stream):
+        dev._await(ent.event)
+        arr.record_stream(dev._d2h_stream)
+        row = arr.clone()
+        return row, dev._record(dev._d2h_stream)
+
+
+def _make_dp_callbacks(ctx):
+    """Per-context data-plane callbacks (closing over ctx._devices and
+    ctx._colocated)."""
+
+    def dp_register(user, copy_handle, version, size) -> int:
+        """A remote send asks: is there a current device mirror of this
+        copy?  Returns a transfer tag (> 0) or 0 for the host path."""
+        try:
+            for dev in list(ctx._devices):
+                with dev._lock:
+                    ent = dev._cache.get(copy_handle)
+                    if ent is None or ent.version != version:
+                        continue
+                key = (copy_handle, version)
+                with _DP_LOCK:
+                    tag = _DP_BY_KEY.get(key)
+                    if tag is not None and tag in _DP_REG:
+                        _DP_REG[tag][1] += 1
+                        dev._stats_add("dp_sends")
+                        return tag
+                arr, ev = _dp_pin(dev, ent)
+                with _DP_LOCK:
+                    tag = _DP_STATE["next_tag"]
+                    _DP_STATE["next_tag"] += 1
+                    _DP_REG[tag] = [arr, 1, key, ent.raw, dev, ev]
+                    _DP_BY_KEY[key] = tag
+                dev._stats_add("dp_sends")
+                return tag
+            return 0
+        except Exception:
+            _dp_error(ctx, "register")
+            return 0
+
+    def dp_serve(user, tag, from_rank, xfer_ok, ptr_out, real_out) -> int:
+        """Produce one pull's wire bytes: the payload itself (one d2h into
+        pinned memory, waited on by its event only), or, for a colocated
+        consumer, a by-reference token."""
+        dev = None
+        try:
+            with _DP_LOCK:
+                rec = _DP_REG.get(tag)
+            if rec is None:
+                return -1
+            arr, dev, ev = rec[0], rec[4], rec[5]
+            if from_rank in ctx._colocated:
+                # one handoff slot per PULL: a fan-out to several
+                # colocated consumers serves several tokens
+                with _DP_LOCK:
+                    pull_id = _DP_STATE["next_tag"]
+                    _DP_STATE["next_tag"] += 1
+                    _DP_XFER[pull_id] = (arr, rec[3], ev)
+                buf = torch.frombuffer(bytearray(
+                    _DP_REF_MAGIC + int(pull_id).to_bytes(8, "little")),
+                    dtype=torch.uint8)
+            else:
+                buf = dev._serve_d2h(arr, ev)
+            with _DP_LOCK:
+                _DP_SERVING.setdefault(tag, []).append(buf)
+            ptr_out[0] = buf.data_ptr()
+            real_out[0] = arr.nbytes
+            return buf.numel()
+        except Exception:
+            _dp_error(ctx, "serve", dev)
+            return -1
+
+    def dp_serve_stream(user, tag, from_rank, xfer_ok, stream_id,
+                        total) -> int:
+        """Progressive-serve offer (wire v4 streaming): accept by
+        ENQUEUEING the sliced d2h on the owning device's writeback lane
+        (never block: this runs on the comm thread).  Declined for a
+        colocated consumer, whose by-ref handoff moves the tile on the
+        card."""
+        dev = None
+        try:
+            if not _knobs.get("device.stream_serve"):
+                return 0
+            if from_rank in ctx._colocated:
+                return 0
+            with _DP_LOCK:
+                rec = _DP_REG.get(tag)
+            if rec is None:
+                return 0
+            arr, dev = rec[0], rec[4]
+            if int(arr.nbytes) != int(total):
+                return 0
+            if dev._wb_thread is None or not dev._wb_thread.is_alive():
+                return 0
+            with _DP_LOCK:
+                # placeholder pin: the engine calls dp_serve_done once per
+                # serve, streamed or not; without a matching push the
+                # retire would pop a concurrent synchronous serve's buffer
+                _DP_SERVING.setdefault(tag, []).append(None)
+            dev._wb_q.put(("stream", [], (int(stream_id), int(tag))))
+            return 1
+        except Exception:
+            _dp_error(ctx, "stream offer", dev)
+            return 0
+
+    def dp_serve_done(user, tag) -> None:
+        with _DP_LOCK:
+            pins = _DP_SERVING.get(tag)
+            if pins:
+                pins.pop()
+                if not pins:
+                    _DP_SERVING.pop(tag, None)
+            rec = _DP_REG.get(tag)
+            if rec is not None:
+                rec[1] -= 1
+                if rec[1] <= 0:
+                    _DP_REG.pop(tag, None)
+                    _DP_BY_KEY.pop(rec[2], None)
+
+    def dp_deliver(user, ptr, size, tag) -> int:
+        """A payload (or a by-ref token) arrived for a device-plane dep:
+        place it on this context's least-loaded device and return the
+        cache uid stamped on the new host copy."""
+        dev = None
+        try:
+            # a running device: a stopped one stays in ctx._devices (its
+            # stats still count) but has no manager to consume from it
+            devs = [d for d in ctx._devices if not d._stop.is_set()]
+            if not devs or size <= 0:
+                return 0
+            dev = min(devs, key=lambda d: ctx.device_queue_depth(d.qid))
+            src = (C.c_uint8 * size).from_address(ptr)
+            if size == 16 and bytes(src[:8]) == _DP_REF_MAGIC:
+                pull_id = int.from_bytes(bytes(src[8:]), "little")
+                with _DP_LOCK:
+                    hand = _DP_XFER.pop(pull_id, None)
+                if hand is None:
+                    raise RuntimeError(f"by-ref token {pull_id} unknown")
+                arr, was_raw, ev = hand
+                darr, dev_ev = dev._clone_in(arr, ev)
+                uid = _next_uid()
+                # rawness travels with the tensor: a relayed raw mirror
+                # stays raw (its consumers reinterpret at stage-in)
+                dev._cache_put(uid, 0, darr, darr.nbytes, raw=was_raw,
+                               event=dev_ev)
+                dev._stats_add("dp_d2d_bytes", darr.nbytes)
+                dev._pf_wake.set()
+                return uid
+            darr, dev_ev = dev._h2d_async(
+                torch.frombuffer(src, dtype=torch.uint8))
+            uid = _next_uid()
+            # version 0 matches the fresh wire-materialized copy; raw: the
+            # first stage-in reinterprets to the consumer's dtype/shape
+            dev._cache_put(uid, 0, darr, size, raw=True, event=dev_ev)
+            dev._stats_add("dp_recv_bytes", size)
+            # a remote tile just landed: wake the lane now
+            dev._pf_wake.set()
+            return uid
+        except Exception:
+            _dp_error(ctx, "deliver", dev)
+            return 0
+
+    def dp_bound(user, uid, ptr, size, host_valid) -> None:
+        """The consumer-side host copy now exists: bind it as the mirror's
+        writeback target.  host_valid=0 (a by-ref delivery: the host
+        buffer was never written) marks the mirror dirty, so a host read
+        materializes it through the coherence pull."""
+        try:
+            for dev in list(ctx._devices):
+                with dev._lock:
+                    ent = dev._cache.get(uid)
+                    if ent is None:
+                        continue
+                    ent.host = np.ctypeslib.as_array(
+                        (C.c_uint8 * size).from_address(ptr))
+                    if not host_valid:
+                        ent.dirty = True
+                    ent.persistent = False  # a wire copy, not user Data
+                    return
+        except Exception:
+            _dp_error(ctx, "bind")
+
+    return (dp_register, dp_serve, dp_serve_done, dp_deliver, dp_bound,
+            dp_serve_stream)
 
 
 class _CacheEnt:
@@ -393,7 +655,19 @@ class CudaDevice:
                       # the lane's stages of the wave compiler's chain
                       # hints: staged, served at a stage-in, refused
                       "prefetch_hint_stages": 0, "prefetch_hint_hits": 0,
-                      "prefetch_hint_wasted": 0}
+                      "prefetch_hint_wasted": 0,
+                      # the data plane: tags registered for remote sends,
+                      # payload bytes delivered over the wire and as on-
+                      # card clones (colocated), bytes served by a whole
+                      # d2h, its host ns and its copy's ns, callbacks that
+                      # failed (the host path then carried the dependency)
+                      "dp_sends": 0, "dp_recv_bytes": 0, "dp_d2d_bytes": 0,
+                      "dp_serve_bytes": 0, "dp_serve_d2h_ns": 0,
+                      "dp_serve_copy_ns": 0, "dp_errors": 0,
+                      # progressive serve (writeback lane slicing)
+                      "stream_serves": 0, "stream_slices": 0,
+                      "stream_d2h_ns": 0, "stream_copy_ns": 0,
+                      "stream_bytes": 0}
         # chore name -> [launches, lanes]: one launch per kernel call of
         # the manager (epilogues included), written under self._lock
         self.launches: Dict[str, List[int]] = {}
@@ -432,6 +706,18 @@ class CudaDevice:
             ctx._copy_invalidate_cb = N.COPY_INVALIDATE_CB_T(_ctx_inval)
             N.lib.ptc_set_copy_invalidate_cb(ctx._ptr,
                                              ctx._copy_invalidate_cb, None)
+        # device data plane: remote deps with a current device mirror ride
+        # PK_DEVICE rendezvous instead of the host eager/GET paths
+        if getattr(ctx, "_dp_cbs", None) is None:
+            reg, srv, done, dlv, bnd, strm = _make_dp_callbacks(ctx)
+            ctx._dp_cbs = (N.DP_REGISTER_CB_T(reg), N.DP_SERVE_CB_T(srv),
+                           N.DP_SERVE_DONE_CB_T(done),
+                           N.DP_DELIVER_CB_T(dlv), N.DP_BOUND_CB_T(bnd))
+            N.lib.ptc_set_dataplane(ctx._ptr, *ctx._dp_cbs, None)
+            # the progressive-serve offer hook (kept alive beside the
+            # tuple: a ctypes thunk dies with its last reference)
+            ctx._dp_stream_cb = N.DP_STREAM_CB_T(strm)
+            N.lib.ptc_set_dp_stream(ctx._ptr, ctx._dp_stream_cb)
         ctx._devices.append(self)  # stopped before the native ctx dies
         _ALL_DEVICES.append(self)
         # writeback lane (reference: the CUDA stage-out stream,
@@ -459,12 +745,13 @@ class CudaDevice:
             return contextlib.nullcontext()
         return torch.cuda.device(self.device)
 
-    def _record(self, stream=None) -> Optional["torch.cuda.Event"]:
+    def _record(self, stream=None,
+                timing: bool = False) -> Optional["torch.cuda.Event"]:
         """An event at the current end of `stream` (the exec stream by
-        default); None on the CPU."""
+        default), one that times when `timing`; None on the CPU."""
         if self._stream is None:
             return None
-        ev = torch.cuda.Event()
+        ev = torch.cuda.Event(enable_timing=timing)
         ev.record(stream or self._stream)
         return ev
 
@@ -681,14 +968,15 @@ class CudaDevice:
             N.lib.ptc_device_clear_data_owner(self.ctx._ptr, k, self.qid)
 
     def _cache_put(self, uid, version, arr, nbytes, dirty=False, host=None,
-                   persistent=True, stack=None, idx=0, event=None):
+                   persistent=True, stack=None, idx=0, event=None,
+                   raw=False):
         spill = []
         with self._lock:
             old = self._cache.pop(uid, None)
             if old is not None:
                 self._uncharge(old)
             ent = _CacheEnt(uid, version, arr, nbytes, dirty, host,
-                            persistent, stack, idx, event=event)
+                            persistent, stack, idx, raw=raw, event=event)
             self._cache[uid] = ent
             self._charge(ent)
             # affinity stamp: consumers of this copy at this version route
@@ -1176,6 +1464,10 @@ class CudaDevice:
                                 self._wb_write(uid, ostack, i, rows[i])
                     elif kind == "spill":
                         self._spill(payload)
+                    elif kind == "stream":
+                        # progressive serve: slice a remote-pulled
+                        # mirror's d2h through the engine's watermark
+                        self._stream_serve(*payload)
                     else:
                         for uid in payload:
                             self.sync_handle(uid)
@@ -1187,6 +1479,128 @@ class CudaDevice:
                 self._stats_add("wb_tasks", len(tasks))
                 for t in tasks:
                     self.ctx.task_complete(t)
+
+    # ------------------------------------------------------------ data plane
+    def _serve_d2h(self, arr: torch.Tensor, event) -> torch.Tensor:
+        """A pull's bytes (the synchronous serve): one d2h of the pinned
+        payload on the d2h stream after its event, into a pinned host
+        buffer, waited on by that copy's event alone.  Counted in
+        dp_serve_bytes, dp_serve_d2h_ns (the host wall, the wait for the
+        payload's event included) and dp_serve_copy_ns (the copy alone,
+        CUDA events), not in d2h_bytes (no host copy of the tile is
+        written).  On the CPU: an owned byte copy."""
+        t0 = time.perf_counter_ns()
+        flat = arr.reshape(-1).view(torch.uint8)
+        copy_ns = 0
+        if self._stream is None:
+            buf = flat.clone()
+        else:
+            with torch.cuda.stream(self._d2h_stream):
+                self._await(event)
+                arr.record_stream(self._d2h_stream)
+                buf = self._pinned(flat.shape, torch.uint8)
+                began = self._record(self._d2h_stream, timing=True)
+                buf.copy_(flat, non_blocking=True)
+                done = self._record(self._d2h_stream, timing=True)
+            done.synchronize()
+            copy_ns = int(began.elapsed_time(done) * 1e6)
+        with self._lock:
+            self.stats["dp_serve_bytes"] += buf.numel()
+            self.stats["dp_serve_d2h_ns"] += time.perf_counter_ns() - t0
+            self.stats["dp_serve_copy_ns"] += copy_ns
+        return buf
+
+    def _clone_in(self, arr: torch.Tensor, event):
+        """A colocated payload onto this device: a clone on the h2d stream
+        after the producer's event (comm/ici.py device_transfer), for the
+        exec stream.  Returns (tensor, the clone's event)."""
+        if self._stream is None:
+            return device_transfer(arr, self.device), None
+        with torch.cuda.stream(self._h2d_stream):
+            out = device_transfer(arr, self.device, event=event)
+            done = self._record(self._h2d_stream)
+        out.record_stream(self._stream)
+        return out, done
+
+    def _stream_serve(self, stream_id: int, tag: int) -> None:
+        """Progressive-serve slicer (writeback lane): d2h the registered
+        payload in comm.chunk_size slices, pushing each through
+        ptc_dp_serve_progress, so the engine's watermark advances and the
+        wire starts after the FIRST slice instead of the whole tile.  Two
+        pinned slice buffers alternate: slice k+1's copy is on the d2h
+        stream while slice k is pushed (the engine copies what it is
+        given).  The engine answers 0 when the session is gone (retired,
+        or the puller lost): stop; dp_serve_done drops the pin.
+        stream_d2h_ns is the loop's host wall (copies, pushes and the
+        wire's pace), stream_copy_ns the slices' copies alone (CUDA
+        events)."""
+        with _DP_LOCK:
+            rec = _DP_REG.get(tag)
+        if rec is None:
+            return  # raced a release; the engine reaps on peer loss
+        arr, ev = rec[0], rec[5]
+        flat = arr.reshape(-1).view(torch.uint8)
+        total = flat.numel()
+        item = arr.element_size()
+        chunk = int(self.ctx.comm_tuning().get("chunk_size") or (1 << 20))
+        step = max(item, chunk // item * item)
+        on_card = self._stream is not None
+        if on_card:
+            bufs = [self._pinned((min(step, total),), torch.uint8)
+                    for _ in range(2)]
+
+        def start(k: int):
+            off = k * step
+            n = min(step, total - off)
+            if not on_card:
+                return off, flat[off:off + n], None
+            with torch.cuda.stream(self._d2h_stream):
+                if k == 0:
+                    self._await(ev)
+                    arr.record_stream(self._d2h_stream)
+                b = bufs[k % 2][:n]
+                began = self._record(self._d2h_stream, timing=True)
+                b.copy_(flat[off:off + n], non_blocking=True)
+                return off, b, (began, self._record(self._d2h_stream,
+                                                    timing=True))
+
+        N.lib.ptc_prof_event(self.ctx._ptr, KEY_STREAM, 0, -1, total,
+                             self.qid, 0)
+        t0 = time.perf_counter_ns()
+        nslices = (total + step - 1) // step
+        slices = sent = copy_ns = 0
+        try:
+            nxt = start(0) if nslices else None
+            for k in range(nslices):
+                off, b, evs = nxt
+                nxt = start(k + 1) if k + 1 < nslices else None
+                if evs is not None:
+                    evs[1].synchronize()
+                    copy_ns += int(evs[0].elapsed_time(evs[1]) * 1e6)
+                while True:
+                    rc = N.lib.ptc_dp_serve_progress(
+                        self.ctx._ptr, stream_id, b.data_ptr(), off,
+                        b.numel())
+                    if rc != -1:
+                        break
+                    # the session install races the accept callback
+                    time.sleep(0.0002)
+                if rc == 0:
+                    return  # session reaped: stop slicing
+                slices += 1
+                sent += b.numel()
+                if rc == 2:
+                    return  # absorbed, and the session completed with it
+        finally:
+            dt = time.perf_counter_ns() - t0
+            N.lib.ptc_prof_event(self.ctx._ptr, KEY_STREAM, 1, -1, total,
+                                 self.qid, 0)
+            with self._lock:
+                self.stats["stream_serves"] += 1
+                self.stats["stream_slices"] += slices
+                self.stats["stream_d2h_ns"] += dt
+                self.stats["stream_copy_ns"] += copy_ns
+                self.stats["stream_bytes"] += sent
 
     def _wb_write(self, uid, ostack, i, row: torch.Tensor) -> None:
         """Land row i of a launch's output stack if the cache entry is

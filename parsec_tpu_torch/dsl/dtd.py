@@ -26,6 +26,7 @@ from .. import _native as N
 from ..analysis.dtdlint import DtdLinter
 from ..analysis.flowgraph import collection_tile_bytes
 from ..core.context import Context, Data
+from ..core.taskclass import _sync_copy
 from ..core.taskpool import Taskpool
 from ..utils import params as _mca
 
@@ -60,8 +61,7 @@ class DtdView:
         if sync:
             # a device task may hold this tile's current bytes as a dirty
             # mirror: write it back before the host reads
-            from ..device.cuda import maybe_sync_copy
-            maybe_sync_copy(cptr)
+            _sync_copy(cptr)
         size = N.lib.ptc_copy_size(cptr)
         dt = np.dtype(dtype)
         buf = (C.c_char * size).from_address(ptr)

@@ -8,7 +8,8 @@ tear it) and loads it with ctypes.  `build_all()` starts one nvcc per
 source, all at once.  Nothing is built when this module is imported.
 
 `LAUNCHES[name]` counts the launches of each kernel; a wrapper adds one
-where it launches its kernel and nowhere else.
+(`count_launch`, safe across threads: colocated ranks launch from the
+threads of one process) where it launches its kernel and nowhere else.
 """
 from __future__ import annotations
 
@@ -32,9 +33,18 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(name: str) -> None:
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+
+
 def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _COUNT_LOCK:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def source_path(name: str) -> str:

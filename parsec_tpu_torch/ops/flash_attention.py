@@ -77,7 +77,7 @@ def flash_attention_cuda(q, k, v, causal: bool, scale: float):
             1 if causal else 0, _DTYPE_CODES[q.dtype],
             torch.cuda.current_stream(q.device).cuda_stream)
     kernels.check(lib, "flash_attention", rc)
-    kernels.LAUNCHES["flash_attention"] += 1
+    kernels.count_launch("flash_attention")
     return o
 
 

@@ -27,8 +27,8 @@ IDENTICAL bytes.  With a device attached, PATTF/VATF run `fold_heads`,
 the torch form of the same fold on lane stacks; it agrees with the host
 fold to f32 rounding (TF32 must stay off).
 
-Not ported yet: tensor-parallel sharding (`shard=`, nodes > 1), which
-needs the comm engine; asking for it raises NotImplementedError.
+Not ported yet: tensor-parallel sharding (`shard=`, nodes > 1); asking
+for it raises NotImplementedError.
 """
 from __future__ import annotations
 
@@ -53,8 +53,8 @@ __all__ = ["PagePool", "SeqSpec", "attend_page", "attend_heads",
 def _no_shard(nodes: int = 1, shard=None):
     if nodes > 1 or shard is not None:
         raise NotImplementedError(
-            "tensor-parallel paged attention (nodes > 1, shard=) needs "
-            "the comm engine, which is not ported to parsec_tpu_torch yet")
+            "tensor-parallel paged attention (nodes > 1, shard=) is not "
+            "ported to parsec_tpu_torch yet")
 
 
 def prefix_page_keys(model_id: str, tokens: Sequence[int],

@@ -54,7 +54,7 @@ def rms_norm_cuda(x2d: torch.Tensor, w: torch.Tensor,
             _DTYPE_CODES[w.dtype],
             torch.cuda.current_stream(x2d.device).cuda_stream)
     kernels.check(lib, "rms_norm", rc)
-    kernels.LAUNCHES["rms_norm"] += 1
+    kernels.count_launch("rms_norm")
     return y
 
 

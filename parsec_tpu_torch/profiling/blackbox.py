@@ -20,7 +20,7 @@ is the recorder:
              pool census, inflight EXEC bodies, registered providers
              such as PagePool.frozen_keys) in its journal (the
              reference also replicates it to every peer and journals
-             peer loss, which needs the comm engine).  The journal also
+             peer loss, not ported yet).  The journal also
              arms the native fatal-signal crash dump
              (<dir>/crash.<rank>.ptt; runtime.journal_crash_dump).
 
@@ -43,10 +43,10 @@ one JSON object per line with at least
 clock so journal records align exactly with .ptt trace spans and the
 checkpointed clock offsets make cross-rank merges causally consistent.
 
-Port of parsec_tpu/profiling/blackbox.py, on one rank: the checkpoint
-is journalled but not replicated (no peer to hold it), no peer loss is
-polled and the inventory carries no clock offsets, all three waiting
-for the comm engine.
+Port of parsec_tpu/profiling/blackbox.py, rank-local: the checkpoint
+is journalled but not replicated to the peers, no peer loss is polled
+and the inventory carries no clock offsets; the three are not ported
+yet (the engine's blob and peer-loss calls are bound in _native.py).
 """
 from __future__ import annotations
 
@@ -194,7 +194,7 @@ class Journal:
 
     def checkpoint(self) -> dict:
         """Record the inventory (the reference also replicates it to
-        every live peer, which needs the comm engine)."""
+        every live peer, which is not ported yet)."""
         inv = self.inventory()
         self.record("checkpoint", inventory=inv)
         with self._lock:
@@ -324,7 +324,7 @@ class Journal:
                     "fsyncs": self._fsyncs, "rotations": self._rotations,
                     "checkpoints": self._checkpoints,
                     "crash_armed": self._armed_rank is not None,
-                    # peer loss is polled from the comm engine
+                    # peer loss is not polled yet (rank-local)
                     "lost_peers": []}
 
 

@@ -26,8 +26,8 @@ comm bring-up.  On shared hosts point `path` somewhere private — the
 default lives in the temporary directory for tail-ability.
 
 Port of parsec_tpu/profiling/live.py.  A sample has no comm, stream,
-topo or fleet-router rows until the comm engine and the router are
-ported; `dev{i}_cache_bytes` is the device's live cache occupancy; the
+topo or fleet-router rows yet (they are ported with the router and the
+rest of the multi-rank serving stack); `dev{i}_cache_bytes` is the device's live cache occupancy; the
 default sink lies in tempfile.gettempdir() (TMPDIR), where the
 reference's is /tmp.
 """

@@ -28,9 +28,8 @@ module only snapshots and renders them — safe to call from any thread at
 any frequency.
 
 Port of parsec_tpu/profiling/metrics.py.  The watchdog's stalled-pull
-check reads the comm engine's rendezvous counters and waits for it; its
-slow-rank check reads the fence-time RTTs, and so never fires on the
-one rank a context has here.
+check (the comm engine's rendezvous counters) is not ported yet; its
+slow-rank check reads the fence-time RTTs.
 """
 from __future__ import annotations
 

@@ -38,8 +38,8 @@ path's epoch drifts from CLOCK_MONOTONIC over long processes, so
 time.monotonic_ns would misalign the windows by milliseconds.
 
 Port of parsec_tpu/profiling/scope.py.  The conformance record's
-measured wire bytes read the comm engine's counter, so they stay None
-(as in the reference with comm off) until it is ported.
+measured wire bytes read the comm engine's bytes_sent counter (None, as
+in the reference, when comm is off).
 """
 from __future__ import annotations
 
@@ -199,9 +199,9 @@ class ScopeRegistry:
         # structured decision log (fleet router placements, re-routes,
         # migrations): bounded ring so a long-lived router can't grow it
         self._events: deque = deque(maxlen=1024)
-        # wire bytes at the epoch's start (0: one rank sends none; the
-        # comm engine's counter feeds it once ported)
-        self._comm_base = 0
+        # the comm engine's bytes_sent at the epoch's start
+        self._comm_base = (ctx.comm_stats()["bytes_sent"]
+                           if ctx.comm_enabled else 0)
 
     # -------------------------------------------------------- lifecycle
     def tenant(self, name: str, slo_ms=None, burn_threshold=None,
@@ -345,6 +345,8 @@ class ScopeRegistry:
         the two generations, keeping coverage/soundness recent AND
         bounded."""
         bytes_now = self._comm_base
+        if self.ctx.comm_enabled:
+            bytes_now = self.ctx.comm_stats()["bytes_sent"]
         self._conf_prev = {
             "pools": self._pools_done,
             "planned": self._pools_planned,
@@ -498,6 +500,8 @@ class ScopeRegistry:
             per_class_cost = dict(self._per_class_cost)
             prev = self._conf_prev
             epochs = self._conf_epochs
+            comm_base = self._comm_base
+        prev_wire = 0
         if prev is not None:
             # merge the closed generation: the rollup spans at most two
             # conformance windows, however long the run has been
@@ -506,10 +510,12 @@ class ScopeRegistry:
             pred_wire += prev["pred_wire"]
             pred_est += prev["pred_est"]
             spill_pred += prev["spill_pred"]
-        # measured wire bytes need the comm engine's counter: None on
-        # one rank, as in the reference with comm off
+            prev_wire = prev["measured_wire"]
         measured_wire = None
         comm_sound = None
+        if self.ctx.comm_enabled:
+            measured_wire = (self.ctx.comm_stats()["bytes_sent"]
+                             - comm_base) + prev_wire
         coverage = planned / pools if pools else None
         if measured_wire is not None and pools and coverage == 1.0:
             comm_sound = bool(pred_wire >= measured_wire)

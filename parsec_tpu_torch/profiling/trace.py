@@ -23,8 +23,8 @@ Port of parsec_tpu/profiling/trace.py.  The file format is the same byte
 for byte, so a trace the port writes on the card loads in the
 reference's Trace.load (and its tools, tools/ptt_critpath.py and
 tools/ptt2tables.py, read it on a machine with JAX), and the reverse.
-The port has no comm engine yet: its traces carry no clock offset and
-no COMM/COLL/SCOPE flows.
+take_trace stamps each rank's clock offset from Context.comm_clock, so
+Trace.merge lines up the ranks of a multi-rank run.
 """
 import json
 import struct
@@ -596,14 +596,18 @@ def take_trace(ctx, rank: Optional[int] = None,
                class_names: Optional[List[str]] = None,
                meta: Optional[dict] = None) -> Trace:
     """Drain a Context's native profiling buffers into a Trace.  The
-    header meta is stamped with the flight recorder's drop count and ring
-    size, and with the request-scope legend when a ScopeRegistry is
-    attached.  `rank` defaults to the context's rank (0: the port runs
-    one rank; the clock offset a merge applies comes with the comm
-    engine)."""
+    header meta is stamped with the rank's clock-sync estimate
+    (Context.comm_clock, once measured: a later Trace.merge aligns the
+    ranks with it), the flight recorder's drop count and ring size, and
+    the request-scope legend when a ScopeRegistry is attached.  `rank`
+    defaults to the context's rank."""
     m = dict(meta or {})
     if rank is None:
         rank = getattr(ctx, "myrank", 0)
+    ck = ctx.comm_clock()
+    if ck["measured"]:
+        m.setdefault("clock_offset_ns", ck["offset_ns"])
+        m.setdefault("clock_err_ns", ck["err_ns"])
     m.setdefault("dropped_events", ctx.profile_dropped())
     m.setdefault("ring_bytes", ctx.profile_ring())
     # request-scope legend (header stays v2: meta is free-form JSON) —

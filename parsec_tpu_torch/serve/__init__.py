@@ -1,6 +1,5 @@
 """Multi-tenant serving runtime over the task runtime (port of
-parsec_tpu/serve without the fleet router, which waits for the analysis
-layer and the comm engine):
+parsec_tpu/serve without the fleet router, which is not ported yet):
 
   Server            admission-controlled front door: per-tenant
                     concurrent-pool and queued-bytes budgets, queue or

@@ -23,8 +23,8 @@ plan-vs-measured record when the pool retires.  An attached controller
 (Context.controller) is bound to the engine and polled once per reaped
 step.
 
-Not ported yet: tensor-parallel serving (tp > 1, the comm engine)
-raises NotImplementedError.
+Not ported yet: tensor-parallel serving (tp > 1) raises
+NotImplementedError.
 """
 from __future__ import annotations
 
@@ -253,8 +253,8 @@ class InferenceEngine:
                  spec_draft="self", tp: int = 1):
         if int(tp) > 1:
             raise NotImplementedError(
-                "tensor-parallel serving (tp > 1) needs the comm engine, "
-                "which is not ported to parsec_tpu_torch yet")
+                "tensor-parallel serving (tp > 1) is not ported to "
+                "parsec_tpu_torch yet")
         cfg = model.cfg
         self.ctx = ctx
         self.model = model

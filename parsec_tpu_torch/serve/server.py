@@ -23,7 +23,7 @@ is planned (Taskpool.plan()) and its prediction folds into the scope
 registry's plan-vs-measured record at retirement.
 
 Not ported yet: `cancel`, which only the fleet router calls (it comes
-with the router and the comm engine).
+with the router).
 """
 from __future__ import annotations
 

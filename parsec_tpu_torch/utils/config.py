@@ -14,7 +14,8 @@ device.plan_check, and the DTD
 front end's dtd.window_size and dtd.insert_batch, the observability
 hooks (runtime.pins, live, metrics_port, watchdog, journal and their
 settings), the analyses' plan.*, scope.*, tune.* and control.* params,
-runtime.mag_batch and coll.econ_path.
+runtime.mag_batch and coll.econ_path, and the comm engine's and the
+collectives' comm.* and coll.* knobs with device.stream_serve.
 """
 import os
 from typing import Any, Callable, Dict, Optional
@@ -374,11 +375,93 @@ register("control.budget_min_share", 0.10, float,
          "re-weights shares by prefix hit rate (keeps a cold tenant "
          "from being evicted to zero)")
 
+# the comm engine (native/comm.cpp reads the PTC_MCA_comm_* env spelling
+# at comm_init) and the runtime-native collectives (comm/coll.py)
+register("comm.base_port", 29650, int, "TCP rendezvous base port")
+register("comm.bcast_topo", "star", str,
+         "activation broadcast topology: star|chain|binomial "
+         "(reference: runtime_comm_coll_bcast)")
+register("comm.eager_limit", 64 * 1024, int,
+         "payloads <= this ride inline in ACTIVATE; larger ones are pulled "
+         "via GET rendezvous (reference: runtime_comm_short_limit, "
+         "remote_dep_mpi.c:241-253); negative disables rendezvous.  Set "
+         "the env form (PTC_MCA_comm_eager_limit) to the string 'auto' "
+         "to derive the threshold at comm init from the measured "
+         "per-peer round trip and host memcpy rate (Context.comm_tuning() "
+         "reports the threshold in force)")
+register("comm.chunk_size", 1 << 20, int,
+         "rendezvous payloads above this stream as pipelined ranged "
+         "chunks (GET[offset,len] -> PUT_CHUNK) instead of one frame: "
+         "the wire, the producer's serve and the consumer's reassembly "
+         "overlap, and fences/activations interleave between chunks "
+         "instead of stalling behind one giant frame.  <= 0 disables "
+         "chunking (whole-payload pulls)")
+register("comm.inflight", 4, int,
+         "chunked-pull window: how many ranged GETs a consumer keeps "
+         "outstanding per pull.  Bounds in-flight memory to "
+         "inflight * chunk_size per pull while keeping the pipe full")
+register("comm.stream", True, bool,
+         "progressive streaming serve (wire v4): a chunked pull of a "
+         "device-resident payload streams d2h slices through "
+         "ptc_dp_serve_progress — ranged GETs at or below the ready-"
+         "bytes watermark are answered immediately, the rest park on "
+         "the session and flush as the watermark advances, so the wire "
+         "starts after the FIRST d2h slice instead of the last.  0 "
+         "reproduces the serialized d2h-then-wire serve "
+         "bit-exactly")
+register("coll.topo", "auto", str,
+         "runtime-native collective topology (parsec_tpu_torch.comm.coll): "
+         "ring|binomial|star, or 'auto' to choose per (message size, "
+         "rank count) from the BENCH_comm.json transfer-economics fits "
+         "(fixed overhead + per-byte cost; see comm/economics.py).  The "
+         "fan-out legs of bcast/all_gather map star|chain|binomial onto "
+         "the native ACTIVATE_BCAST trees (comm.bcast_topo machinery)")
+register("coll.slice", 0, int,
+         "collective slice quantum in bytes: a producer tile enters a "
+         "runtime-native collective in slices of this size, each its own "
+         "pipelined dataflow chain, so the wire (and the downstream "
+         "partial reduction) starts after the FIRST slice instead of "
+         "the last (T3, arXiv:2401.16677).  0 = use comm.chunk_size, "
+         "so collective slicing and wire chunking stay aligned")
+register("coll.max_slices", 16, int,
+         "cap on slices per collective segment (bounds task count per "
+         "op; tiny messages collapse to one slice)")
+register("comm.chunk_size.ici", "", str,
+         "per-class override of comm.chunk_size for intra-island "
+         "(ici) legs; '' = inherit comm.chunk_size")
+register("comm.chunk_size.dcn", "", str,
+         "per-class override of comm.chunk_size for inter-island "
+         "(dcn) legs — bigger chunks amortize the higher DCN fixed "
+         "cost; '' = inherit comm.chunk_size")
+register("comm.eager_limit.ici", "", str,
+         "per-class override of comm.eager_limit for ici legs; "
+         "'' = inherit comm.eager_limit.  Read by the tuner's simulator, "
+         "which prices each cross-rank edge at its class; the engine "
+         "runs one comm.eager_limit")
+register("comm.eager_limit.dcn", "", str,
+         "per-class override of comm.eager_limit for dcn legs — the "
+         "eager/rendezvous crossover sits lower where per-byte cost is "
+         "higher; '' = inherit comm.eager_limit.  Read by the tuner's "
+         "simulator; the engine runs one comm.eager_limit")
+register("coll.topo.ici", "", str,
+         "per-class override of coll.topo for the intra-island phase "
+         "of hierarchical collectives; '' = inherit coll.topo")
+register("coll.topo.dcn", "", str,
+         "per-class override of coll.topo for the inter-island "
+         "(leader) phase of hierarchical collectives; '' = inherit "
+         "coll.topo")
+register("device.stream_serve", True, bool,
+         "accept the comm engine's progressive-serve offers "
+         "(dp_serve_stream): the writeback lane d2h's the remote-pulled "
+         "mirror in comm.chunk_size slices, each advancing the serve "
+         "session's watermark, so the wire overlaps the d2h instead of "
+         "waiting for the whole-tile snapshot.  0 declines every offer "
+         "(the synchronous dp_serve path serves, as in comm.stream=0)")
+
 # runtime.mag_batch, one of the tuner's knob axes, is read by the
-# native core at context creation.  The comm engine's comm.* and coll.*
-# axes are no parameters here: nothing in this package acts on them
-# yet, and analysis/tune.py and comm/topology.py keep the reference's
-# defaults as constants.
+# native core at context creation.  The tuner prices its comm axes
+# (comm.*, coll.*) at the values registered above and does not change
+# them (analysis/tune.py's FIXED_KNOBS).
 register("runtime.mag_batch", 64, int,
          "task/arena freelist magazine batch: items moved between a "
          "worker's private magazine and the shared pool per lock "

@@ -865,7 +865,7 @@ def test_apply_knobs_refuses_knobs_the_port_does_not_act_on():
         with ttune.apply_knobs({"comm.rails": before + 1}):
             pass
     assert "PTC_MCA_comm_rails" not in os.environ
-    # the comm engine's knobs are no parameters of the port yet
+    # comm.rails is no parameter of the port (the engine reads its env)
     with pytest.raises(KeyError):
         tutils.params.get("comm.rails")
     topo = ttune.default_knobs()["coll.topo"]
@@ -878,6 +878,35 @@ def test_apply_knobs_refuses_knobs_the_port_does_not_act_on():
         assert set(applied) == set(ttune.TUNE_KNOBS)
     with pytest.raises(KeyError):
         with ttune.apply_knobs({"not.a.knob": 1}):
+            pass
+
+
+def test_default_knobs_read_the_registry(monkeypatch):
+    """The comm and collective knobs the tuner prices are read from the
+    MCA registry, as the engine reads them: a setting in the environment
+    moves the port's vector and its per-class resolution as it moves the
+    JAX package's; the knobs that are no parameter here answer their
+    reference default."""
+    for env, val in (("PTC_MCA_comm_eager_limit", "0"),
+                     ("PTC_MCA_comm_eager_limit_dcn", "8192"),
+                     ("PTC_MCA_comm_chunk_size", "4096"),
+                     ("PTC_MCA_coll_topo", "ring")):
+        monkeypatch.setenv(env, val)
+    port, ref = ttune.default_knobs(), jtune.default_knobs()
+    assert port == ref
+    assert port["comm.eager_limit"] == 0
+    assert port["comm.eager_limit.dcn"] == "8192"
+    for name, cls in (("comm.eager_limit", "dcn"),
+                      ("comm.eager_limit", "ici"),
+                      ("comm.chunk_size", "dcn"), ("coll.topo", None),
+                      ("comm.rails", "dcn")):
+        assert ttopo.resolve_class_knob(name, cls) == \
+            jtopo.resolve_class_knob(name, cls)
+    assert ttopo.resolve_class_knob("comm.eager_limit", "dcn") == 8192
+    with ttune.apply_knobs({"comm.eager_limit": 0}) as applied:
+        assert applied == {"comm.eager_limit": 0}
+    with pytest.raises(ValueError, match="does not act"):
+        with ttune.apply_knobs({"comm.eager_limit": 64 * 1024}):
             pass
 
 

@@ -13,6 +13,7 @@ import pytest
 import parsec_tpu_torch as pt
 from parsec_tpu_torch import kernels
 from parsec_tpu_torch.algos import build_gemm
+from parsec_tpu_torch.comm.launch import free_port_base
 from parsec_tpu_torch.convert import to_collection
 from parsec_tpu_torch.device import CudaDevice
 from parsec_tpu_torch.ops.flash_attention import (attention_reference,
@@ -1065,3 +1066,46 @@ def test_plan_check_error_mode_on_the_card(card, monkeypatch):
         assert not tp._committed and dev.stats["tasks"] == 0
         assert ctx.stats()["plan"]["over_budget"] == 1
         dev.stop()
+
+
+def test_device_transfer_on_the_card_is_a_clone(card):
+    """comm/ici.py device_transfer on one card: a copy ordered after the
+    source's event, never an alias (a later write of the source does not
+    reach it)."""
+    import torch
+    from parsec_tpu_torch.comm.ici import device_transfer
+    x = _t(card, (1024, 512), 5)
+    ev = torch.cuda.Event()
+    ev.record()
+    y = device_transfer(x, card, event=ev)
+    torch.cuda.synchronize()
+    assert y.data_ptr() != x.data_ptr()
+    want = x.clone()
+    x.add_(1.0)
+    torch.testing.assert_close(y, want, rtol=0, atol=0)
+
+
+def test_colocated_norm_chain_on_the_card(card):
+    """Two colocated Contexts on the card (chip_smoke.py's 12c at a small
+    size): NORM's intermediate crosses as by-reference tokens and on-card
+    clones, the RMSNorm kernel runs on both sides, and O holds against
+    the plain version applied twice."""
+    import importlib
+    import sys
+    import os
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    cs = importlib.import_module("chip_smoke")
+    kernels.reset_launches()
+    out = cs.comm_colocated(card, {"norm": (8 * 128, 512, 128),
+                                   "timeout": 120.0}, free_port_base(4))
+    r0, r1 = out
+    # each rank's device launched the kernel, and nothing else did
+    assert r0["chore_calls"] > 0 and r1["chore_calls"] > 0
+    assert kernels.LAUNCHES["rms_norm"] == \
+        r0["chore_calls"] + r1["chore_calls"]
+    assert r0["dev"]["dp_sends"] == 8 and r0["dev"]["d2h_bytes"] == 0
+    assert r1["dev"]["dp_d2d_bytes"] == 8 * 128 * 512 * 4
+    assert r1["dev"]["dp_recv_bytes"] == 0
+    assert r0["dev"]["dp_errors"] == r1["dev"]["dp_errors"] == 0
+    assert r1["max_abs_err"] <= 2e-5

@@ -435,9 +435,9 @@ def _prom_keys(text):
                   if line and not line.startswith("#"))
 
 
-# stats() namespaces the port does not have yet: the comm engine's and
-# the collectives' counters, the trace clock sync, the device plan
-# check, and the reference's wave-fusion and streamed-serve device keys
+# lines of the reference the port may lack: the comm engine's and the
+# collectives' counters, the trace clock sync, the device plan check,
+# and the reference's wave-fusion and streamed-serve device keys
 _REF_ONLY = re.compile(r"^ptc_(comm|coll|plan)_|^ptc_trace_clock_|"
                        r"^ptc_device_(fuse|stream|dp|wave|chain|plan)")
 # device_stats() counters the port's aggregate carries beyond the
@@ -506,20 +506,18 @@ def test_exporter_endpoints():
 
 
 def test_unified_stats_namespaces():
-    """stats() carries the reference's namespaces but the comm engine's
-    (comm, coll), with the same keys in each (plan included)."""
+    """stats() carries the reference's namespaces, the comm engine's
+    (comm, coll) included, with the same keys in each (plan and the
+    trace's clock included)."""
     def run(P):
         with P.pt.Context(nb_workers=1) as ctx:
             s = ctx.stats()
             return {k: sorted(v) if isinstance(v, dict) else v
                     for k, v in s.items() if k != "device"}
     ref, port = both(run)
-    assert set(ref) - set(port) == {"comm", "coll"}
+    assert set(ref) == set(port)
     for k in port:
-        if k == "trace":
-            assert set(port[k]) == set(ref[k]) - {"clock"}
-        else:
-            assert port[k] == ref[k], k
+        assert port[k] == ref[k], k
 
 
 def test_context_rank_identity_from_the_native_core():

@@ -829,8 +829,8 @@ def test_spec_verify_wave_batches_on_device():
 
 # ----------------------------------------------------------- not ported
 def test_unported_paths_raise():
-    """What still waits for the comm engine raises: tensor-parallel
-    serving and sharded pages.  Conformance (the default now), the plan
+    """What is not ported yet raises: tensor-parallel serving and sharded
+    pages.  Conformance (the default now), the plan
     and the plan bound of an unknown byte estimate are ported, and run
     on both packages in tests/test_torch_profiling.py."""
     model = _model()
