@@ -78,12 +78,25 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      on the clock offsets (12e); then two colocated ranks in this
      process move 12b's intermediate as on-card clones (12c).  A rank
      that fails or times out fails the phase
+ 13. drive the multi-rank taskpools and tensor-parallel serving
+     (multi_path), float32 with TF32 off, numpy-made inputs: ring
+     attention over a 32768-token context (8 shards of 4096, head dim
+     128) with every ATT and FIN a device chore, O against float64
+     attention on the card (13a); the same on phase 12's two ranks, the
+     K/V hops through the data plane (13b); MoE at Mixtral-8x7B's FFN
+     widths (d 4096, f 14336, 8 experts, top-2; 4 shards of 2048 tokens)
+     with EXP on the card, uncapped and capped, Y against float64 on the
+     card (13c); MoE on phase 12's two ranks with combine="chain" and
+     "coll" (13d); tp=2 serving (two colocated Contexts as threads)
+     against a tp=1 engine, tokens and pre-logits bit for bit, plain and
+     speculative (13e); each chore timed at its path's shape beside its
+     plain version and bound (13f)
 Phases 1-10 run with fusion on, the default.  Then print the dense-LA
 line, the pipeline line, the DSL line, the runtime line, the observe
-line, the fuse line, the comm line and the kernels line (JSON; the
-kernels' launches are those of phases 4, 7-11 and 12, both ranks') and,
-last, the device line (JSON).  Exits non-zero, printing no result, when
-there is no CUDA card.
+line, the fuse line, the comm line, the multi line (with the chores'
+rows) and the kernels line (JSON; the kernels' launches are those of
+phases 4, 7-11 and 12, both ranks') and, last, the device line (JSON).
+Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
 
@@ -3858,18 +3871,20 @@ def _comm_panels(ctx, rank, nodes, dims) -> dict:
     return out
 
 
-def comm_rank(rank, nodes, port, q, dev_s, dims, out_dir):
-    """One spawned rank of phase 12 (12a, 12b, 12d, 12e): pushes ("ok",
+def comm_rank(rank, nodes, port, q, dev_s, dims, out_dir, multi=None):
+    """One spawned rank of phase 12 (12a, 12b, 12d, 12e) and, with
+    `multi` (phase 13's sizes), of phase 13 (13b, 13d): pushes ("ok",
     rank, results) or ("err", rank, traceback)."""
     import traceback
     try:
         q.put(("ok", rank, _comm_rank(rank, nodes, port, dev_s, dims,
-                                      out_dir)))
+                                      out_dir, multi)))
     except Exception:
         q.put(("err", rank, traceback.format_exc()))
 
 
-def _comm_rank(rank, nodes, port, dev_s, dims, out_dir) -> dict:
+def _comm_rank(rank, nodes, port, dev_s, dims, out_dir,
+               multi=None) -> dict:
     import torch
 
     import parsec_tpu_torch as pt
@@ -3949,6 +3964,12 @@ def _comm_rank(rank, nodes, port, dev_s, dims, out_dir) -> dict:
     res["coll_off"] = _comm_colls(ctx, rank, nodes, dims, ("ring",))
     ctx.comm_fini()
     ctx.destroy()
+    # phase 13b and 13d on these ranks, with the default knobs back
+    os.environ.pop("PTC_MCA_comm_eager_limit")
+    os.environ.pop("PTC_MCA_comm_stream")
+    _knobs.unset("device.stream_serve")
+    if multi is not None:
+        res["multi"] = multi_rank(rank, nodes, port + 16, dev_t, multi)
     if "jax" in sys.modules:
         raise AssertionError("phase 12 rank imported jax")
     return res
@@ -3997,7 +4018,7 @@ def comm_colocated(dev_t, dims, port: int) -> list:
     return [results[r][1] for r in range(nodes)]
 
 
-def comm_path(dev_t, dims=None, out_dir=None) -> dict:
+def comm_path(dev_t, dims=None, out_dir=None, multi=None) -> dict:
     """Phase 12: the comm engine on the card, two ranks as two spawned
     processes on the one card over the loopback transport (the card
     time-slices them: the walls include it), then two colocated ranks in
@@ -4017,8 +4038,10 @@ def comm_path(dev_t, dims=None, out_dir=None) -> dict:
           star, comm.stream off bit-exact, and gemm_panel_reduce coll
           against chain
       12e 12a's GEMM traced on both ranks, merged on the clock offsets
-    Returns the runs and the hand-written kernels' launches (12b's on
-    both ranks, traced run included, and 12c's)."""
+    With `multi` (phase 13's sizes) the same two ranks then run phase
+    13b and 13d (multi_rank).  Returns the runs, the hand-written
+    kernels' launches (12b's on both ranks, traced run included, and
+    12c's) and the ranks' phase 13 results."""
     import multiprocessing as mp
 
     import torch
@@ -4036,19 +4059,20 @@ def comm_path(dev_t, dims=None, out_dir=None) -> dict:
     q = mpctx.Queue()
     dev_s = str(dev_t)
     procs = [mpctx.Process(target=comm_rank, args=(r, nodes, port, q, dev_s,
-                                                   dims, out_dir))
+                                                   dims, out_dir, multi))
              for r in range(nodes)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     import queue
     got = []
+    wait_s = dims["timeout"] + (multi["timeout"] if multi else 0.0)
     try:
         for _ in range(nodes):
-            got.append(q.get(timeout=dims["timeout"]))
+            got.append(q.get(timeout=wait_s))
     except queue.Empty:
         got.append(("err", -1, f"a rank sent nothing in "
-                    f"{dims['timeout']:.0f} s (timed out)"))
+                    f"{wait_s:.0f} s (timed out)"))
     finally:
         for p in procs:
             p.join(timeout=30)
@@ -4065,7 +4089,9 @@ def comm_path(dev_t, dims=None, out_dir=None) -> dict:
     ranks = [g[2] for g in sorted(got, key=lambda g: g[1])]
     spmd_s = time.perf_counter() - t0
     launches = {name: 0 for name in kernels.LAUNCHES}
-    runs = {"spmd_s": spmd_s}
+    multi_ranks = [r.pop("multi") for r in ranks] if multi else None
+    multi_s = max(r["wall_s"] for r in multi_ranks) if multi else 0.0
+    runs = {"spmd_s": spmd_s, "multi_s": multi_s}
 
     # 12a: walls and wire bytes per run; fused against unfused
     gem = list(zip(*[r["gemm"] for r in ranks]))
@@ -4266,7 +4292,712 @@ def comm_path(dev_t, dims=None, out_dir=None) -> dict:
         f"or after its send; rank 1 clock offset {off} ns (err "
         f"{runs['trace']['clock_err_ns']} ns), wire latency p50 "
         f"{runs['trace']['latency_ns_p50'] / 1e3:.1f} us")
-    return {"runs": runs, "launches": launches}
+    return {"runs": runs, "launches": launches, "multi": multi_ranks}
+
+
+# phase 13 sizes: ring attention (S shards, T tokens a shard, head dim d:
+# Llama-2-7B's head dim, a 32768-token context); MoE (S, T, d, f, E, k) at
+# Mixtral-8x7B's FFN widths, cut in depth only, its capped run's capacity
+# (1.25 T k / E); 13b's and 13d's (S, T) on two ranks; the tensor-parallel
+# serving round (prompt lengths, new tokens each); host threads that draw
+# the expert weights
+MULTI = {"ring": (8, 4096, 128), "ring2": (8, 4096),
+         "moe": (4, 2048, 4096, 14336, 8, 2), "moe_cap": 640,
+         "moe2": (2, 1024), "serve_prompts": (256, 512, 768, 1024),
+         "serve_new": 8, "serve_pages": 512,
+         "serve_model": {"vocab": 32000, "d": 4096, "heads": 32,
+                         "page": 16},
+         "threads": 8, "cache_bytes": 32 << 30, "timeout": 600.0}
+
+
+def _launch_widths(dev) -> dict:
+    """Record the lane width of every chore launch of `dev`, by chore name
+    (its own counts, dev.launches, go on as before)."""
+    widths: dict = {}
+    count = dev._count_launch
+
+    def counted(kernel, lanes):
+        widths.setdefault(getattr(kernel, "__name__", repr(kernel)),
+                          []).append(int(lanes))
+        count(kernel, lanes)
+    dev._count_launch = counted
+    return widths
+
+
+def ring_inputs(S: int, T: int, d: int):
+    """13a/13b's q, k, v: (S*T, d) float32 from numpy, seeded."""
+    rng = np.random.default_rng([SEED, 13, 1])
+    return [rng.standard_normal((S * T, d), dtype=np.float32)
+            for _ in range(3)]
+
+
+def ring_run(ctx, dev_t, dims, nodes: int, rank: int, label: str) -> dict:
+    """13a/13b on this rank: the ring attention taskpool with its ATT and
+    FIN chores on a CudaDevice; the owned O shards held to float64
+    attention on the card at the reference test's 2e-4 / 2e-5.  Returns
+    the wall, the device's tasks, the chores' launches and widths, the
+    wire counters and the error."""
+    import torch
+
+    from parsec_tpu_torch.algos.ring_attention import (build_ring_attention,
+                                                       make_collections)
+    from parsec_tpu_torch.device import CudaDevice
+    S, T, d = dims["ring"][0], dims["ring"][1], dims["ring"][2]
+    if nodes > 1:
+        S, T = dims["ring2"]
+    q, k, v = ring_inputs(S, T, d)
+    dev = CudaDevice(ctx, device=dev_t)
+    widths = _launch_widths(dev)
+    Qc, KVc, ACCc, Oc = make_collections(S, T, d, nodes, rank, q, k, v)
+    tp = build_ring_attention(ctx, Qc, KVc, ACCc, Oc, dev=dev)
+    s0 = ctx.comm_stats() if nodes > 1 else None
+    sync(dev_t)
+    t = time.perf_counter()
+    tp.run()
+    tp.wait()
+    if nodes > 1:
+        ctx.comm_fence()
+    dev.flush()
+    sync(dev_t)
+    wall = (time.perf_counter() - t) * 1e3
+    st = dict(dev.stats)
+    launches = {n: v_[0] for n, v_ in dev.launches.items()}
+    dev.stop()
+    owned = [m for m in range(S) if Oc.rank_of(m, 0) == rank]
+    if st["tasks"] != len(owned) * (S + 1):
+        raise AssertionError(f"{label}: {st['tasks']} device tasks, "
+                             f"expected {len(owned) * (S + 1)} "
+                             "(every ATT and FIN of the owned shards)")
+    if st["dp_errors"]:
+        raise AssertionError(f"{label}: dp_errors {st['dp_errors']}")
+    out = {"label": label, "wall_ms": wall, "tasks": st["tasks"],
+           "launches": launches, "widths": widths,
+           "h2d_bytes": st["h2d_bytes"], "d2h_bytes": st["d2h_bytes"]}
+    if nodes > 1:
+        s1, rdv = ctx.comm_stats(), ctx.comm_rdv_stats()
+        if rdv["registered_bytes"]:
+            raise AssertionError(f"{label}: registered_bytes after the "
+                                 f"fence: {rdv}")
+        out.update(bytes_sent=s1["bytes_sent"] - s0["bytes_sent"],
+                   dp_sends=st["dp_sends"],
+                   dp_recv_bytes=st["dp_recv_bytes"])
+        # a K/V block above the eager limit is device-resident: it must
+        # ride the data plane, served from and delivered to the devices
+        # (between colocated ranks, cloned on the consumer's device)
+        if KVc.mb * KVc.nb * 4 > (64 << 10) and not (
+                st["dp_sends"] and (st["dp_recv_bytes"] or
+                                    st["dp_d2d_bytes"])):
+            raise AssertionError(f"{label}: the K/V hops missed the data "
+                                 f"plane: {st}")
+    # float64 attention on the card, one shard's queries at a time
+    kk = torch.from_numpy(k).to(dev_t, torch.float64)
+    vv = torch.from_numpy(v).to(dev_t, torch.float64)
+    got, want = [], []
+    for m in owned:
+        qq = torch.from_numpy(q[m * T:(m + 1) * T]).to(dev_t, torch.float64)
+        want.append(torch.softmax(qq @ kk.T / float(np.sqrt(d)), -1) @ vv)
+        got.append(torch.from_numpy(Oc.tile(m, 0)).to(dev_t))
+    out["max_abs_err"] = check_close(
+        f"{label} O ({len(owned)} shards of {T}x{d}) vs float64 attention",
+        torch.cat(got), torch.cat(want).float(), 2e-4, 2e-5)
+    del kk, vv, got, want
+    return out
+
+
+def moe_tokens(S: int, T: int, d: int, E: int):
+    """13c/13d's tokens x (S*T, d) and gate weights wg (d, E), float32
+    from numpy, seeded: wg scaled by 1/sqrt(d) (unit-variance logits),
+    x drawn N(0.5, 1), whose shared component skews the untrained
+    router's loads as an unbalanced router's are (13c: the busiest
+    expert takes about twice the mean; with iid N(0, 1) tokens the loads
+    stay within 8% of it and a capacity factor of 1.25 drops nothing)."""
+    rng = np.random.default_rng([SEED, 13, 100 + S])
+    x = rng.standard_normal((S * T, d), dtype=np.float32)
+    x += np.float32(0.5)
+    wg = rng.standard_normal((d, E), dtype=np.float32)
+    wg *= np.float32(d ** -0.5)
+    return x, wg
+
+
+def moe_expert_into(e: int, wu: np.ndarray, wd: np.ndarray) -> None:
+    """Expert e's weights drawn by numpy into wu (d, f) and wd (f, d):
+    uniform with variance 1/d and 1/f, from a per-expert seed (any rank
+    draws any expert alone, the same bytes)."""
+    rng = np.random.default_rng([SEED, 13, 200 + e])
+    for w, fan in ((wu, wu.shape[0]), (wd, wd.shape[0])):
+        rng.random(out=w, dtype=np.float32)
+        w -= np.float32(0.5)
+        w *= np.float32(2.0 * np.sqrt(3.0 / fan))
+
+
+def moe_experts(es, d: int, f: int, threads: int) -> dict:
+    """{e: (wu, wd)} for experts `es`, drawn on host threads."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(e):
+        wu = np.empty((d, f), np.float32)
+        wd = np.empty((f, d), np.float32)
+        moe_expert_into(e, wu, wd)
+        return e, (wu, wd)
+    with ThreadPoolExecutor(threads) as ex:
+        return dict(ex.map(one, es))
+
+
+def moe_oracle64(x, wg, k: int, T: int, shards, experts, dev_t):
+    """Y of the given token shards in float64 on the card: the taskpool's
+    own routing (algos.moe._topk_gate per shard, as GATE computes it),
+    then every routed expert's relu FFN in float64, no capacity limit."""
+    import torch
+
+    from parsec_tpu_torch.algos.moe import _topk_gate
+    xs = np.concatenate([x[s * T:(s + 1) * T] for s in shards])
+    gates = [_topk_gate(x[s * T:(s + 1) * T], wg, k) for s in shards]
+    idx = np.concatenate([g[0] for g in gates])
+    vals = np.concatenate([g[1] for g in gates])
+    X = torch.from_numpy(xs).to(dev_t, torch.float64)
+    Y = torch.zeros_like(X)
+    for e, (wu, wd) in sorted(experts.items()):
+        rows, slots = np.nonzero(idx == e)
+        if not len(rows):
+            continue
+        wu64 = torch.from_numpy(wu).to(dev_t).double()
+        wd64 = torch.from_numpy(wd).to(dev_t).double()
+        r_t = torch.from_numpy(rows).to(dev_t)
+        p = torch.from_numpy(vals[rows, slots]).to(dev_t, torch.float64)
+        Y.index_add_(0, r_t, p[:, None] * (torch.relu(X[r_t] @ wu64)
+                                          @ wd64))
+        del wu64, wd64
+    return Y
+
+
+def moe_run(dev_t, dims, nodes: int, rank: int, port, label: str,
+            S: int, T: int, x, wg, experts: dict, capacity=None,
+            combine: str = "chain", check=None) -> dict:
+    """One MoE taskpool run (13c/13d) in a fresh Context on this rank:
+    EXP on a CudaDevice, its owned expert tiles filled from `experts`.
+    Returns (the run's record: wall, device tasks, h2d bytes, EXP
+    launches and their widths, the card's peak, the wire counters; the
+    owned Y rows, float32 numpy).  `check` is held against the owned Y
+    on the card."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch.algos.moe import build_moe, make_moe_collections
+    from parsec_tpu_torch.device import CudaDevice
+    _, _, d, f, E, k = dims["moe"]
+    ctx = pt.Context(nb_workers=4)
+    if nodes > 1:
+        ctx.set_rank(rank, nodes)
+        ctx.comm_init(port)
+    try:
+        Xc, Yc, WGc, WUc, WDc = make_moe_collections(
+            S, T, d, f, E, nodes=nodes, myrank=rank, x=x, w_gate=wg)
+        mine = [e for e in range(E) if WUc.rank_of(e, 0) == rank]
+        for e in mine:
+            wu, wd = experts[e]
+            WUc.tile(e, 0)[...] = wu
+            WDc.tile(e, 0)[...] = wd
+        dev = CudaDevice(ctx, device=dev_t, cache_bytes=dims["cache_bytes"])
+        widths = _launch_widths(dev)
+        tp = build_moe(ctx, Xc, Yc, WGc, WUc, WDc, E, k=k,
+                       capacity=capacity, dev=dev, combine=combine)
+        s0 = ctx.comm_stats() if nodes > 1 else None
+        sync(dev_t)
+        if dev_t.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev_t)
+        t = time.perf_counter()
+        tp.run()
+        tp.wait()
+        if nodes > 1:
+            ctx.comm_fence()
+        dev.flush()
+        sync(dev_t)
+        wall = (time.perf_counter() - t) * 1e3
+        st = dict(dev.stats)
+        launches = {n: v_[0] for n, v_ in dev.launches.items()}
+        peak = torch.cuda.max_memory_allocated(dev_t) \
+            if dev_t.type == "cuda" else None
+        dev.stop()
+        shards = [s for s in range(S) if Xc.rank_of(s, 0) == rank]
+        y = np.concatenate([Yc.tile(s, 0) for s in shards])
+        out = {"label": label, "wall_ms": wall, "tasks": st["tasks"],
+               "h2d_bytes": st["h2d_bytes"], "d2h_bytes": st["d2h_bytes"],
+               "weight_bytes": sum(experts[e][0].nbytes +
+                                   experts[e][1].nbytes for e in mine),
+               "launches": launches, "widths": widths,
+               "eager_gathers": st["eager_gathers"],
+               "prefetch": {k_: st[k_] for k_ in (
+                   "prefetch_staged", "prefetch_bytes", "prefetch_hits",
+                   "prefetch_wasted")},
+               "d2d_bytes": st["d2d_bytes"],
+               "cache_peak_bytes": st["cache_peak_bytes"],
+               "card_peak_bytes": peak, "shards": shards}
+        if st["tasks"] != len(mine) * S:
+            raise AssertionError(f"{label}: {st['tasks']} device tasks, "
+                                 f"expected {len(mine) * S} (every EXP "
+                                 "of the owned experts)")
+        if st["dp_errors"]:
+            raise AssertionError(f"{label}: dp_errors {st['dp_errors']}")
+        if nodes > 1:
+            s1, rdv = ctx.comm_stats(), ctx.comm_rdv_stats()
+            out["bytes_sent"] = s1["bytes_sent"] - s0["bytes_sent"]
+            out["coll_stats"] = ctx.coll_stats()
+            if combine == "coll" and out["coll_stats"]["steps"] <= 0:
+                raise AssertionError(f"{label}: no coll step "
+                                     f"{out['coll_stats']}")
+            if rdv["registered_bytes"]:
+                raise AssertionError(f"{label}: registered_bytes after "
+                                     f"the fence: {rdv}")
+            ctx.comm_fini()
+        if check is not None:
+            out["max_abs_err"] = check(y)
+        return out, y
+    finally:
+        ctx.destroy()
+
+
+def moe_check(label: str, dev_t, want64):
+    """A check callable for moe_run: Y against the float64 oracle rows on
+    the card at the reference's device tolerance, 3e-4 / 3e-4."""
+    import torch
+
+    def check(y):
+        return check_close(f"{label} Y vs the float64 oracle",
+                           torch.from_numpy(y).to(dev_t), want64.float(),
+                           3e-4, 3e-4)
+    return check
+
+
+def multi_rank(rank: int, nodes: int, port: int, dev_t, dims) -> dict:
+    """13b and 13d on one of phase 12's spawned ranks, in Contexts of
+    their own: ring attention with its chores on two ranks (the K/V hops
+    through the data plane), then MoE at 13c's widths with
+    combine="chain" and "coll"."""
+    import parsec_tpu_torch as pt
+    t0 = time.perf_counter()
+    res = {}
+    ctx = pt.Context(nb_workers=4)
+    ctx.set_rank(rank, nodes)
+    ctx.comm_init(port)
+    res["ring"] = ring_run(ctx, dev_t, dims, nodes, rank,
+                           f"13b ring attention rank {rank}")
+    ctx.comm_fini()
+    ctx.destroy()
+    S, T = dims["moe2"]
+    _, _, d, f, E, k = dims["moe"]
+    x, wg = moe_tokens(S, T, d, E)
+    experts = moe_experts(range(E), d, f, dims["threads"] // nodes)
+    shards = [s for s in range(S) if s % nodes == rank]
+    want = moe_oracle64(x, wg, k, T, shards, experts, dev_t)
+    res["moe"] = []
+    for i, combine in enumerate(("chain", "coll")):
+        lb = f"13d MoE combine={combine} rank {rank}"
+        r_, _ = moe_run(dev_t, dims, nodes, rank, port + 4 * (i + 1), lb,
+                        S, T, x, wg, experts, combine=combine,
+                        check=moe_check(lb, dev_t, want))
+        res["moe"].append(r_)
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
+def _k_att_plain(q, kv, acc):
+    """k_att's plain version: the reference's step, one lane at a time."""
+    import torch
+    outs = []
+    for i in range(q.shape[0]):
+        T, d = q.shape[1], q.shape[2]
+        k, v = kv[i, :T], kv[i, T:]
+        o, m, l = acc[i, :, :d], acc[i, :, d:d + 1], acc[i, :, d + 1:]
+        s = (q[i] @ k.T) / float(np.sqrt(d))
+        m_new = torch.maximum(m, s.max(dim=-1, keepdim=True).values)
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        outs.append(torch.cat([alpha * o + p @ v, m_new,
+                               alpha * l + p.sum(-1, keepdim=True)], 1))
+    return q, kv, torch.stack(outs)
+
+
+def _k_fin_plain(acc):
+    import torch
+    d = acc.shape[-1] - 2
+    return torch.stack([a[:, :d] / a[:, d + 1:] for a in acc])
+
+
+def _k_exp_plain(dtile, wu, wd):
+    """_k_exp_relu's plain version: one lane at a time."""
+    import torch
+    d = wu.shape[1]
+    return torch.stack([torch.cat([torch.relu(D[:, :d] @ u) @ w, D[:, d:]],
+                                  1) for D, u, w in zip(dtile, wu, wd)])
+
+
+def time_multi_chores(dev_t, dims, runs) -> list:
+    """13f: each chore of the phase at its path's shape and mean lanes a
+    launch, CUDA events, beside its plain version (one lane at a time)
+    and its bound (operations at the float32 non-tensor peak, TF32 off,
+    or bytes, whichever is larger); its launches are those of 13a-13d."""
+    import torch
+
+    from parsec_tpu_torch.algos.moe import _k_exp_relu
+    from parsec_tpu_torch.algos.ring_attention import k_att, k_fin
+    bw, f32_peak, _ = card_peaks(torch.cuda.get_device_name(dev_t))[1] \
+        if dev_t.type == "cuda" else (1.0, 1.0, 1.0)
+    S, T, dr = dims["ring"]
+    C, d, f = dims["moe"][1], dims["moe"][2], dims["moe"][3]
+    gen = torch.Generator(device=dev_t).manual_seed(SEED + 13)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=dev_t)
+
+    def totals(name):
+        calls = [w for r in runs for w in r["widths"].get(name, [])]
+        return len(calls), sum(calls)
+
+    def path_lanes(name):
+        """The most frequent width of the chore's launches on the one-rank
+        runs (13a, 13c uncapped), the wider on a tie: the main path's
+        shape."""
+        ws = [w for r in runs[:2] for w in r["widths"].get(name, [])]
+        return max(set(ws), key=lambda w: (ws.count(w), w)) if ws else 1
+
+    rows = []
+    for name, fn, plain, repl in (
+            ("k_att", k_att, _k_att_plain,
+             "parsec_tpu/algos/ring_attention.py:47"),
+            ("k_fin", k_fin, _k_fin_plain,
+             "parsec_tpu/algos/ring_attention.py:61"),
+            ("_k_exp_relu", _k_exp_relu, _k_exp_plain,
+             "parsec_tpu/algos/moe.py:53")):
+        n_calls, n_lanes = totals(name)
+        lanes = path_lanes(name)
+        if name == "k_att":
+            acc = torch.cat([rnd(lanes, T, dr), rnd(lanes, T, 1),
+                             rnd(lanes, T, 1).abs() + 1], -1)
+            ins = (rnd(lanes, T, dr), rnd(lanes, 2 * T, dr), acc)
+            flops = lanes * (4 * T * T * dr + 6 * T * T)
+        elif name == "k_fin":
+            ins = (torch.cat([rnd(lanes, T, dr + 1),
+                              rnd(lanes, T, 1).abs() + 1], -1),)
+            flops = lanes * T * dr
+        else:
+            Dt = rnd(lanes, C, d + 2)
+            ins = (Dt, rnd(lanes, d, f) * d ** -0.5,
+                   rnd(lanes, f, d) * f ** -0.5)
+            flops = lanes * (4 * C * d * f + C * f)
+        outs = fn(*ins)
+        outs = outs if isinstance(outs, tuple) else (outs,)
+        want = plain(*ins)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max(float((a - b).abs().max()) for a, b in zip(outs, want))
+        nbytes = sum(t.nbytes for t in ins) + sum(o.nbytes for o in outs)
+        iters = 10 if flops < 1e11 else 3
+        row = {"name": name, "replaces": repl, "lanes_timed": lanes,
+               "launches": n_calls, "lanes": n_lanes,
+               "ms": timed_ms(dev_t, lambda: fn(*ins), iters, 1),
+               "plain_ms": timed_ms(dev_t, lambda: plain(*ins), iters, 1),
+               "bound_ms": max(nbytes / bw, flops / f32_peak) * 1e3,
+               "bound_by": "bytes" if nbytes / bw >= flops / f32_peak
+               else "operations", "max_abs_err_vs_plain": err}
+        rows.append(row)
+        log(f"  13f {name} [{lanes} lanes]: {row['ms']:.4f} ms a launch, "
+            f"plain (lane by lane) {row['plain_ms']:.4f} ms, bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"max |chore - plain| {err:.3e}; {n_calls} launches "
+            f"({n_lanes} lanes) on the path")
+        del ins, outs, want
+    if dev_t.type == "cuda":
+        torch.cuda.empty_cache()
+    return rows
+
+
+def tp_serve(dev_t, dims) -> dict:
+    """13e: tensor-parallel serving, two colocated Contexts in this
+    process as threads (one CudaDevice each, both on this card), at
+    Llama-2-7B attention widths with the quantized head (qlog): the
+    prompts served to `serve_new` tokens each, then the same prompts
+    with spec_k=2.  Every rank's tokens and reduced pre-logits are the
+    same bits; both rounds are held bit for bit against a tp=1 engine on
+    the card (its pre-logits from its attention outputs); conformance
+    covers every pool; the request timelines of the merged trace carry
+    a nonzero coll_wait stage.  Launches are counted per device."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch.comm.launch import free_port_base
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.profiling import Trace, take_trace
+    from parsec_tpu_torch.serve import (InferenceEngine, PagedLM,
+                                        PagedLMConfig)
+    cfg = PagedLMConfig(**dims["serve_model"], qlog=True)
+    model = PagedLM(cfg, device=dev_t)
+    rng = np.random.default_rng([SEED, 13, 300])
+    prompts = [[int(t) for t in rng.integers(0, cfg.vocab, n)]
+               for n in dims["serve_prompts"]]
+    new = dims["serve_new"]
+    timeout = dims["timeout"]
+
+    def serve(ctx, dev, tp, spec_k, name):
+        eng = InferenceEngine(ctx, model, n_pages=dims["serve_pages"],
+                              max_seqs=len(prompts), dev=dev, tp=tp,
+                              spec_k=spec_k, name=name)
+        t0 = time.monotonic()
+        hs = []
+        for p in prompts:
+            h = eng.submit(p, new)
+            while h.state == "submitted":
+                if time.monotonic() - t0 > timeout:
+                    raise TimeoutError(f"13e {name}: prefill stuck")
+                time.sleep(0.001)
+            hs.append(h)
+        while eng.pending() or eng._inflight:
+            if time.monotonic() - t0 > timeout:
+                raise TimeoutError(f"13e {name}: decode stuck")
+            eng.step()
+        sync(dev_t)
+        wall = time.monotonic() - t0
+        st, tps = dict(eng.stats), eng._tp_stats()
+        eng.close()
+        if any(h.state != "done" for h in hs):
+            raise AssertionError(f"13e {name}: states "
+                                 f"{[h.state for h in hs]}")
+        return {"tokens": [list(h.tokens) for h in hs],
+                "outputs": [np.stack(h.outputs) for h in hs],
+                "rids": [h.rid for h in hs], "wall_s": wall,
+                "stats": st, "tp": tps}
+
+    nodes, port = 2, free_port_base(4)
+    results, shared, fails = {}, {}, []
+    barrier = threading.Barrier(nodes)
+
+    def timelines():
+        tr = Trace.merge([shared[r][0] for r in range(nodes)])
+        reg = shared[0][1].scope_registry()
+        hops = wait = 0
+        for rid in shared[0][2]:
+            tl = reg.request_timeline(tr, rid)
+            if tl["stages_sum_ns"] != tl["e2e_ns"]:
+                raise AssertionError(f"13e rid {rid}: stages do not sum "
+                                     f"to e2e: {tl}")
+            hops += sum(1 for h in tl["wire_hops"] if h["coll"])
+            wait += tl["stages"]["coll_wait_ns"]
+        return {"coll_hops": hops, "coll_wait_ns": wait}
+
+    def rank_main(rank):
+        import traceback
+        try:
+            ctx = pt.Context(nb_workers=2)
+            ctx.set_rank(rank, nodes)
+            ctx.comm_init(port)
+            ctx.comm_set_colocated([r for r in range(nodes) if r != rank])
+            if dev_t.type == "cuda":
+                torch.cuda.set_device(dev_t)
+            with ctx:
+                # traced at level 2: the request timelines read the wire
+                # hops of the trace
+                ctx.profile_enable(2)
+                dev = CudaDevice(ctx, device=dev_t)
+                out = {"plain": serve(ctx, dev, nodes, 0, "tp"),
+                       "spec": serve(ctx, dev, nodes, 2, "tps")}
+                out["coverage"] = \
+                    ctx.stats()["scope"]["conformance"]["coverage"]
+                out["launches"] = {n: list(v_) for n, v_ in
+                                   dev.launches.items()}
+                out["device"] = {k_: dev.stats[k_] for k_ in
+                                 ("tasks", "batches", "h2d_bytes",
+                                  "dp_errors")}
+                dev.stop()
+                shared[rank] = (take_trace(ctx), ctx,
+                                out["plain"]["rids"] + out["spec"]["rids"])
+                barrier.wait(timeout=timeout)
+                if rank == 0:
+                    try:
+                        out["timeline"] = timelines()
+                    except Exception:
+                        fails.append(traceback.format_exc())
+                barrier.wait(timeout=timeout)
+                ctx.comm_fence()
+                ctx.comm_fini()
+            results[rank] = ("ok", out)
+        except Exception:
+            results[rank] = ("err", traceback.format_exc())
+            barrier.abort()
+
+    t = time.perf_counter()
+    threads = [threading.Thread(target=rank_main, args=(r,), daemon=True)
+               for r in range(nodes)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=timeout)
+    tp_s = time.perf_counter() - t
+    bad = [str(results.get(r, ("err", f"rank {r} did not finish"))[1])
+           for r in range(nodes) if results.get(r, ("err",))[0] != "ok"]
+    if bad or fails:
+        raise AssertionError("13e: " + "\n".join(bad + fails))
+    r0, r1 = results[0][1], results[1][1]
+    # the tp=1 engine on the card, the same rounds
+    t = time.perf_counter()
+    with pt.Context(nb_workers=2) as ctx:
+        dev = CudaDevice(ctx, device=dev_t)
+        one = {"plain": serve(ctx, dev, 1, 0, "one"),
+               "spec": serve(ctx, dev, 1, 2, "ones")}
+        one_launches = {n: list(v_) for n, v_ in dev.launches.items()}
+        dev.stop()
+    one_s = time.perf_counter() - t
+    out = {"tp_s": tp_s, "one_s": one_s, "coverage": [r0["coverage"],
+                                                      r1["coverage"]],
+           "timeline": r0["timeline"],
+           "launches": [r0["launches"], r1["launches"], one_launches],
+           "device": [r0["device"], r1["device"]]}
+    for rnd in ("plain", "spec"):
+        a, b, o = r0[rnd], r1[rnd], one[rnd]
+        if a["tokens"] != b["tokens"]:
+            raise AssertionError(f"13e {rnd}: the ranks' tokens differ")
+        for x_, y_ in zip(a["outputs"], b["outputs"]):
+            if x_.tobytes() != y_.tobytes():
+                raise AssertionError(f"13e {rnd}: the ranks' pre-logits "
+                                     "differ")
+        pre1 = [np.stack([model.pre_logits(row) for row in outs])
+                for outs in o["outputs"]]
+        diff = [int((x_ != y_).sum()) for x_, y_ in zip(a["outputs"], pre1)]
+        out[rnd] = {"wall_s": [a["wall_s"], b["wall_s"], o["wall_s"]],
+                    "generated": sum(len(t_) - len(p) for t_, p in
+                                     zip(a["tokens"], prompts)),
+                    "tokens_equal_tp1": a["tokens"] == o["tokens"],
+                    "prelogit_elems_differing": diff,
+                    "stats": [a["stats"], o["stats"]], "tp": a["tp"]}
+        log(f"  13e {rnd}: tp=2 walls {a['wall_s']:.2f} / "
+            f"{b['wall_s']:.2f} s, tp=1 {o['wall_s']:.2f} s; tokens "
+            f"{'equal' if a['tokens'] == o['tokens'] else 'DIFFER'} to "
+            f"tp=1; pre-logit elements differing from tp=1 per request "
+            f"{diff}; coll pools {a['tp']['coll_pools']}, coll wait "
+            f"{a['tp']['coll_wait_ns'] / 1e6:.1f} ms; spec accepted "
+            f"{a['stats']['spec_accepted']} of "
+            f"{a['stats']['spec_proposed']}")
+        if any(diff):
+            log(f"  13e {rnd}: fold launches (count, lanes) per device: "
+                f"rank 0 {r0['launches']}, rank 1 {r1['launches']}, tp=1 "
+                f"{one_launches}")
+            raise AssertionError(f"13e {rnd}: tp=2 pre-logits differ from "
+                                 f"tp=1 in {diff} elements")
+        if a["tokens"] != o["tokens"]:
+            raise AssertionError(f"13e {rnd}: tp=2 tokens differ from tp=1")
+    if r0["plain"]["tokens"] != r0["spec"]["tokens"]:
+        raise AssertionError("13e: the spec round's tokens differ from the "
+                             "plain round's")
+    if min(out["coverage"]) != 1.0:
+        raise AssertionError(f"13e: conformance coverage {out['coverage']}")
+    if out["timeline"]["coll_wait_ns"] <= 0 or \
+            out["timeline"]["coll_hops"] <= 0:
+        raise AssertionError(f"13e: no coll_wait in the request timelines "
+                             f"{out['timeline']}")
+    if any(d_["dp_errors"] for d_ in out["device"]):
+        raise AssertionError(f"13e: dp_errors {out['device']}")
+    log(f"  13e: conformance coverage {out['coverage']}; merged trace "
+        f"{out['timeline']['coll_hops']} ptc_coll hops, coll_wait "
+        f"{out['timeline']['coll_wait_ns'] / 1e6:.1f} ms over the "
+        f"requests; chore launches (count, lanes) rank 0 {r0['launches']}, "
+        f"rank 1 {r1['launches']}, tp=1 {one_launches}; tp=2 {tp_s:.1f} s, "
+        f"tp=1 {one_s:.1f} s")
+    del model
+    return out
+
+
+def multi_path(dev_t, dims=None, ranks=None) -> dict:
+    """Phase 13: the multi-rank taskpools and tensor-parallel serving on
+    the card, float32 with TF32 off, numpy-made inputs from SEED.
+      13a ring attention on one rank: S x T tokens, head dim d, every
+          ATT and FIN a device chore, O against float64 attention on the
+          card (one head: the taskpool has no head axis)
+      13b 13a's size on two ranks (run by phase 12's spawned ranks,
+          multi_rank): the K/V hops through the device data plane
+      13c MoE on one rank at Mixtral-8x7B's FFN widths, EXP on the card,
+          combine="chain" uncapped and capped; Y against float64
+      13d 13c's widths on two ranks (phase 12's ranks), combine="chain"
+          and "coll"
+      13e tensor-parallel serving, tp=2 against tp=1 (tp_serve)
+      13f each chore at its path's shape beside its plain version and
+          bound (time_multi_chores)
+    `ranks` are the two ranks' multi_rank results.  Returns the runs and
+    the chores' rows."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    dims = dims or MULTI
+    runs = {}
+    t0 = time.perf_counter()
+    with pt.Context(nb_workers=4) as ctx:
+        runs["ring"] = ring_run(ctx, dev_t, dims, 1, 0,
+                                "13a ring attention")
+    r = runs["ring"]
+    log(f"  13a ring attention S={dims['ring'][0]} T={dims['ring'][1]} "
+        f"d={dims['ring'][2]} (one head): {r['wall_ms']:.1f} ms, "
+        f"{r['tasks']} device tasks, launches {r['launches']}, widths "
+        f"{r['widths']}, h2d {r['h2d_bytes']} B")
+    if ranks:
+        runs["ring2"] = [rk["ring"] for rk in ranks]
+        for r in runs["ring2"]:
+            log(f"  {r['label']}: {r['wall_ms']:.1f} ms, {r['tasks']} "
+                f"device tasks, {r['bytes_sent']} B on the wire "
+                f"({r['dp_sends']} data-plane sends, "
+                f"{r['dp_recv_bytes']} B received by the device), "
+                f"launches {r['launches']}")
+    S, T, d, f, E, k = dims["moe"]
+    t = time.perf_counter()
+    experts = moe_experts(range(E), d, f, dims["threads"])
+    x, wg = moe_tokens(S, T, d, E)
+    gen_s = time.perf_counter() - t
+    want = moe_oracle64(x, wg, k, T, range(S), experts, dev_t)
+    runs["moe"] = []
+    for cap in (None, dims["moe_cap"]):
+        lb = f"13c MoE capacity={cap}"
+        r, y = moe_run(dev_t, dims, 1, 0, None, lb, S, T, x, wg, experts,
+                       capacity=cap,
+                       check=moe_check(lb, dev_t, want) if cap is None
+                       else None)
+        if cap is not None:
+            yt = torch.from_numpy(y).to(dev_t)
+            if not bool(torch.isfinite(yt).all()):
+                raise AssertionError(f"{lb}: non-finite Y")
+            dev_ = float((yt - want.float()).abs().max())
+            if dev_ <= 3e-4:
+                raise AssertionError(f"{lb}: Y equals the uncapped oracle "
+                                     "(no token was dropped)")
+            r["max_abs_dev_from_oracle"] = dev_
+            from parsec_tpu_torch.algos.moe import _topk_gate
+            loads = np.stack([np.bincount(
+                _topk_gate(x[s_ * T:(s_ + 1) * T], wg, k)[0].ravel(),
+                minlength=E) for s_ in range(S)])
+            r["loads_max"] = int(loads.max())
+            r["dropped_pairs"] = int(np.maximum(loads - cap, 0).sum())
+            log(f"  {lb}: expert loads up to {r['loads_max']} a shard, "
+                f"{r['dropped_pairs']} of {S * T * k} (token, expert) "
+                f"pairs dropped; max |Y - uncapped oracle| {dev_:.3f}")
+        runs["moe"].append(r)
+        log(f"  {lb}: {r['wall_ms']:.1f} ms, {r['tasks']} device tasks, "
+            f"h2d {r['h2d_bytes']} B ({r['weight_bytes']} B of expert "
+            f"weights), EXP launches {r['launches']} widths "
+            f"{r['widths']}, eager gathers {r['eager_gathers']}, cache "
+            f"peak {r['cache_peak_bytes']} B, card peak "
+            f"{r['card_peak_bytes']} B")
+    del experts, want
+    if dev_t.type == "cuda":
+        torch.cuda.empty_cache()
+    runs["moe_gen_s"] = gen_s
+    if ranks:
+        runs["moe2"] = [m for rk in ranks for m in rk["moe"]]
+        for r in runs["moe2"]:
+            log(f"  {r['label']}: {r['wall_ms']:.1f} ms, {r['tasks']} "
+                f"device tasks, {r['bytes_sent']} B on the wire (the D "
+                f"tiles and the combine), EXP widths {r['widths']}, "
+                f"coll_stats steps {r['coll_stats']['steps']}")
+        runs["ranks_wall_s"] = [rk["wall_s"] for rk in ranks]
+    runs["serve"] = tp_serve(dev_t, dims)
+    everything = [runs["ring"], runs["moe"][0]] + runs.get("ring2", []) + \
+        runs["moe"][1:] + runs.get("moe2", [])
+    chores = time_multi_chores(dev_t, dims, everything)
+    runs["phase_s"] = time.perf_counter() - t0
+    return {"runs": runs, "chores": chores}
 
 
 def main() -> int:
@@ -4535,16 +5266,30 @@ def main() -> int:
         "the data plane, 12d collectives, 12e merged trace), then two "
         "colocated ranks in this process (12c)")
     t = time.perf_counter()
-    cm = comm_path(dev_t)
-    comm_s = time.perf_counter() - t
+    cm = comm_path(dev_t, multi=MULTI)
+    # the ranks ran phase 13b/13d after phase 12: their time is phase 13's
+    comm_s = time.perf_counter() - t - cm["runs"]["multi_s"]
     for name, n in cm["launches"].items():
         launches[name] += n
     cm["runs"]["phase_s"] = comm_s
     log(f"  COMM phase {comm_s:.1f} s (its ranks' processes "
-        f"{cm['runs']['spmd_s']:.1f} s of it); hand-written kernel launches "
-        f"in it (both ranks): {cm['launches']}")
+        f"{cm['runs']['spmd_s'] - cm['runs']['multi_s']:.1f} s of it, "
+        f"then 13b/13d {cm['runs']['multi_s']:.1f} s); hand-written kernel "
+        f"launches in it (both ranks): {cm['launches']}")
     if comm_s > 90.0:
         raise AssertionError(f"phase 12 took {comm_s:.1f} s (> 90 s)")
+    log("phase 13: the multi-rank taskpools and tensor-parallel serving: "
+        "ring attention and MoE with device chores on one rank (13a, "
+        "13c) and on phase 12's two ranks (13b, 13d), tp=2 serving "
+        "against tp=1 (13e), the chores timed (13f)")
+    kernels.reset_launches()
+    mu = multi_path(dev_t, ranks=cm["multi"])
+    multi_s = mu["runs"]["phase_s"] + cm["runs"]["multi_s"]
+    log(f"  MULTI phase {multi_s:.1f} s (13b/13d on the ranks "
+        f"{cm['runs']['multi_s']:.1f} s); hand-written kernel launches in "
+        f"it: {dict(kernels.LAUNCHES)}")
+    if multi_s > 180.0:
+        raise AssertionError(f"phase 13 took {multi_s:.1f} s (> 180 s)")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
@@ -4553,6 +5298,8 @@ def main() -> int:
     print(json.dumps({"observe": obs["runs"]}))
     print(json.dumps({"fuse": fz["runs"]}))
     print(json.dumps({"comm": cm["runs"]}))
+    print(json.dumps({"multi": mu["runs"], "chores": mu["chores"]},
+                     default=str))
 
     rows_out = []
     for name, r, err, repl in (

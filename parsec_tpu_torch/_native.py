@@ -196,6 +196,8 @@ _sigs = {
     "ptc_tp_addto_nb_tasks": (C.c_int64, [C.c_void_p, C.c_int64]),
     "ptc_tp_nb_total_tasks": (C.c_int64, [C.c_void_p]),
     "ptc_tp_nb_errors": (C.c_int64, [C.c_void_p]),
+    "ptc_tp_dense_classes": (C.c_int32, [C.c_void_p]),
+    "ptc_tp_drain": (C.c_int32, [C.c_void_p]),
     "ptc_tp_set_on_complete": (None, [C.c_void_p, TP_COMPLETE_CB_T,
                                       C.c_void_p]),
     "ptc_tp_global": (C.c_int64, [C.c_void_p, C.c_int32]),

@@ -3,10 +3,10 @@
 Port of parsec_tpu/analysis/dtdlint.py (it has no JAX; the rules, their
 IDs and messages are the reference's).
 
-PTG graphs are verified before execution (analysis.verify, not ported
-yet); a DTD graph only exists as it is inserted, so the linter rides
-insertion.  Opt-in via `DtdTaskpool(ctx, lint=True)` (or lint="warn" to
-report instead of raise).  Rules carry stable IDs like the V-rules:
+PTG graphs are verified before execution (analysis.verify); a DTD
+graph only exists as it is inserted, so the linter rides insertion.
+Opt-in via `DtdTaskpool(ctx, lint=True)` (or lint="warn" to report
+instead of raise).  Rules carry stable IDs like the V-rules:
 
   D101  undeclared access-mode conflict: the same tile passed twice to
         one task with modes that overlap in a write (e.g. INPUT +

@@ -3,7 +3,7 @@ parsec_taskpool_t, parsec/parsec_internal.h:119-161).
 
 Port of parsec_tpu/core/taskpool.py, with the static-analysis hooks
 (verify, plan, tuned and remap runs and the devices' pre-run
-plan_check), without DTD's drain."""
+plan_check)."""
 from __future__ import annotations
 
 import ctypes as C
@@ -250,6 +250,19 @@ class Taskpool:
         tasks that will never become ready, tests/dsl/ptg/choice).  Returns
         the new count."""
         return N.lib.ptc_tp_addto_nb_tasks(self._ptr, delta)
+
+    @property
+    def dense_classes(self) -> int:
+        """Task classes whose dependency tracking runs on the dense-array
+        engine (auto-chosen; reference: parsec_internal.h:201-216)."""
+        return N.lib.ptc_tp_dense_classes(self._ptr)
+
+    def drain(self) -> bool:
+        """Block until every task counted so far has completed, without
+        closing the pool (insertion may continue — reference:
+        parsec_dtd_data_flush wait-for-writers semantics).  Returns False
+        if the pool already completed/aborted instead."""
+        return N.lib.ptc_tp_drain(self._ptr) == 0
 
     def set_open(self, open_: bool):
         """Hold the pool open (DTD insertion): it cannot complete while

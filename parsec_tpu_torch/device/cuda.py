@@ -2076,10 +2076,18 @@ class CudaDevice:
         for t in tasks:
             self.ctx.task_complete(t)
 
-    def _outputs(self, body: _DeviceBody, out, lanes: int) -> tuple:
+    def _outputs(self, body: _DeviceBody, out, lanes: int,
+                 ins: Sequence[torch.Tensor] = ()) -> tuple:
         """A kernel's return value as one [lanes, *tile] stack per write
         flow on this device (a DTD kernel's single tiles get their lane
-        axis); raises on a count, width or device that does not fit."""
+        axis); raises on a count, width or device that does not fit.
+
+        An output that shares storage with one of the launch's input
+        stacks `ins` (a chore passing a flow through, as ring
+        attention's k_att does with Q and KV) is cloned: an input stack
+        may be a lane-stride-0 view of one tile or a slice of another
+        cached stack, and a mirror installed over it would alias the
+        older version's storage and be charged a second time."""
         outs = out if isinstance(out, tuple) else (out,)
         if len(outs) != len(body.writes):
             raise ValueError(
@@ -2093,7 +2101,9 @@ class CudaDevice:
                     f"{body.name}.{f}: kernel output "
                     f"{tuple(ostack.shape)} on {ostack.device}, "
                     f"expected {lanes} lanes on {self.device}")
-        return outs
+        held = {t.untyped_storage().data_ptr() for t in ins}
+        return tuple(o.clone() if o.untyped_storage().data_ptr() in held
+                     else o for o in outs)
 
     def _launch(self, body: _DeviceBody, tasks: List) -> Optional[list]:
         """Stage the lanes' inputs, launch the kernel once, install the
@@ -2112,8 +2122,10 @@ class CudaDevice:
             else:
                 out = body.kernel(*ins)
             self._count_launch(body.kernel, len(tasks))
+            # the outputs' clones (if any) are enqueued before the event
+            # that their mirrors' readers on other streams wait on
+            outs = self._outputs(body, out, len(tasks), ins)
             ev = self._record()
-            outs = self._outputs(body, out, len(tasks))
             epi, epi_lane, epi_key = body.epilogue, None, None
             if epi is not None:
                 for i, view in enumerate(views):

@@ -538,7 +538,8 @@ class WaveFuser:
                     self._seen_plans.add(pkey)
                     self._bump("cache_misses")
                 ins = [dev._lanes_in(views, body, f) for f in body.reads]
-                outs0 = dev._outputs(body, body.kernel(*ins), len(tasks))
+                outs0 = dev._outputs(body, body.kernel(*ins), len(tasks),
+                                     ins)
                 dev._count_launch(body.kernel, len(tasks))
                 ev0 = dev._record()
                 prev, level_outs = outs0, []
@@ -547,7 +548,8 @@ class WaveFuser:
                     width = len(lvl["entries"])
                     lins = [_rows(prev[s[1]], s[2]) if s[0] == "chain"
                             else s[1] for s in specs]
-                    prev = dev._outputs(cbody, cbody.kernel(*lins), width)
+                    prev = dev._outputs(cbody, cbody.kernel(*lins), width,
+                                        lins)
                     dev._count_launch(cbody.kernel, width)
                     level_outs.append(prev)
                 ev = dev._record()

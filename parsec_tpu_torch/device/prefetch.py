@@ -92,9 +92,9 @@ class _PrefetchLane:
     # ------------------------------------------------------------ loop
     def _loop(self):
         """Sweep whenever there is lookahead to stage.  Idle waits ride
-        the device's wake event, so a setter (a remote delivery, once the
-        comm engine is ported) gets a sweep now rather than at the end of
-        the poll interval.  Sweeps that find nothing to stage back off,
+        the device's wake event, so a setter (a remote delivery from the
+        comm engine's data plane, a chain hint) gets a sweep now rather
+        than at the end of the poll interval.  Sweeps that find nothing to stage back off,
         0.5 ms doubling to 8 ms: a sweep parses the whole lookahead in
         Python, and on a host-bound path whose tiles are all resident (a
         decode loop) back-to-back sweeps would take the interpreter from

@@ -27,8 +27,10 @@ IDENTICAL bytes.  With a device attached, PATTF/VATF run `fold_heads`,
 the torch form of the same fold on lane stacks; it agrees with the host
 fold to f32 rounding (TF32 must stay off).
 
-Not ported yet: tensor-parallel sharding (`shard=`, nodes > 1); asking
-for it raises NotImplementedError.
+Tensor-parallel sharding (`shard=`, nodes > 1): KV pages and slot scratch
+shard BY HEAD (rank-replicated collections, each rank holding its head
+block), and each pool embeds a RefReduce all-reduce over the ranks'
+partial pre-logit projections (`_wire_shard`, over comm/coll.py).
 """
 from __future__ import annotations
 
@@ -41,20 +43,13 @@ import numpy as np
 import torch
 
 from ..core import G, In, L, Mem, Out, Ref, call
-from ..data.collections import TwoDimBlockCyclic
+from ..data.collections import ReplicatedLocal, TwoDimBlockCyclic
 
 __all__ = ["PagePool", "SeqSpec", "attend_page", "attend_heads",
            "finalize_attention", "finalize_heads", "fold_heads",
            "build_paged_decode", "build_paged_prefill",
            "build_paged_verify", "make_slot_collections",
            "prefix_page_keys", "reset_acc"]
-
-
-def _no_shard(nodes: int = 1, shard=None):
-    if nodes > 1 or shard is not None:
-        raise NotImplementedError(
-            "tensor-parallel paged attention (nodes > 1, shard=) is not "
-            "ported to parsec_tpu_torch yet")
 
 
 def prefix_page_keys(model_id: str, tokens: Sequence[int],
@@ -105,13 +100,28 @@ class PagePool:
     def __init__(self, ctx, n_pages: int, page: int, d: int,
                  dtype=np.float32, name: str = "KV", nodes: int = 1,
                  myrank: int = 0):
-        _no_shard(nodes)
         self.n_pages, self.page, self.d = n_pages, page, d
         self.dtype = np.dtype(dtype)
         self.name = name
         self._ctx = ctx
-        self.Kc = TwoDimBlockCyclic(n_pages * page, d, page, d, dtype=dtype)
-        self.Vc = TwoDimBlockCyclic(n_pages * page, d, page, d, dtype=dtype)
+        # tensor-parallel serving: KV pages shard BY HEAD — each rank's
+        # pool holds its head slice (d = d_model / tp) of every page, in
+        # rank-replicated placement (rank_of == myrank), so page folds
+        # stay local Mem edges on every rank.  The refcount/COW/content
+        # machinery below is rank-local: frozen keys digest token ids,
+        # so the per-shard chains agree across ranks.
+        if nodes > 1:
+            self.Kc = ReplicatedLocal(n_pages * page, d, page, d,
+                                      nodes=nodes, myrank=myrank,
+                                      dtype=dtype)
+            self.Vc = ReplicatedLocal(n_pages * page, d, page, d,
+                                      nodes=nodes, myrank=myrank,
+                                      dtype=dtype)
+        else:
+            self.Kc = TwoDimBlockCyclic(n_pages * page, d, page, d,
+                                        dtype=dtype)
+            self.Vc = TwoDimBlockCyclic(n_pages * page, d, page, d,
+                                        dtype=dtype)
         self.k_name, self.v_name = f"{name}_K", f"{name}_V"
         self.Kc.register(ctx, self.k_name)
         self.Vc.register(ctx, self.v_name)
@@ -457,14 +467,21 @@ def make_slot_collections(ctx, max_seqs: int, d: int, name: str = "PA",
     Qc (1, d) query rows, ACCc (1, d+2*nh) online-softmax accumulators
     ([acc | m_0..m_{nh-1} | l_0..l_{nh-1}]), Oc (1, d) attention
     outputs, KNc (1, 2d) the new token's k|v rows.  Registered as
-    {name}_{Q,ACC,O,KN}.  `nh` is the number of attention heads (each
-    with its own softmax state)."""
-    _no_shard(nodes)
+    {name}_{Q,ACC,O,KN}.  `nh` is the number of attention heads held
+    locally (each with its own softmax state); with nodes > 1 the
+    collections are rank-replicated (tensor-parallel shard scratch)."""
     aw = d + 2 * nh
-    Qc = TwoDimBlockCyclic(max_seqs, d, 1, d, dtype=np.float32)
-    ACCc = TwoDimBlockCyclic(max_seqs, aw, 1, aw, dtype=np.float32)
-    Oc = TwoDimBlockCyclic(max_seqs, d, 1, d, dtype=np.float32)
-    KNc = TwoDimBlockCyclic(max_seqs, 2 * d, 1, 2 * d, dtype=np.float32)
+
+    def mk(rows, cols):
+        if nodes > 1:
+            return ReplicatedLocal(rows, cols, 1, cols, nodes=nodes,
+                                   myrank=myrank, dtype=np.float32)
+        return TwoDimBlockCyclic(rows, cols, 1, cols, dtype=np.float32)
+
+    Qc = mk(max_seqs, d)
+    ACCc = mk(max_seqs, aw)
+    Oc = mk(max_seqs, d)
+    KNc = mk(max_seqs, 2 * d)
     names = {}
     for suffix, coll in (("Q", Qc), ("ACC", ACCc), ("O", Oc), ("KN", KNc)):
         n = f"{name}_{suffix}"
@@ -639,18 +656,83 @@ def _fold_body(d: int, P: int, nh: int, sc: float):
     return fro_body
 
 
-def _last_body(d: int, P: int, nh: int, sc: float, rows_of: Callable):
+def _last_body(d: int, P: int, nh: int, sc: float, rows_of: Callable,
+               shard: Optional[dict] = None):
+    """The last-page fold: attend the page's valid rows, finalize O.  With
+    `shard`, also project this rank's head-slice output into the PL flow
+    (the all-reduce's contribution) and mark the sequence's local shard
+    done."""
     aw = d + 2 * nh
 
     def lst_body(v):
+        si = v["s"]
         q = v.data("Q", np.float32, (1, d))[0]
         K = v.data("KP", np.float32, (P, d))
         V = v.data("VP", np.float32, (P, d))
         at = v.data("ACC", np.float32, (1, aw))
-        attend_heads(q, K, V, at, sc, nh, rows=rows_of(v["s"]))
-        v.data("O", np.float32, (1, d))[0] = finalize_heads(at, nh)
+        attend_heads(q, K, V, at, sc, nh, rows=rows_of(si))
+        o = finalize_heads(at, nh)
+        v.data("O", np.float32, (1, d))[0] = o
+        if shard is not None:
+            v.data("PL", np.float32)[:int(shard["dm"])] = \
+                shard["project"](o)
+            mark = shard.get("local")
+            if mark is not None:
+                mark(si)
 
     return lst_body
+
+
+def _set_last_body(lst, body, body_wrap, shard) -> None:
+    if body_wrap:
+        lst.body(body_wrap(body))
+    else:
+        # a shard body calls the engine's projection and marks: not pure
+        lst.body(body, pure=shard is None)
+
+
+def _wire_shard(ctx, tp, classes, prod_class: str, nseg: int, shard: dict):
+    """Tensor-parallel shard wiring.  The pool is built SPMD on every
+    rank of the tp group: `classes` are anchored on THIS rank (each rank
+    folds its own head slice of every sequence), and a RefReduce
+    all-reduce chain is embedded in the SAME taskpool to sum the
+    per-rank partial pre-logit projections.  Contributions enter the
+    ptc_coll_* steps as each sequence's last fold completes, so the wire
+    starts after the FIRST sequence's shard is done.  `shard` keys:
+
+      rank     this rank (affinity anchor + contributor-id base)
+      nranks   tp degree R (every rank contributes one partial per seq)
+      dm       full model dim — the (dm,) reduction payload
+      project  o -> this rank's (dm,) partial projection
+      sink     fanout_sink(seg, slc, x): reduced pre-logits, delivered
+               ON EVERY RANK (bcast=True) for SPMD next-token selection
+      local    optional mark(seg): the sequence's local shard is done
+      topo     optional reduce/fanout topology override
+
+    Declares the producer's "PL" flow on the reduction's arena."""
+    from ..comm.coll import RefReduce, rank_affinity_collection
+
+    R = max(1, int(shard.get("nranks", 1)))
+    rk = int(shard.get("rank", 0))
+    dm = int(shard["dm"])
+    rankc = rank_affinity_collection(ctx)
+    my = call(lambda l, g, r=rk: r, pure=True)
+    for cls in classes:
+        cls.affinity(rankc, my)
+    rr = RefReduce(
+        ctx, tp, nseg,
+        contributors_of=lambda seg, R=R, n=nseg:
+            [(r, r * n + seg) for r in range(R)],
+        root_of=lambda seg, R=R: seg % R,
+        prod_class=prod_class, prod_flow="PL", prod_nparams=1,
+        prod_params_of=lambda cid, n=nseg: (cid % n,),
+        arena_bytes=dm * 4, dtype=np.float32, op="sum",
+        topo=shard.get("topo"), bcast=True,
+        fanout_sink=shard.get("sink"))
+    tp.class_by_name(prod_class).flow(
+        "PL", "W", *rr.producer_out_deps(
+            lambda l, g, rk=rk, n=nseg: rk * n + l[0]),
+        arena=rr.arena)
 
 
 # ------------------------------------------------------------- builders
@@ -667,9 +749,11 @@ def build_paged_decode(ctx, pool: PagePool, seqs: Sequence[SeqSpec],
     PATTF folds each frozen page, PATTL folds the updated last page and
     writes O.  `body_wrap` wraps the PATTL body (fault-injection seam).
     With `dev`, PATTF runs the device fold (`fold_heads`), one launch
-    per task as in the reference (batch=False).  `nh` heads, each with
-    its own softmax state (packed accumulator)."""
-    _no_shard(shard=shard)
+    per task as in the reference (batch=False).  `nh` heads live
+    locally, each with its own softmax state (packed accumulator); with
+    `shard` (see _wire_shard) the classes anchor on this rank and PATTL
+    also projects its head-slice output through the rank's wo rows,
+    feeding the embedded ptc_coll_* all-reduce."""
     d, P = pool.d, pool.page
     sc = (d ** -0.5) if scale is None else float(scale)
     slot_t, pages_t, nfro_t, last_t, fill_t = _tables(seqs)
@@ -738,11 +822,10 @@ def build_paged_decode(ctx, pool: PagePool, seqs: Sequence[SeqSpec],
              In(Mem(an, c_slot, 0)))
     lst.flow("O", "RW", In(Mem(on, c_slot, 0)), Out(Mem(on, c_slot, 0)))
     # old rows + the row PUPD just wrote
-    lst_body = _last_body(d, P, nh, sc, lambda si: fill_t[si] + 1)
-    if body_wrap:
-        lst.body(body_wrap(lst_body))
-    else:
-        lst.body(lst_body, pure=True)
+    if shard is not None:
+        _wire_shard(ctx, tp, (upd, fro, lst), "PATTL", len(seqs), shard)
+    _set_last_body(lst, _last_body(d, P, nh, sc, lambda si: fill_t[si] + 1,
+                                   shard), body_wrap, shard)
     return tp
 
 
@@ -762,7 +845,6 @@ def build_paged_verify(ctx, pool: PagePool, seqs: Sequence[SeqSpec],
     same fold as decode's PATTF, declared BATCHABLE: a wave of ready
     VATF tasks runs as one launch over its lanes.  A verified position's
     host-fold output is BIT-IDENTICAL to the sequential decode step's."""
-    _no_shard(shard=shard)
     d, P = pool.d, pool.page
     sc = (d ** -0.5) if scale is None else float(scale)
     slot_t, pages_t, nfro_t, last_t, fill_t = _tables(seqs)
@@ -803,11 +885,10 @@ def build_paged_verify(ctx, pool: PagePool, seqs: Sequence[SeqSpec],
              In(Ref("VATF", s, c_nfro - 1, flow="ACC")),
              In(Mem(an, c_slot, 0)))
     lst.flow("O", "RW", In(Mem(on, c_slot, 0)), Out(Mem(on, c_slot, 0)))
-    lst_body = _last_body(d, P, nh, sc, lambda si: fill_t[si])
-    if body_wrap:
-        lst.body(body_wrap(lst_body))
-    else:
-        lst.body(lst_body, pure=True)
+    if shard is not None:
+        _wire_shard(ctx, tp, (fro, lst), "VATL", len(seqs), shard)
+    _set_last_body(lst, _last_body(d, P, nh, sc, lambda si: fill_t[si],
+                                   shard), body_wrap, shard)
     return tp
 
 
@@ -832,7 +913,6 @@ def build_paged_prefill(ctx, pool: PagePool, seqs: Sequence[SeqSpec],
     at the cold tail, and the fold chain reads warm pages straight from
     the KV collections (PFILL(s, j<warm) does not exist).  A fully-warm
     sequence prefills ZERO pages and still folds its whole cache."""
-    _no_shard(shard=shard)
     d, P = pool.d, pool.page
     sc = (d ** -0.5) if scale is None else float(scale)
     slot_t, pages_t, nfro_t, last_t, fill_t = _tables(seqs)
@@ -908,9 +988,8 @@ def build_paged_prefill(ctx, pool: PagePool, seqs: Sequence[SeqSpec],
              In(Ref("PATTF", s, c_nfro - 1, flow="ACC")),
              In(Mem(an, c_slot, 0)))
     lst.flow("O", "RW", In(Mem(on, c_slot, 0)), Out(Mem(on, c_slot, 0)))
-    lst_body = _last_body(d, P, nh, sc, lambda si: fill_t[si])
-    if body_wrap:
-        lst.body(body_wrap(lst_body))
-    else:
-        lst.body(lst_body, pure=True)
+    if shard is not None:
+        _wire_shard(ctx, tp, (fil, fro, lst), "PATTL", len(seqs), shard)
+    _set_last_body(lst, _last_body(d, P, nh, sc, lambda si: fill_t[si],
+                                   shard), body_wrap, shard)
     return tp

@@ -23,8 +23,12 @@ plan-vs-measured record when the pool retires.  An attached controller
 (Context.controller) is bound to the engine and polled once per reaped
 step.
 
-Not ported yet: tensor-parallel serving (tp > 1) raises
-NotImplementedError.
+Tensor-parallel serving (`tp` > 1): the same engine runs SPMD on every
+rank of a tp-rank comm group; each rank holds the KV pages and slot
+scratch of its contiguous head block, and every pool embeds a RefReduce
+all-reduce of the ranks' partial pre-logit projections.  With
+PagedLMConfig(qlog=True) those sums are exact in f32, so a tp run's
+tokens and pre-logits equal the one-rank run's bit for bit.
 """
 from __future__ import annotations
 
@@ -37,7 +41,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..data.collections import TwoDimBlockCyclic
+from ..data.collections import ReplicatedLocal, TwoDimBlockCyclic
 from ..ops.paged_attention import (PagePool, SeqSpec, attend_heads,
                                    build_paged_decode, build_paged_prefill,
                                    build_paged_verify, finalize_heads,
@@ -54,12 +58,17 @@ _WEIGHTS = ("embed", "wq", "wk", "wv", "wo")
 # ---------------------------------------------------------------- model
 class PagedLMConfig:
     def __init__(self, vocab: int = 64, d: int = 16, page: int = 8,
-                 seed: int = 0, heads: int = 1):
+                 seed: int = 0, heads: int = 1, qlog: bool = False):
         self.vocab, self.d, self.page, self.seed = vocab, d, page, seed
-        # `heads` independent attention heads (d must divide evenly)
+        # `heads` independent attention heads (d must divide evenly) —
+        # the tensor-parallel sharding unit; `qlog` quantizes the output
+        # projection to a dyadic grid so the pre-logit partial sums are
+        # EXACT in f32 (order-independent: the cross-rank all-reduce is
+        # bit-identical to a one-rank run)
         if d % max(1, heads):
             raise ValueError("d must divide by heads")
         self.heads = max(1, int(heads))
+        self.qlog = bool(qlog)
 
 
 def _seeded_weights(cfg: PagedLMConfig) -> Dict[str, np.ndarray]:
@@ -71,7 +80,15 @@ def _seeded_weights(cfg: PagedLMConfig) -> Dict[str, np.ndarray]:
     for name in _WEIGHTS[1:]:
         out[name] = rng.randn(d, d).astype(np.float32) * \
             np.float32(d ** -0.5)
+    if cfg.qlog:
+        out["wo"] = _snap(out["wo"], 8.0)
     return out
+
+
+def _snap(a: np.ndarray, grid: float) -> np.ndarray:
+    """Round to the 1/grid dyadic grid (idempotent on snapped values)."""
+    return (np.round(a * np.float32(grid)) /
+            np.float32(grid)).astype(np.float32)
 
 
 class PagedLM(nn.Module):
@@ -81,7 +98,16 @@ class PagedLM(nn.Module):
     head (next_token) takes one output row per call,
     so every caller — the engine, its reference_generate, an oracle —
     sees the same bytes for the same token: a product's rounding never
-    depends on how many rows a call held."""
+    depends on how many rows a call held.
+
+    Tensor-parallel view: qkv projections are column (head) parallel,
+    the output projection wo row parallel, embed replicated;
+    `shard_slice`/`wo_shard` hand each rank its contiguous head block,
+    and the ranks' partial projections sum to the full one.  `qlog`
+    snaps attention outputs to the 1/256 grid and wo to the 1/8 grid:
+    every pre-logit partial product is a small dyadic rational, so f32
+    sums are exact in ANY association — the reason a tp=2/tp=4 run is
+    BIT-identical to tp=1."""
 
     def __init__(self, cfg: PagedLMConfig, device="cuda",
                  params: Optional[Dict[str, np.ndarray]] = None):
@@ -99,8 +125,13 @@ class PagedLM(nn.Module):
                          f"p{cfg.page}:s{cfg.seed}")
         if cfg.heads != 1:
             self.model_id += f":h{cfg.heads}"
+        if cfg.qlog:
+            self.model_id += ":q"
         if params is None:
             params = _seeded_weights(cfg)
+        elif cfg.qlog:
+            # carried weights of a qlog model are on the grid already
+            params = dict(params, wo=_snap(params["wo"], 8.0))
         shapes = {"embed": (cfg.vocab, cfg.d)}
         for name in _WEIGHTS:
             a = np.ascontiguousarray(params[name], dtype=np.float32)
@@ -129,17 +160,64 @@ class PagedLM(nn.Module):
         q, k, v = out.numpy()
         return q, k, v
 
+    @staticmethod
+    def quant_o(o: np.ndarray) -> np.ndarray:
+        """Snap an attention output to the 1/256 dyadic grid (qlog)."""
+        return _snap(np.asarray(o, np.float32), 256.0)
+
+    def _rows(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)) \
+            .to(self.device)
+
     @torch.no_grad()
-    def _pre(self, o: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(o, np.float32)) \
-            .to(self.device) @ self.wo
+    def _pre(self, o: np.ndarray, wo: Optional[torch.Tensor] = None) \
+            -> torch.Tensor:
+        if self.cfg.qlog:
+            o = self.quant_o(o)
+        return self._rows(o) @ (self.wo if wo is None else wo)
 
     @torch.no_grad()
     def _logits(self, pre: torch.Tensor) -> torch.Tensor:
         return pre @ self.embed.T
 
+    def pre_logits(self, o: np.ndarray) -> np.ndarray:
+        """Output projection (the pre-embedding-tie logits) as a host row:
+        the quantity tp ranks produce partially and all-reduce."""
+        return self._pre(o).cpu().numpy()
+
+    def logits_from_pre(self, pre: np.ndarray) -> np.ndarray:
+        return self._logits(self._rows(pre)).cpu().numpy()
+
+    def logits(self, o: np.ndarray) -> np.ndarray:
+        return self._logits(self._pre(o)).cpu().numpy()
+
     def next_token(self, o: np.ndarray) -> int:
         return int(torch.argmax(self._logits(self._pre(o))))
+
+    def next_token_pre(self, pre: np.ndarray) -> int:
+        return int(torch.argmax(self._logits(self._rows(pre))))
+
+    # --------------------------------------------- tensor-parallel view
+    def shard_slice(self, rank: int, tp: int) -> slice:
+        """This rank's contiguous head block of the model dim: heads
+        [rank*hl, (rank+1)*hl) with hl = heads/tp — dims
+        [rank*dl, (rank+1)*dl), dl = hl*dh."""
+        if self.cfg.heads % tp:
+            raise ValueError("heads must divide by tp")
+        dl = (self.cfg.heads // tp) * self.dh
+        return slice(rank * dl, (rank + 1) * dl)
+
+    def wo_shard(self, rank: int, tp: int) -> torch.Tensor:
+        """Row-parallel wo shard, on the model's device: the rows matched
+        to this rank's head block (partial products sum exactly under
+        qlog)."""
+        return self.wo[self.shard_slice(rank, tp), :].contiguous()
+
+    def project(self, o: np.ndarray, wo_s: torch.Tensor) -> np.ndarray:
+        """A rank's partial output projection as a host row: its head
+        block's attention output (quantized under qlog) against the
+        matching wo rows `wo_s`."""
+        return self._pre(o, wo_s).cpu().numpy()
 
     # ------------------------------------------------- numpy reference
     def reference_generate(self, prompt: Sequence[int], max_new: int,
@@ -242,7 +320,17 @@ class InferenceEngine:
     any PagedLM — proposes k tokens per sequence and ONE verify wave
     checks them; "auto" adapts k per tenant from its acceptance).
     `dev` attaches a CudaDevice: frozen-page folds run on it.
-    `body_wrap` wraps every decode PATTL body (fault-injection seam)."""
+    `body_wrap` wraps every decode PATTL body (fault-injection seam).
+
+    Tensor-parallel mode (`tp` > 1): construct the SAME engine on every
+    rank of a tp-rank comm group (SPMD, one Context per rank, comm
+    initialized, the model built with qlog=True) and drive the SAME
+    submit sequence on each.  Each step's pools are coupled by the
+    embedded all-reduce, so step() is barriered by the collective
+    itself.  Let every submitted prefill complete (state "active") on
+    a rank before that rank enters its decode loop: the engine has no
+    cross-rank agreement on mid-stream joins.  In tp mode a request's
+    outputs are the reduced pre-logit rows, not attention outputs."""
 
     def __init__(self, ctx, model: PagedLM, n_pages: int = 64,
                  max_seqs: int = 16, server: Optional[Server] = None,
@@ -251,14 +339,31 @@ class InferenceEngine:
                  dev=None, conformance: bool = True,
                  prefix_cache: bool = True, spec_k=0,
                  spec_draft="self", tp: int = 1):
-        if int(tp) > 1:
-            raise NotImplementedError(
-                "tensor-parallel serving (tp > 1) is not ported to "
-                "parsec_tpu_torch yet")
         cfg = model.cfg
         self.ctx = ctx
         self.model = model
-        self._nh = cfg.heads
+        # tensor-parallel serving across a rank group: each rank owns
+        # the KV pages and slot scratch of ITS contiguous head block
+        # (d_local = d / tp), and every pool embeds a RefReduce
+        # all-reduce of the per-rank partial pre-logit projections
+        self.tp = max(1, int(tp))
+        if self.tp > 1:
+            if ctx.nodes != self.tp:
+                raise ValueError(f"tp={self.tp} needs a {self.tp}-rank "
+                                 f"ctx (nodes={ctx.nodes})")
+            if cfg.heads % self.tp:
+                raise ValueError("heads must divide by tp")
+            if not cfg.qlog:
+                raise ValueError("tp > 1 requires qlog=True (exact "
+                                 "cross-rank partial sums)")
+        self.rank = ctx.myrank if self.tp > 1 else 0
+        self._nh = cfg.heads // self.tp             # heads held locally
+        self._dl = self._nh * model.dh              # local model-dim slice
+        self._shard_sl = slice(self.rank * self._dl,
+                               (self.rank + 1) * self._dl)
+        self._wo_s = model.wo_shard(self.rank, self.tp) \
+            if self.tp > 1 else None
+        nodes = ctx.nodes if self.tp > 1 else 1
         # adaptive speculation: spec_k="auto" sizes the verify scratch
         # for control.spec_k_max, and each tenant's live k tracks its
         # own acceptance window (shrink on low acceptance, pause under
@@ -282,12 +387,16 @@ class InferenceEngine:
         # decode pool so plan-vs-measured stays covered
         self.scope = ctx.scope_registry()
         self.conformance = bool(conformance)
-        self.pool = PagePool(ctx, n_pages, cfg.page, cfg.d,
-                             name=f"{name}_KV")
+        # KV pages shard BY HEAD: one PagePool per rank holding the
+        # d_local columns of every page
+        self.pool = PagePool(ctx, n_pages, cfg.page, self._dl,
+                             name=f"{name}_KV", nodes=nodes,
+                             myrank=self.rank)
         (self.Qc, self.ACCc, self.Oc, self.KNc,
-         self.slot_names) = make_slot_collections(ctx, max_seqs, cfg.d,
+         self.slot_names) = make_slot_collections(ctx, max_seqs, self._dl,
                                                   name=f"{name}_PA",
-                                                  nh=self._nh)
+                                                  nh=self._nh, nodes=nodes,
+                                                  myrank=self.rank)
         self.max_seqs = max_seqs
         self._free_slots = list(range(max_seqs - 1, -1, -1))
         # speculative verify scratch: one (Q, ACC, O) row per (sequence
@@ -296,14 +405,16 @@ class InferenceEngine:
         if self.spec_k:
             (self.SQc, self.SACCc, self.SOc, _,
              self.spec_names) = make_slot_collections(
-                ctx, max_seqs * (self.spec_k + 1), cfg.d,
-                name=f"{name}_SV", nh=self._nh)
+                ctx, max_seqs * (self.spec_k + 1), self._dl,
+                name=f"{name}_SV", nh=self._nh, nodes=nodes,
+                myrank=self.rank)
         self.server = server or Server(
             ctx, tenants or [TenantConfig("default")], name=name)
         # stats()["serve"] grows the pool's prefix-cache counters and
         # the engine's speculative-decode counters
         self.server.register_resource_stats("prefix", self.pool.stats)
         self.server.register_resource_stats("spec", self._spec_stats)
+        self.server.register_resource_stats("tp", self._tp_stats)
         # the frozen-page key digest a fleet view scores placements
         # against (Server.advertise()["prefix"])
         self.server.register_advertiser("prefix", self._prefix_advert)
@@ -319,9 +430,14 @@ class InferenceEngine:
         # reserved page is not handed out again until its owner frees
         # it).  Tiles are allocated at first touch, so an unused tile
         # costs nothing.
-        self.PRc = TwoDimBlockCyclic(n_pages * cfg.page,
-                                     2 * cfg.d, cfg.page, 2 * cfg.d,
-                                     dtype=np.float32)
+        dl = self._dl
+        if self.tp > 1:
+            self.PRc = ReplicatedLocal(n_pages * cfg.page, 2 * dl,
+                                       cfg.page, 2 * dl, nodes=nodes,
+                                       myrank=self.rank, dtype=np.float32)
+        else:
+            self.PRc = TwoDimBlockCyclic(n_pages * cfg.page, 2 * dl,
+                                         cfg.page, 2 * dl, dtype=np.float32)
         self.PRc.register(ctx, self._prompt_coll_name)
         self.requests: List[RequestHandle] = []
         self.stats = {"decode_pools": 0, "decode_steps": 0,
@@ -329,7 +445,8 @@ class InferenceEngine:
                       "prefix_hits": 0, "prefix_misses": 0,
                       "cow_copies": 0, "spec_steps": 0,
                       "spec_proposed": 0, "spec_accepted": 0,
-                      "spec_fallbacks": 0}
+                      "spec_fallbacks": 0, "tp_coll_pools": 0,
+                      "tp_coll_wait_ns": 0}
         ctrl = ctx.controller(create=False)
         if ctrl is not None:
             ctrl.bind_engine(self)
@@ -360,6 +477,58 @@ class InferenceEngine:
                 "fallbacks": self.stats["spec_fallbacks"],
                 "accept_rate": (acc / prop) if prop else 0.0,
             }
+
+    def _tp_stats(self) -> dict:
+        with self._lock:
+            return {
+                "enabled": self.tp > 1, "tp": self.tp, "rank": self.rank,
+                "heads_local": self._nh, "d_local": self._dl,
+                "coll_pools": self.stats["tp_coll_pools"],
+                "coll_wait_ns": self.stats["tp_coll_wait_ns"],
+            }
+
+    # ------------------------------------------------- tp shard plumbing
+    def _project(self, o: np.ndarray) -> np.ndarray:
+        """This rank's partial output projection: the local head block's
+        attention output against the matching wo rows.  Under qlog every
+        partial product is dyadic-exact, so the cross-rank sum equals
+        the full-width projection BITWISE."""
+        return self.model.project(o, self._wo_s)
+
+    def _mk_shard(self, nseg: int):
+        """Per-pool shard record: the dict build_paged_* hands to
+        _wire_shard (rank identity + projection + delivery sink) and the
+        reap-side record carrying the reduced pre-logit buffer plus the
+        coll-wait instants (local shard done -> reduced vector back)."""
+        d = self.model.cfg.d
+        buf = np.zeros((nseg, d), np.float32)
+        t_loc = np.zeros(nseg, np.int64)
+        t_del = np.zeros(nseg, np.int64)
+
+        def mark(seg, t=t_loc):
+            t[seg] = time.monotonic_ns()
+
+        def sink(seg, slc, x, buf=buf, t=t_del):
+            # the fan-out delivers the whole reduced segment (one slice)
+            buf[seg, :x.size] = x
+            t[seg] = time.monotonic_ns()
+
+        shard = {"rank": self.rank, "nranks": self.tp, "dm": d,
+                 "project": self._project, "sink": sink, "local": mark}
+        return shard, {"buf": buf, "t_local": t_loc, "t_deliver": t_del}
+
+    def _coll_wait(self, srec, tenant: str) -> int:
+        """Fold one reaped pool's coll-wait instants into the stats and
+        the tenant's live scope feed; returns the pool's max wait (the
+        step's exposure to the wire)."""
+        waits = np.maximum(srec["t_deliver"] - srec["t_local"], 0)
+        total = int(waits.sum())
+        with self._lock:
+            self.stats["tp_coll_pools"] += 1
+            self.stats["tp_coll_wait_ns"] += total
+        worst = int(waits.max()) if waits.size else 0
+        self.scope.record_coll_wait(tenant, worst, n=int(waits.size))
+        return worst
 
     # ------------------------------------------------------ prefix keys
     def _page_keys(self, prompt: Sequence[int]) -> List[str]:
@@ -407,7 +576,7 @@ class InferenceEngine:
         then stage the COLD prompt k|v and build the pool: a warm page
         never re-prefills."""
         cfg = self.model.cfg
-        P, d = cfg.page, cfg.d
+        P = cfg.page
         T = len(req.prompt)
         n_pages = (T + P - 1) // P
         keys = self._page_keys(req.prompt) if self.prefix_cache else []
@@ -427,37 +596,45 @@ class InferenceEngine:
         self.scope.record_prefix(req.tenant, hits=warm,
                                  misses=n_pages - warm)
         # stage COLD prompt k|v into the PR collection + the last
-        # token's q; warm pages already hold their rows (frozen)
-        kv = np.zeros((n_pages * P, 2 * d), np.float32)
+        # token's q; warm pages already hold their rows (frozen).  In tp
+        # mode the FULL qkv rows are computed and this rank's head block
+        # sliced out: projection numerics never depend on the shard.
+        dl, sl = self._dl, self._shard_sl
+        kv = np.zeros((n_pages * P, 2 * dl), np.float32)
         for i, tok in enumerate(req.prompt):
             if i < warm * P:
                 continue
             _, k, v = self.model.qkv(tok)
-            kv[i, :d] = k
-            kv[i, d:] = v
+            kv[i, :dl] = k[sl]
+            kv[i, dl:] = v[sl]
         for i in range(warm, n_pages):
             self.PRc.tile(pages[i], 0)[...] = kv[i * P:(i + 1) * P]
             self.ctx.host_wrote(self.PRc, pages[i])
-        self.Qc.tile(slot, 0)[0] = self.model.qkv(req.prompt[-1])[0]
+        self.Qc.tile(slot, 0)[0] = self.model.qkv(req.prompt[-1])[0][sl]
         reset_acc(self.ACCc.tile(slot, 0), self._nh)
         self.ctx.host_wrote(self.Qc, slot)
         self.ctx.host_wrote(self.ACCc, slot)
         fill = T - (n_pages - 1) * P
         spec = SeqSpec(slot, pages, fill)
+        shard = srec = None
+        if self.tp > 1:
+            shard, srec = self._mk_shard(1)
         tp = build_paged_prefill(
             self.ctx, self.pool, [spec],
             {"Q": self.slot_names["Q"], "ACC": self.slot_names["ACC"],
              "O": self.slot_names["O"]},
             self._prompt_coll_name, [pages],
             scale=self.model.scale,
-            priority=priority, weight=weight, warm=[warm], nh=self._nh)
+            priority=priority, weight=weight, warm=[warm], nh=self._nh,
+            shard=shard)
         tp.on_complete(lambda: self._prefill_done(req, spec, warm, keys,
-                                                  tp))
+                                                  tp, srec))
         self.stats["prefills"] += 1
         return tp
 
     def _prefill_done(self, req: RequestHandle, spec: SeqSpec,
-                      warm: int, keys: List[str], tp):
+                      warm: int, keys: List[str], tp,
+                      srec: Optional[dict] = None):
         """Worker-thread callback: activate the sequence + consume the
         first decode output (the prefill chain already attended the
         last prompt position).  A failed pool fails the request: its
@@ -483,9 +660,18 @@ class InferenceEngine:
             with self._lock:
                 self._retire_locked(seq)
             return
-        o = self.Oc.tile(spec.slot, 0)[0].copy()
-        req.outputs.append(o)
-        req.tokens.append(self.model.next_token(o))
+        if srec is not None:
+            # tp: the token comes from the all-reduced pre-logits (the
+            # same bytes on every rank), which are the request's output
+            pre = srec["buf"][0].copy()
+            req.outputs.append(pre)
+            nxt = self.model.next_token_pre(pre)
+            self._coll_wait(srec, req.tenant)
+        else:
+            o = self.Oc.tile(spec.slot, 0)[0].copy()
+            req.outputs.append(o)
+            nxt = self.model.next_token(o)
+        req.tokens.append(nxt)
         # the prefill chain attended the last prompt position: this IS
         # the first generated token — the tenant TTFT histogram's feed
         self.scope.record_first_token(req.scope_id)
@@ -522,7 +708,16 @@ class InferenceEngine:
                     seq.pages.append(p)
                 ready.setdefault(tenant, []).append(seq)
         launched = 0
-        for tenant, seqs in ready.items():
+        items = list(ready.items())
+        if self.tp > 1:
+            # SPMD discipline: every rank must build the SAME pool
+            # sequence (the embedded RefReduce uids and class tables must
+            # line up across ranks), so tenant build order and per-tenant
+            # sequence order are made canonical
+            items.sort(key=lambda kv: kv[0])
+            for _, seqs in items:
+                seqs.sort(key=lambda sq: sq.req.rid)
+        for tenant, seqs in items:
             ts = self.server._tenants.get(tenant)
             prio, wt = (ts.cfg.priority, ts.cfg.weight) if ts else (0, 1)
             rec = None
@@ -535,7 +730,7 @@ class InferenceEngine:
                     self._spec_reserve_failed(tenant)
             if rec is None:
                 rec = self._stage_decode(seqs, prio, wt)
-            tp, staged, spec_info = rec
+            tp, staged, spec_info, srec = rec
             if not staged:
                 tp.destroy()  # nothing stageable this wave (COW dry)
                 continue
@@ -559,7 +754,8 @@ class InferenceEngine:
             done = threading.Event()
             tp.on_complete(done.set)
             self._inflight[tenant] = (tp, staged, done, dsid, plan,
-                                      time.monotonic_ns(), spec_info)
+                                      time.monotonic_ns(), spec_info,
+                                      srec)
             tp.run()
             self.stats["decode_pools"] += 1
             launched += 1
@@ -569,9 +765,9 @@ class InferenceEngine:
         """Stage + build one NORMAL decode step over `seqs`.  A shared
         (prefix-cache) or frozen last page goes copy-on-write first:
         PUPD appends in place, and a sharer's view must never move.
-        Returns (taskpool, staged sequences, None)."""
+        Returns (taskpool, staged sequences, None, shard record)."""
         P = self.model.cfg.page
-        d = self.model.cfg.d
+        dl, sl = self._dl, self._shard_sl
         specs, staged = [], []
         for seq in seqs:
             last = seq.pages[-1]
@@ -586,21 +782,24 @@ class InferenceEngine:
                         self.stats["cow_copies"] += 1
                     seq.pages[-1] = priv
             q, k, v = self.model.qkv(seq.req.tokens[-1])
-            self.Qc.tile(seq.slot, 0)[0] = q
+            self.Qc.tile(seq.slot, 0)[0] = q[sl]
             knrow = self.KNc.tile(seq.slot, 0)
-            knrow[0, :d] = k
-            knrow[0, d:] = v
+            knrow[0, :dl] = k[sl]
+            knrow[0, dl:] = v[sl]
             reset_acc(self.ACCc.tile(seq.slot, 0), self._nh)
             for coll in (self.Qc, self.KNc, self.ACCc):
                 self.ctx.host_wrote(coll, seq.slot)
             specs.append(SeqSpec(seq.slot, seq.pages, seq.length % P))
             staged.append(seq)
+        shard = srec = None
+        if self.tp > 1 and specs:
+            shard, srec = self._mk_shard(len(specs))
         tp = build_paged_decode(
             self.ctx, self.pool, specs, self.slot_names,
             scale=self.model.scale,
             priority=prio, weight=wt, body_wrap=self.body_wrap,
-            dev=self.dev, nh=self._nh)
-        return tp, staged, None
+            dev=self.dev, nh=self._nh, shard=shard)
+        return tp, staged, None, srec
 
     # -------------------------------------------- adaptive speculation
     def _spec_tenant_locked(self, tenant: str) -> dict:
@@ -711,8 +910,9 @@ class InferenceEngine:
         below row L stay shared read-only.  Page reservation is
         all-or-nothing: a shortfall returns None and the caller falls
         back to plain decode.  Returns (taskpool, sequences, per-seq
-        speculation records)."""
+        speculation records, shard record)."""
         P = self.model.cfg.page
+        hsl = self._shard_sl
         dm = self.spec_draft
         # per-wave k (adaptive speculation): scratch rows and vslot
         # stride stay sized for spec_k (the max), only nq shrinks
@@ -753,12 +953,12 @@ class InferenceEngine:
                 for r in range(L, L + i + 1):
                     pg = priv[r // P - pbase]
                     _, kr, vr = kvs[r - L]
-                    self.pool.k_tile(pg)[r % P] = kr
-                    self.pool.v_tile(pg)[r % P] = vr
+                    self.pool.k_tile(pg)[r % P] = kr[hsl]
+                    self.pool.v_tile(pg)[r % P] = vr[hsl]
                 for pg in priv:
                     self.pool.host_wrote(pg)
                 vslot = seq.slot * (self.spec_k + 1) + i
-                self.SQc.tile(vslot, 0)[0] = kvs[i][0]
+                self.SQc.tile(vslot, 0)[0] = kvs[i][0][hsl]
                 reset_acc(self.SACCc.tile(vslot, 0), self._nh)
                 self.ctx.host_wrote(self.SQc, vslot)
                 self.ctx.host_wrote(self.SACCc, vslot)
@@ -769,12 +969,15 @@ class InferenceEngine:
                 privs.append(priv)
             recs.append({"seq": seq, "nq": nq, "g": [int(t) for t in g],
                          "pbase": pbase, "privs": privs})
+        shard = srec = None
+        if self.tp > 1 and vspecs:
+            shard, srec = self._mk_shard(len(vspecs))
         tp = build_paged_verify(
             self.ctx, self.pool, vspecs, self.spec_names,
             scale=self.model.scale,
             priority=prio, weight=wt, body_wrap=self.body_wrap,
-            dev=self.dev, nh=self._nh)
-        return tp, seqs, recs
+            dev=self.dev, nh=self._nh, shard=shard)
+        return tp, seqs, recs, srec
 
     def _reap(self) -> int:
         """Consume completed decode pools: apply the model head, append
@@ -783,8 +986,10 @@ class InferenceEngine:
         done = [(t, rec) for t, rec in self._inflight.items()
                 if rec[2].is_set()]
         advanced = 0
-        for tenant, (tp, seqs, _, dsid, plan, t0_ns, spec) in done:
+        for tenant, (tp, seqs, _, dsid, plan, t0_ns, spec,
+                     srec) in done:
             del self._inflight[tenant]
+            coll_ns = None
             if tp.nb_errors > 0:
                 # a failed chore (a fold on the card included) aborted
                 # the pool: its outputs are never read, its requests fail
@@ -795,20 +1000,32 @@ class InferenceEngine:
                     for seq in seqs:
                         self._retire_locked(seq, state="failed")
             elif spec is not None:
-                advanced += self._reap_spec(tenant, spec)
+                advanced += self._reap_spec(tenant, spec, srec)
             else:
-                for seq in seqs:
-                    o = self.Oc.tile(seq.slot, 0)[0].copy()
+                for i, seq in enumerate(seqs):
+                    if srec is not None:
+                        # tp: the all-reduced pre-logits (the same bytes
+                        # on every rank) select the token; the staged
+                        # order IS the segment order
+                        o = srec["buf"][i].copy()
+                        nxt = self.model.next_token_pre(o)
+                    else:
+                        o = self.Oc.tile(seq.slot, 0)[0].copy()
+                        nxt = self.model.next_token(o)
                     seq.req.outputs.append(o)
-                    seq.req.tokens.append(self.model.next_token(o))
+                    seq.req.tokens.append(nxt)
                     seq.length += 1
                     seq.remaining -= 1
                     advanced += 1
+            if srec is not None and tp.nb_errors == 0:
+                coll_ns = self._coll_wait(srec, tenant)
             # decode-step pool retired: the plan against its measured
             # wall + lane counters
+            measured = {"wall_ns": time.monotonic_ns() - t0_ns}
+            if coll_ns is not None:
+                measured["coll_wait_ns"] = coll_ns
             self.scope.record_pool_done(
-                dsid, qos=tp.qos_stats(), plan=plan,
-                measured={"wall_ns": time.monotonic_ns() - t0_ns})
+                dsid, qos=tp.qos_stats(), plan=plan, measured=measured)
             tp.destroy()
             self.stats["decode_steps"] += 1
         with self._lock:
@@ -822,7 +1039,7 @@ class InferenceEngine:
                 ctrl.poll()
         return advanced
 
-    def _reap_spec(self, tenant: str, recs) -> int:
+    def _reap_spec(self, tenant: str, recs, srec=None) -> int:
         """Consume one speculative verify wave: greedy accept — query i
         is valid while every earlier draft matched the target's own
         argmax — so the emitted (token, output) stream equals sequential
@@ -830,12 +1047,19 @@ class InferenceEngine:
         by truncating the page table: the losing queries' private pages
         release (refcounts make this free)."""
         advanced = 0
+        vi = 0  # flat verify-spec index == srec segment index (tp)
         wave_prop = wave_acc = 0
         for rec in recs:
             seq, nq, g = rec["seq"], rec["nq"], rec["g"]
             pbase, privs = rec["pbase"], rec["privs"]
             outs, nxts = [], []
             for i in range(nq):
+                if srec is not None:
+                    o = srec["buf"][vi].copy()
+                    vi += 1
+                    outs.append(o)
+                    nxts.append(self.model.next_token_pre(o))
+                    continue
                 vslot = seq.slot * (self.spec_k + 1) + i
                 o = self.SOc.tile(vslot, 0)[0].copy()
                 outs.append(o)
@@ -930,3 +1154,10 @@ class InferenceEngine:
 
     def close(self):
         self.server.close()
+        if self.tp > 1:
+            # RefReduce(bcast=True) leaves the fan-out topology set on the
+            # comm layer (a per-pool restore would race concurrent tenant
+            # pools; every step chooses the same topology): put the
+            # configured default back on teardown
+            from ..comm.coll import restore_topology
+            restore_topology(self.ctx)

@@ -2219,6 +2219,115 @@ def gemm_dist_wave_fuse(rank: int, nodes: int, port: int, N: int = 64,
                 for k, v in tiles_f.items()}
 
 
+def ring_attention_spmd(rank: int, nodes: int, port: int, S: int = 4,
+                        T: int = 32, d: int = 8, device: bool = False):
+    """Ring attention taskpool with shards distributed across ranks: every
+    K/V ring hop crosses a rank boundary through the comm engine (eager or
+    rendezvous by size; with `device`, the K/V blocks are device-resident
+    and ride the data plane), ACC stays rank-local.  Oracle: dense
+    float64 softmax.  Returns the owned O shards."""
+    os.environ["PTC_MCA_comm_eager_limit"] = "1024"
+    pt, ctx = _mk_ctx(rank, nodes, port, nb_workers=1)
+    run_ring_attention, dense_reference = _imp(
+        "algos.ring_attention", "run_ring_attention", "dense_reference")
+    dev = _device(ctx) if device else None
+    with ctx:
+        rng = np.random.default_rng(7)
+        q, k, v = (rng.standard_normal((S * T, d)).astype(np.float32)
+                   for _ in range(3))
+        Oc = run_ring_attention(ctx, S, T, d, q, k, v, dev=dev,
+                                nodes=nodes, myrank=rank)
+        ctx.comm_fence()
+        ref = dense_reference(q, k, v)
+        out = {}
+        for m in range(S):
+            if Oc.rank_of(m, 0) == rank:
+                out[m] = Oc.tile(m, 0).copy()
+                np.testing.assert_allclose(out[m], ref[m * T:(m + 1) * T],
+                                           rtol=2e-4, atol=2e-5)
+        rdv = ctx.comm_rdv_stats()
+        assert rdv["registered_bytes"] == 0, (rank, rdv)
+        if dev is not None:
+            assert dev.stats["tasks"] > 0, dev.stats
+            _stop(dev)
+        ctx.comm_fini()
+        return out
+
+
+def moe_taskpool_spmd(rank: int, nodes: int, port: int, S: int = 4,
+                      T: int = 8, d: int = 4, f: int = 6, E: int = 4,
+                      k: int = 2, combine: str = "chain"):
+    """MoE through the runtime across ranks: token shards live on rank
+    s%nodes, experts on rank e%nodes — the dispatch tiles moving to the
+    expert ranks and the results moving back are the two all-to-all legs,
+    ordinary runtime dependencies over the comm engine.  Validated
+    against the dense numpy oracle on each owned shard; returns them."""
+    build_moe, make_moe_collections, moe_oracle = _imp(
+        "algos.moe", "build_moe", "make_moe_collections", "moe_oracle")
+    pt, ctx = _mk_ctx(rank, nodes, port)
+    with ctx:
+        rng = np.random.default_rng(7)
+        x = rng.normal(size=(S * T, d)).astype(np.float32)
+        wg = rng.normal(size=(d, E)).astype(np.float32)
+        wu = (rng.normal(size=(E, d, f)) / np.sqrt(d)).astype(np.float32)
+        wd = (rng.normal(size=(E, f, d)) / np.sqrt(f)).astype(np.float32)
+        Xc, Yc, WGc, WUc, WDc = make_moe_collections(
+            S, T, d, f, E, nodes=nodes, myrank=rank, x=x, w_gate=wg,
+            w_up=wu, w_down=wd)
+        tp = build_moe(ctx, Xc, Yc, WGc, WUc, WDc, E, k=k, combine=combine)
+        tp.run()
+        tp.wait()
+        ctx.comm_fence()
+        if combine == "coll":
+            st = ctx.coll_stats()
+            assert st["steps"] > 0, st
+        ref = moe_oracle(x, wg, wu, wd, k=k)
+        out = {}
+        for s_ in range(S):
+            if s_ % nodes != rank:
+                continue  # not my shard
+            out[s_] = Yc.tile(s_, 0).copy()
+            np.testing.assert_allclose(out[s_], ref[s_ * T:(s_ + 1) * T],
+                                       rtol=3e-5, atol=3e-5)
+        ctx.comm_fini()
+        return out
+
+
+def coll_dispatch_runtime(rank: int, nodes: int, port: int,
+                          elems: int = 1024):
+    """parallel.collectives front door with a live multi-rank Context:
+    every primitive routes to the runtime-native ptc_coll_* path
+    (coll_stats ops recorded) and matches the numpy references bit for
+    bit.  Returns the four results."""
+    import math
+
+    pt, ctx = _mk_ctx(rank, nodes, port)
+    pp = importlib.import_module(f"{PKG.__name__}.parallel")
+    with ctx:
+        alls = [np.random.default_rng(100 + r)
+                .integers(-50, 50, size=elems).astype(np.float32)
+                for r in range(nodes)]
+        local = alls[rank]
+        total = np.sum(np.stack(alls), axis=0, dtype=np.float32)
+        outs = {}
+        outs["all_reduce"] = pp.all_reduce(local, ctx=ctx)
+        np.testing.assert_array_equal(outs["all_reduce"], total)
+        seg = math.ceil(elems / nodes)
+        outs["reduce_scatter"] = pp.reduce_scatter(local, ctx=ctx)
+        np.testing.assert_array_equal(outs["reduce_scatter"],
+                                      total[rank * seg:rank * seg + seg])
+        outs["all_gather"] = pp.all_gather(local, ctx=ctx)
+        np.testing.assert_array_equal(outs["all_gather"],
+                                      np.concatenate(alls))
+        outs["broadcast"] = pp.broadcast(local.copy(), root=0, ctx=ctx)
+        np.testing.assert_array_equal(outs["broadcast"], alls[0])
+        st = ctx.coll_stats()
+        assert st["ops"] == 4, st  # every call took the runtime path
+        ctx.comm_fence()
+        ctx.comm_fini()
+        return outs
+
+
 # ------------------------------------------------------ the parent's side
 def spmd(worker, nodes: int, timeout: float = 90.0, expect: int = None,
          runner=None, **kw) -> list:

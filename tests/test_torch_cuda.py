@@ -1109,3 +1109,92 @@ def test_colocated_norm_chain_on_the_card(card):
     assert r1["dev"]["dp_recv_bytes"] == 0
     assert r0["dev"]["dp_errors"] == r1["dev"]["dp_errors"] == 0
     assert r1["max_abs_err"] <= 2e-5
+
+
+def _chip_smoke():
+    import importlib
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    return importlib.import_module("chip_smoke")
+
+
+# chip_smoke.py phase 13 at a small size (a head dim and widths the card
+# path uses, few shards and tokens)
+_MULTI = {"ring": (4, 256, 128), "ring2": (4, 256),
+          "moe": (2, 64, 256, 512, 4, 2), "moe_cap": 20, "moe2": (2, 32),
+          "serve_prompts": (40, 72), "serve_new": 4, "serve_pages": 64,
+          "serve_model": {"vocab": 512, "d": 256, "heads": 4, "page": 16},
+          "threads": 4, "cache_bytes": 1 << 30, "timeout": 120.0}
+
+
+def test_ring_attention_chores_on_the_card(card):
+    """Ring attention with every ATT and FIN a device chore on the card
+    (13a at a small size): O against float64 attention at 2e-4 / 2e-5,
+    S*S + S device tasks."""
+    import parsec_tpu_torch as pt
+    cs = _chip_smoke()
+    with pt.Context(nb_workers=2) as ctx:
+        r = cs.ring_run(ctx, card, _MULTI, 1, 0, "ring")
+    assert r["tasks"] == 4 * 4 + 4
+    assert r["max_abs_err"] <= 2e-4
+
+
+def test_moe_exp_chore_on_the_card(card):
+    """MoE with EXP on the card (13c at a small size): Y against the
+    float64 oracle at 3e-4, every EXP task a device task."""
+    cs = _chip_smoke()
+    S, T, d, f, E, k = _MULTI["moe"]
+    experts = cs.moe_experts(range(E), d, f, 2)
+    x, wg = cs.moe_tokens(S, T, d, E)
+    want = cs.moe_oracle64(x, wg, k, T, range(S), experts, card)
+    r, _ = cs.moe_run(card, _MULTI, 1, 0, None, "moe", S, T, x, wg, experts,
+                      check=cs.moe_check("moe", card, want))
+    assert r["tasks"] == S * E and r["max_abs_err"] <= 3e-4
+
+
+def test_tp_serving_on_the_card_matches_tp1(card):
+    """Two colocated tp ranks on the card (13e at a small size): tokens
+    and pre-logits bit for bit a tp=1 engine's, plain and speculative,
+    conformance 1.0, a nonzero coll_wait in the request timelines."""
+    cs = _chip_smoke()
+    out = cs.tp_serve(card, _MULTI)
+    for rnd in ("plain", "spec"):
+        assert out[rnd]["tokens_equal_tp1"]
+        assert not any(out[rnd]["prelogit_elems_differing"])
+    assert out["coverage"] == [1.0, 1.0]
+
+
+def test_ring_attention_two_colocated_ranks_on_the_card(card):
+    """13b's program on two colocated Contexts (threads) on the card: the
+    K/V blocks cross as by-reference tokens cloned on the consumer's
+    device, after the producer's event.  A pass-through output is
+    cloned before that event is recorded: the consumer never reads a
+    clone still being written."""
+    import threading
+
+    import parsec_tpu_torch as pt
+    cs = _chip_smoke()
+    port, out = free_port_base(4), {}
+
+    def rank(r):
+        try:
+            ctx = pt.Context(nb_workers=2)
+            ctx.set_rank(r, 2)
+            ctx.comm_init(port)
+            ctx.comm_set_colocated([1 - r])
+            out[r] = cs.ring_run(ctx, card, _MULTI, 2, r, f"ring r{r}")
+            ctx.comm_fini()
+            ctx.destroy()
+        except Exception as e:
+            out[r] = e
+
+    ths = [threading.Thread(target=rank, args=(r,)) for r in range(2)]
+    for t in ths:
+        t.start()
+    for t in ths:
+        t.join(timeout=120)
+    for r in range(2):
+        assert isinstance(out.get(r), dict), out.get(r)
+        assert out[r]["max_abs_err"] <= 2e-4

@@ -84,6 +84,15 @@ def _drained(fs, pinned) -> bool:
             and fs["parked"] == 0 and pinned == 0)
 
 
+def _queued(ctx, dev, n, timeout=20.0):
+    """Wait until the workers routed n ready tasks to the (unstarted)
+    device's queue."""
+    deadline = time.monotonic() + timeout
+    while ctx.device_queue_depth(dev.qid) < n:
+        assert time.monotonic() < deadline, ctx.device_queue_depth(dev.qid)
+        time.sleep(0.01)
+
+
 def _spd(n, rng):
     x = rng.standard_normal((n, n)).astype(np.float64)
     return (x @ x.T + n * np.eye(n)).astype(np.float32)
@@ -103,10 +112,17 @@ def _gemm_run(P, N=64, nb=16, K=128, seed=7):
         B.register(ctx, "B")
         C.register(ctx, "C")
         ctx.profile_enable(1)
-        dev = P.device(ctx)
+        # the manager starts once the whole first wave (every C tile's
+        # k = 0 task) is queued, so its first pop holds the wave on any
+        # host load: a pop of one task dispatches alone, unfused, and its
+        # k-chain then trickles in one task a pop (a fused run of 9
+        # spans against 8 unfused on a loaded host)
+        dev = P.device(ctx, autostart=False)
         dev.batch_wait_ms = 2.0  # coalesce whole waves per pop
         tp = P.gemm(ctx, A, B, C, dev=dev)
         tp.run()
+        _queued(ctx, dev, C.mt * C.nt)
+        dev.start()
         tp.wait()
         dev.flush()
         ev = ctx.profile_take()

@@ -829,23 +829,28 @@ def test_spec_verify_wave_batches_on_device():
 
 # ----------------------------------------------------------- not ported
 def test_unported_paths_raise():
-    """What is not ported yet raises: tensor-parallel serving and sharded
-    pages.  Conformance (the default now), the plan
-    and the plan bound of an unknown byte estimate are ported, and run
-    on both packages in tests/test_torch_profiling.py."""
+    """What is not ported yet raises: the collectives' mesh path and the
+    local path without a live multi-rank ctx (tensor-parallel serving
+    and sharded pages are ported, tests/test_torch_tp_shard.py).
+    Conformance (the default now), the plan and the plan bound of an
+    unknown byte estimate are ported, and run on both packages in
+    tests/test_torch_profiling.py."""
+    from parsec_tpu_torch import parallel as pp
     model = _model()
+    x = np.ones(8, np.float32)
     with tpt.Context(nb_workers=1) as ctx:
-        with pytest.raises(NotImplementedError, match="tp > 1"):
+        for call in (lambda **kw: pp.all_reduce(x, **kw),
+                     lambda **kw: pp.reduce_scatter(x, **kw),
+                     lambda **kw: pp.all_gather(x, **kw),
+                     lambda **kw: pp.broadcast(x, **kw)):
+            with pytest.raises(NotImplementedError, match="mesh"):
+                call(ctx=ctx, mesh=object())
+            with pytest.raises(NotImplementedError, match="multi-rank"):
+                call(ctx=ctx)
+            with pytest.raises(NotImplementedError, match="multi-rank"):
+                call()
+        with pytest.raises(ValueError, match="2-rank ctx"):
             InferenceEngine(ctx, model, tp=2)
-        with pytest.raises(NotImplementedError, match="nodes > 1"):
-            tpa.PagePool(ctx, 4, 4, 8, nodes=2, myrank=0)
-        with pytest.raises(NotImplementedError, match="nodes > 1"):
-            tpa.make_slot_collections(ctx, 2, 8, nodes=2)
-        pool = tpa.PagePool(ctx, 4, 4, 8, name="KV")
-        _, _, _, _, names = tpa.make_slot_collections(ctx, 2, 8)
-        with pytest.raises(NotImplementedError, match="shard"):
-            tpa.build_paged_decode(ctx, pool, [tpa.SeqSpec(0, [0], 0)],
-                                   names, shard={"dm": 8})
         srv = Server(ctx, [TenantConfig("t")])
         assert srv.conformance
         assert InferenceEngine(ctx, model, server=srv).conformance
