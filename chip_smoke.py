@@ -91,11 +91,27 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      against a tp=1 engine, tokens and pre-logits bit for bit, plain and
      speculative (13e); each chore timed at its path's shape beside its
      plain version and bound (13f)
+ 14. drive the fleet tier (fleet_path) at phase 5's serving widths: the
+     serving fold's bits probed across wave widths; a Router over two
+     replicas (each its own Context, CudaDevice and InferenceEngine on
+     phase 5's PagedLM) against one replica, bit for bit: scored
+     placement with every predicted warm page mapped at admission,
+     prefill_then_decode with in-process page migration, queued
+     requests re-placed off a replica whose health flips (14a); on phase
+     12's two ranks, build_page_migration of 32 frozen pages (16 MiB)
+     streamed in 128 KiB chunks, then deduplicated by the receiver to 8
+     MiB and to nothing (14b), and 12b's NORM chain through the CUDA IPC
+     transfer plane (device.dp_transfer), its O 12b's bit for bit
+     (14c); the live sampler's comm/stream/topo/fleet rows, the
+     watchdog's stalled-pull check and the journal's replicated
+     checkpoints (14d); the tuner's collective and streaming proposals
+     beside 12d's and 12b's walls (14e)
 Phases 1-10 run with fusion on, the default.  Then print the dense-LA
 line, the pipeline line, the DSL line, the runtime line, the observe
 line, the fuse line, the comm line, the multi line (with the chores'
-rows) and the kernels line (JSON; the kernels' launches are those of
-phases 4, 7-11 and 12, both ranks') and, last, the device line (JSON).
+rows), the fleet line and the kernels line (JSON; the kernels' launches
+are those of phases 4, 7-11, 12 and 14c, both ranks') and, last, the
+device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
@@ -2978,7 +2994,8 @@ def observe_path(dev_t, rng, serve=None, dims=None, ptg_norm_o=None,
 # GEMM (N, NB) at half its tile set
 FUSE = {"gemm": (4096, 512), "norm": (8 * 4096, 4096, 1024),
         "fatt": (32, 4096, 128), "potrf_t": (16384, 1024),
-        "gemm_ooc": (8192, 1024), "turns": 3, "hint_depth": 4}
+        "gemm_ooc": (8192, 1024), "turns": 3, "hint_depth": 4,
+        "probe_sides": (256, 512, 1024, 2048)}
 
 
 def fuse_path(dev_t, rng, dims=None) -> dict:
@@ -2993,12 +3010,13 @@ def fuse_path(dev_t, rng, dims=None) -> dict:
           DEVICE_DISPATCH spans (a level-1 trace), their lanes and host
           time, the k_gemm_nn calls and their widths, the fuse counters,
           the drain invariant, the dispatch h2d stall and the wall.  C
-          is held to torch.matmul at 1e-4 / 1e-3 in every run; the runs
-          of 11a and 11d are grouped by the bits of their C, each with
-          the widths of its calls and the largest difference between
-          groups (the evidence of whether the batch count is why bits
-          differ), and one product at the tile shape is probed at 64,
-          8, 4, 2 and 1 lanes.  Required:
+          is held to torch.matmul at 1e-4 / 1e-3 in every run, and
+          every run of 11a and 11d to the first bit for bit (a lone
+          lane is a two-lane product, so a lane's bits do not depend on
+          its wave's width); lane 0 of k_gemm_nn is probed at 64, 8, 4,
+          3, 2 and 1 lanes at `probe_sides`, identical at every width,
+          and a lone 512^2 product timed before and after that route.
+          Required:
           chain_hits > 0, chain_misses == 0, span lanes + chain_hits =
           tasks, at most 7 chained levels a chain (the 2 GiB byte cap
           over 256 MiB waves), and the median fused spans at least 3x
@@ -3257,43 +3275,69 @@ def fuse_path(dev_t, rng, dims=None) -> dict:
         out["runs"]["11d hints"] = hs
 
         # bit identity of C across the GEMM runs above: each run is held
-        # to torch.matmul at 1e-4 / 1e-3; runs whose C bits differ are
-        # grouped with the widths of their k_gemm_nn calls, the evidence
-        # of whether the batch count is why, and one product is probed
-        # at the tile shape across batch counts
+        # to torch.matmul at 1e-4 / 1e-3, and every run of 11a and 11d
+        # (fused, unfused, with and without the coalescing wait, a chain
+        # cut short) to the first bit for bit.  A lone lane runs as
+        # a two-lane product (algos/gemm.k_gemm_nn), so a lane's bits do
+        # not depend on its wave's width; the probe holds lane 0 of
+        # k_gemm_nn at 1-64 lanes to the 64-lane call at four tile sides,
+        # and times a lone 512^2 product as a one-lane batched call (the
+        # route before the repair) and through the repaired chore
         groups: dict = {}
         for label, widths, got in runs_c:
             key = hashlib.sha1(got.tobytes()).hexdigest()[:12]
             groups.setdefault(key, []).append((label, widths, got))
-        keys = list(groups)
-        for key in keys:
-            members = groups[key]
-            diff = float(np.abs(members[0][2] - groups[keys[0]][0][2]).max())
-            log(f"  11a/11d GEMM C bits {key}: {len(members)} run(s), max "
-                f"diff to the first group {diff:.3e}; with a 1-lane call "
-                f"{sum(1 in w for _, w, _ in members)}; "
+        for key, members in groups.items():
+            log(f"  11a/11d GEMM C bits {key}: {len(members)} run(s), with "
+                f"a 1-lane call {sum(1 in w for _, w, _ in members)}; "
                 + "; ".join(f"{lb} widths {sorted(set(w))}"
                             for lb, w, _ in members))
+        check("11a/11d GEMM C bit-identical across every run (fused, "
+              "unfused, no wait, depth-cut)", len(groups) == 1,
+              f"{len(groups)} groups")
         from parsec_tpu_torch.algos.gemm import k_gemm_nn
         probe = {}
-        for side in sorted({nb, dims["potrf_t"][1]}):
+        for side in dims.get("probe_sides", (nb,)):
             ops = [to_tensor(rng.standard_normal((side, side),
                                                  dtype=np.float32), dev_t)
                    for _ in range(3)]
             lane0 = {}
-            for w in (64, 8, 4, 2, 1):
+            for w in (64, 8, 4, 3, 2, 1):
                 st_ = [o.unsqueeze(0).expand(w, side, side).contiguous()
                        for o in ops]
                 lane0[w] = k_gemm_nn(*st_)[0].clone()
+            # the route before the repair: a one-lane batched product
+            torch.backends.cuda.matmul.allow_tf32 = False
+            before = torch.baddbmm(st_[2], st_[0], st_[1])[0]
             probe[side] = {w: bool(torch.equal(lane0[w], lane0[64]))
                            for w in lane0}
+            probe[side]["one-lane baddbmm"] = bool(
+                torch.equal(before, lane0[64]))
             log(f"  11a probe: k_gemm_nn at {side}^2, lane 0 bit-identical "
                 f"to the 64-lane call at widths {probe[side]}")
+            check(f"11a probe {side}^2: lane 0 identical at every width",
+                  all(v for w, v in probe[side].items() if w != "one-lane "
+                      "baddbmm"))
+            del ops, st_, lane0, before
+        side = 512
+        one = [to_tensor(rng.standard_normal((1, side, side),
+                                             dtype=np.float32), dev_t)
+               for _ in range(3)]
+        torch.backends.cuda.matmul.allow_tf32 = False
+        lone_ms = {
+            "one-lane baddbmm (before)": timed_ms(
+                dev_t, lambda: torch.baddbmm(one[2], one[0], one[1]), 20),
+            "k_gemm_nn two-lane (after)": timed_ms(
+                dev_t, lambda: k_gemm_nn(*one), 20)}
+        log("  11a a lone 512^2 product: " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in lone_ms.items()))
         out["runs"]["11a GEMM bits"] = {
             "groups": {k: [(lb, sorted(set(w))) for lb, w, _ in m]
                        for k, m in groups.items()},
             "probe": {str(k): {str(w): v for w, v in p.items()}
-                      for k, p in probe.items()}}
+                      for k, p in probe.items()},
+            "lone_512_ms": lone_ms}
+        del one
     del a, b, want, runs_c, groups
     if dev_t.type == "cuda":
         torch.cuda.empty_cache()
@@ -3570,7 +3614,7 @@ def _digest(a: np.ndarray) -> str:
 
 def comm_norm_chain(ctx, rank: int, nodes: int, dev_t, dims, label: str,
                     make_dev, tag: str = "", trace: bool = False,
-                    reset: bool = True) -> dict:
+                    reset: bool = True, xfer: bool = False) -> dict:
     """Phase 12b/12c's program on one rank: NORM twice across the ranks.
     N0(r) on rank 0 normalizes X's row tile r (X on rank 0) on the card
     into an arena tile Y; N1(r) on rank 1 reads Y, device-resident, through
@@ -3584,7 +3628,9 @@ def comm_norm_chain(ctx, rank: int, nodes: int, dev_t, dims, label: str,
     `reset=False` leaves the kernels' launch counts to the caller (the
     colocated ranks share them); `chore_calls`, this rank's device's
     calls of the NORM chore, each one launch of the RMSNorm kernel on
-    the card, shows this rank's own launches."""
+    the card, shows this rank's own launches.  `xfer`: the transfer
+    plane (device.dp_transfer) is on, so the intermediate crosses as CUDA
+    IPC tokens pulled card to card (dp_xfer_bytes), not as bytes."""
     import torch
 
     import parsec_tpu_torch as pt
@@ -3689,6 +3735,7 @@ def comm_norm_chain(ctx, rank: int, nodes: int, dev_t, dims, label: str,
                "dp_serve_bytes", "dp_serve_d2h_ns", "dp_serve_copy_ns",
                "d2h_bytes", "h2d_bytes", "stream_serves", "stream_slices",
                "stream_d2h_ns", "stream_copy_ns", "stream_bytes",
+               "dp_xfer_tokens", "dp_xfer_bytes", "dp_xfer_pull_ns",
                "tasks")}}
     if st["dp_errors"]:
         raise AssertionError(f"{label} rank {rank}: dp_errors "
@@ -3706,16 +3753,18 @@ def comm_norm_chain(ctx, rank: int, nodes: int, dev_t, dims, label: str,
                 "host copy is never written)")
     dev.flush()
     if rank == 1:
-        moved = st["dp_d2d_bytes"] if ctx._colocated else \
-            st["dp_recv_bytes"]
-        other = st["dp_recv_bytes"] if ctx._colocated else \
-            st["dp_d2d_bytes"]
+        way = "clone" if ctx._colocated else \
+            "transfer plane" if xfer else "wire"
+        moved = {"clone": st["dp_d2d_bytes"], "wire": st["dp_recv_bytes"],
+                 "transfer plane": st["dp_xfer_bytes"]}[way]
+        other = st["dp_d2d_bytes"] + st["dp_recv_bytes"] + \
+            st["dp_xfer_bytes"] - moved
         if moved != R * tile_bytes or other != 0:
-            way = "clone" if ctx._colocated else "wire"
             raise AssertionError(
                 f"{label} rank 1: {st['dp_recv_bytes']} B delivered, "
-                f"{st['dp_d2d_bytes']} B cloned on the card; want "
-                f"{R * tile_bytes} B the {way} way only")
+                f"{st['dp_d2d_bytes']} B cloned on the card, "
+                f"{st['dp_xfer_bytes']} B pulled through the transfer "
+                f"plane; want {R * tile_bytes} B the {way} way only")
         # W's 16 KiB tile may be staged more than once (the lane and a
         # dispatch can race for it), a 16 MiB intermediate never
         if st["h2d_bytes"] >= tile_bytes or st["h2d_bytes"] % (d * 4):
@@ -3871,20 +3920,22 @@ def _comm_panels(ctx, rank, nodes, dims) -> dict:
     return out
 
 
-def comm_rank(rank, nodes, port, q, dev_s, dims, out_dir, multi=None):
+def comm_rank(rank, nodes, port, q, dev_s, dims, out_dir, multi=None,
+              fleet=None):
     """One spawned rank of phase 12 (12a, 12b, 12d, 12e) and, with
-    `multi` (phase 13's sizes), of phase 13 (13b, 13d): pushes ("ok",
-    rank, results) or ("err", rank, traceback)."""
+    `multi` (phase 13's sizes), of phase 13 (13b, 13d), and with `fleet`
+    (phase 14's), of phase 14 (14b-14d): pushes ("ok", rank, results) or
+    ("err", rank, traceback)."""
     import traceback
     try:
         q.put(("ok", rank, _comm_rank(rank, nodes, port, dev_s, dims,
-                                      out_dir, multi)))
+                                      out_dir, multi, fleet)))
     except Exception:
         q.put(("err", rank, traceback.format_exc()))
 
 
 def _comm_rank(rank, nodes, port, dev_s, dims, out_dir,
-               multi=None) -> dict:
+               multi=None, fleet=None) -> dict:
     import torch
 
     import parsec_tpu_torch as pt
@@ -3970,6 +4021,9 @@ def _comm_rank(rank, nodes, port, dev_s, dims, out_dir,
     _knobs.unset("device.stream_serve")
     if multi is not None:
         res["multi"] = multi_rank(rank, nodes, port + 16, dev_t, multi)
+    if fleet is not None:
+        res["fleet"] = fleet_rank(rank, nodes, port + 28, dev_t, fleet,
+                                  dims, out_dir)
     if "jax" in sys.modules:
         raise AssertionError("phase 12 rank imported jax")
     return res
@@ -4018,7 +4072,8 @@ def comm_colocated(dev_t, dims, port: int) -> list:
     return [results[r][1] for r in range(nodes)]
 
 
-def comm_path(dev_t, dims=None, out_dir=None, multi=None) -> dict:
+def comm_path(dev_t, dims=None, out_dir=None, multi=None,
+              fleet=None) -> dict:
     """Phase 12: the comm engine on the card, two ranks as two spawned
     processes on the one card over the loopback transport (the card
     time-slices them: the walls include it), then two colocated ranks in
@@ -4026,8 +4081,8 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None) -> dict:
       12a build_gemm_dist at phase 4's size on P=2 x Q=1 ranks under the
           star, chain and binomial broadcasts and with
           comm.eager_limit=0; owned C tiles against torch.matmul at
-          1e-4 / 1e-3; fused (the default) against device.wave_fuse=0
-          bit for bit, or grouped by the widths of their k_gemm_nn calls
+          1e-4 / 1e-3; every run (each topology, fused (the default)
+          and device.wave_fuse=0) gives a rank's owned C the same bits
       12b phase 4's NORM as a two-rank chain through the data plane (the
           RMSNorm kernel on both ranks), with comm.stream and
           device.stream_serve on and off, O bit-identical between them,
@@ -4039,9 +4094,10 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None) -> dict:
           against chain
       12e 12a's GEMM traced on both ranks, merged on the clock offsets
     With `multi` (phase 13's sizes) the same two ranks then run phase
-    13b and 13d (multi_rank).  Returns the runs, the hand-written
-    kernels' launches (12b's on both ranks, traced run included, and
-    12c's) and the ranks' phase 13 results."""
+    13b and 13d (multi_rank), and with `fleet` (phase 14's) phase 14b-14d
+    (fleet_rank).  Returns the runs, the hand-written kernels' launches
+    (12b's on both ranks, traced run included, and 12c's) and the ranks'
+    phase 13 and 14 results."""
     import multiprocessing as mp
 
     import torch
@@ -4054,19 +4110,21 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None) -> dict:
         os.path.abspath(__file__)), "build", "phase12")
     os.makedirs(out_dir, exist_ok=True)
     nodes = 2
-    port = free_port_base(32)
+    port = free_port_base(40)
     mpctx = mp.get_context("spawn")
     q = mpctx.Queue()
     dev_s = str(dev_t)
     procs = [mpctx.Process(target=comm_rank, args=(r, nodes, port, q, dev_s,
-                                                   dims, out_dir, multi))
+                                                   dims, out_dir, multi,
+                                                   fleet))
              for r in range(nodes)]
     t0 = time.perf_counter()
     for p in procs:
         p.start()
     import queue
     got = []
-    wait_s = dims["timeout"] + (multi["timeout"] if multi else 0.0)
+    wait_s = dims["timeout"] + (multi["timeout"] if multi else 0.0) + \
+        (fleet["timeout"] if fleet else 0.0)
     try:
         for _ in range(nodes):
             got.append(q.get(timeout=wait_s))
@@ -4091,7 +4149,9 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None) -> dict:
     launches = {name: 0 for name in kernels.LAUNCHES}
     multi_ranks = [r.pop("multi") for r in ranks] if multi else None
     multi_s = max(r["wall_s"] for r in multi_ranks) if multi else 0.0
-    runs = {"spmd_s": spmd_s, "multi_s": multi_s}
+    fleet_ranks = [r.pop("fleet") for r in ranks] if fleet else None
+    fleet_s = max(r["wall_s"] for r in fleet_ranks) if fleet else 0.0
+    runs = {"spmd_s": spmd_s, "multi_s": multi_s, "fleet_s": fleet_s}
 
     # 12a: walls and wire bytes per run; fused against unfused
     gem = list(zip(*[r["gemm"] for r in ranks]))
@@ -4110,10 +4170,10 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None) -> dict:
             f" ms, bytes sent {row['bytes_sent']}, messages "
             f"{row['msgs_sent']}, k_gemm_nn widths {row['widths']}, C "
             f"{row['c_digest']}")
-    # phase 11a's one-lane rule: a rank's owned C bits differ between
-    # runs only where one of them made a 1-lane product (cuBLAS's lone
-    # 512^2 product); every run is held to torch.matmul above.  The runs
-    # are grouped per rank by their bits, with the widths as the evidence
+    # every run (each topology, fused and unfused) gives a rank's owned
+    # C the same bits: a lone lane is a two-lane product (phase 11a), so
+    # no bit depends on a wave's width; each run is also held to
+    # torch.matmul above
     runs["gemm_groups"] = []
     for r in range(nodes):
         groups: dict = {}
@@ -4124,14 +4184,13 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None) -> dict:
         log(f"  12a rank {r} owned C bits: " + "; ".join(
             f"{k}: " + ", ".join(f"{lb} {w}" for lb, w in m)
             for k, m in groups.items()))
-        if len(groups) > 1 and sum(
-                not any(1 in w for _, w in m) for m in groups.values()) > 1:
-            raise AssertionError(f"12a rank {r}: two groups of runs with "
-                                 "no 1-lane product differ in their bits")
+        if len(groups) > 1:
+            raise AssertionError(f"12a rank {r}: owned C differs between "
+                                 f"runs ({len(groups)} groups of bits)")
     by = {r_["label"]: r_ for r_ in runs["gemm"]}
     f_, u_ = by["star"], by["star unfused"]
     runs["gemm_fused_bits"] = "identical" if \
-        f_["c_digest"] == u_["c_digest"] else "grouped by widths"
+        f_["c_digest"] == u_["c_digest"] else "different"
     log(f"  12a fused against unfused owned C: {runs['gemm_fused_bits']}")
 
     # 12b: the data plane, stream on and off
@@ -4292,7 +4351,8 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None) -> dict:
         f"or after its send; rank 1 clock offset {off} ns (err "
         f"{runs['trace']['clock_err_ns']} ns), wire latency p50 "
         f"{runs['trace']['latency_ns_p50'] / 1e3:.1f} us")
-    return {"runs": runs, "launches": launches, "multi": multi_ranks}
+    return {"runs": runs, "launches": launches, "multi": multi_ranks,
+            "fleet": fleet_ranks}
 
 
 # phase 13 sizes: ring attention (S shards, T tokens a shard, head dim d:
@@ -5000,6 +5060,716 @@ def multi_path(dev_t, dims=None, ranks=None) -> dict:
     return {"runs": runs, "chores": chores}
 
 
+# phase 14 sizes: the fleet at the serving model's widths (phase 5's
+# PagedLM, Llama-2-7B attention widths), 8 requests from two tenants over
+# two shared 256-token prefixes (16 pages of 16 tokens each) plus a short
+# private tail, 8 new tokens each; each replica's page budget, and the
+# re-placement round's tight one (one sequence's pages); 14b's frozen
+# pages and chunk size; 14e's message size; the fold probe's widths
+FLEET = {"model": {"vocab": 32000, "d": 4096, "heads": 32, "page": 16},
+         "prefix": 256, "tails": (3, 5, 7, 9), "max_new": 8,
+         "n_pages": 320, "tight_pages": 17, "replace_requests": 4,
+         "mig_pages": 32, "mig_chunk": 128 << 10, "tune_bytes": 64 << 20,
+         "fold_widths": (1, 2, 3, 8, 17, 32, 64, 256, 1024),
+         "timeout": 240.0}
+
+
+def _fleet_prompts(dims, vocab: int):
+    """(prompt, tenant) of 14a's requests: request i extends prefix i % 2
+    by a private tail; tenant "hi" owns prefix 0, "lo" prefix 1."""
+    rng = np.random.default_rng(SEED + 14)
+    prefixes = [[int(x) for x in rng.integers(0, vocab, dims["prefix"])]
+                for _ in range(2)]
+    reqs = []
+    for i, tail in enumerate(t for t in dims["tails"] for _ in range(2)):
+        reqs.append((prefixes[i % 2] + [int(x) for x in rng.integers(
+            0, vocab, tail)], "hi" if i % 2 == 0 else "lo"))
+    return reqs
+
+
+def _mig_page(j: int, page: int, d: int):
+    """Frozen page j's k and v of 14b: a pure function of j."""
+    rng = np.random.default_rng(SEED + 1400 + j)
+    return (rng.standard_normal((page, d), dtype=np.float32),
+            rng.standard_normal((page, d), dtype=np.float32))
+
+
+def _live_rows(ctx, mon) -> dict:
+    """One LiveMonitor sample on `ctx` (quiescent: after a fence) with its
+    comm, stream and topo rows held to the engine's counters read at that
+    moment."""
+    # a peer's control frames (its fence, clock sync) may land while
+    # sampling: a sample is held to the counters read right before and
+    # after it once they agree
+    for _ in range(50):
+        before = ctx.comm_stats()
+        mon._sample()
+        rec = mon.latest()
+        comm, ss, ts = ctx.comm_stats(), ctx.comm_stream_stats(), \
+            ctx.comm_topo_stats()
+        if comm == before:
+            break
+    missing = [k for k in ("comm", "stream", "topo") if k not in rec]
+    if missing:
+        raise AssertionError(f"14d: live sample lacks {missing}")
+    if rec["comm"] != comm:
+        raise AssertionError(f"14d: live comm row {rec['comm']} != "
+                             f"comm_stats() {comm}")
+    if rec["stream"] != {k: ss[k] for k in ("sessions", "parked_gets",
+                                            "overlap_fraction")}:
+        raise AssertionError(f"14d: live stream row {rec['stream']}")
+    sent = sum(v[0] for v in rec["topo"]["classes"].values())
+    if sent != sum(r["bytes_sent"] for r in ts["classes"].values()):
+        raise AssertionError(f"14d: live topo row {rec['topo']}")
+    return {k: rec[k] for k in ("comm", "stream", "topo")}
+
+
+def fleet_rank(rank: int, nodes: int, port: int, dev_t, dims,
+               norm_dims, out_dir: str) -> dict:
+    """14b, 14c and 14d on one of phase 12's spawned ranks.
+      14b build_page_migration of `mig_pages` frozen pages of the serving
+          model's width (page 16, d 4096: 512 KiB of k|v each) rank 0 ->
+          rank 1 with comm.eager_limit=0 and comm.chunk_size `mig_chunk`
+          (each page streams as chunks), then again with the receiver
+          holding half the pages, then holding all of them (no pool is
+          built); a Watchdog runs through it, a LiveMonitor samples after
+          each, and each rank's Journal checkpoints its pool's frozen
+          keys to the other
+      14c phase 12b's NORM chain with device.dp_transfer on: the
+          intermediate crosses as CUDA IPC tokens
+    Returns walls, byte counts, digests, the samples and the peer
+    blobs."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch.comm.migrate import (build_page_migration,
+                                               wanted_keys)
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.device import cuda as dc
+    from parsec_tpu_torch.ops.paged_attention import (PagePool,
+                                                      prefix_page_keys)
+    from parsec_tpu_torch.profiling.blackbox import Journal
+    from parsec_tpu_torch.profiling.live import LiveMonitor
+    from parsec_tpu_torch.profiling.metrics import Watchdog
+    from parsec_tpu_torch.utils import params as _knobs
+    out = {"rank": rank}
+    t_all = time.perf_counter()
+    page, d = dims["model"]["page"], dims["model"]["d"]
+    n = dims["mig_pages"]
+    keys = prefix_page_keys("fleet-wire", list(range(n * page)), page)
+    saved = {k: os.environ.get(k) for k in (
+        "PTC_MCA_comm_eager_limit", "PTC_MCA_comm_chunk_size")}
+    os.environ["PTC_MCA_comm_eager_limit"] = "0"
+    os.environ["PTC_MCA_comm_chunk_size"] = str(dims["mig_chunk"])
+    ctx = pt.Context(nb_workers=4)
+    try:
+        ctx.set_rank(rank, nodes)
+        ctx.comm_init(port)
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    dev = CudaDevice(ctx, device=dev_t)
+    wd = Watchdog(ctx, interval=0.05)
+    mon = LiveMonitor(ctx, path=os.path.join(
+        out_dir, "phase14_live_{rank}.jsonl"), interval=3600.0)
+    jdir = os.path.join(out_dir, "phase14_journal")
+    jr = Journal(ctx, dirpath=jdir, checkpoint_s=0, fsync_s=0.5)
+    runs = []
+    pools = []
+    for i, held in enumerate((0, n // 2, n)):
+        pool = PagePool(ctx, n + 2, page, d, name=f"MIG{i}")
+        pools.append(pool)
+        if rank == 0:
+            for j, key in enumerate(keys):
+                _author_frozen(pool, key, *_mig_page(j, page, d))
+        else:
+            for j in range(held):
+                _author_frozen(pool, keys[j], *_mig_page(j, page, d))
+        wanted = list(range(held, n))
+        if rank == 1 and wanted_keys(pool, keys) != [keys[j]
+                                                     for j in wanted]:
+            raise AssertionError("14b: the receiver's dedup decision "
+                                 "differs from the plan")
+        s0 = ctx.comm_stats()
+        m0 = pool.stats()["migrated_in_bytes"]
+        t0 = ctx.comm_tuning()
+        sync(dev_t)
+        t = time.perf_counter()
+        tp = build_page_migration(pt, ctx, keys, wanted, src_pool=pool,
+                                  dst_pool=pool, src_rank=0, dst_rank=1,
+                                  page=page, d=d, coll_name=f"MIGC{i}")
+        if tp is not None:
+            tp.run()
+            tp.wait()
+        ctx.comm_fence()
+        wall = (time.perf_counter() - t) * 1e3
+        s1 = ctx.comm_stats()
+        t1 = ctx.comm_tuning()
+        row = {"held": held, "wanted": len(wanted), "built": tp is not None,
+               "wall_ms": wall,
+               "payload_bytes": pool.stats()["migrated_in_bytes"] - m0,
+               "bytes_recv": s1["bytes_recv"] - s0["bytes_recv"],
+               "bytes_sent": s1["bytes_sent"] - s0["bytes_sent"],
+               "chunks_recv": t1["chunks_recv"] - t0["chunks_recv"],
+               "exported": pool.stats()["exported"],
+               "imported": pool.stats()["imported"]}
+        if rank == 1:
+            if pool.probe(keys) != n:
+                raise AssertionError(f"14b run {i}: receiver holds "
+                                     f"{pool.probe(keys)} of {n} keys")
+            row["digest"] = _digest(np.stack([np.concatenate(
+                [pool.k_tile(pool._index[k]), pool.v_tile(pool._index[k])])
+                for k in keys]))
+        else:
+            row["digest"] = _digest(np.stack([np.concatenate(
+                pool.export_frozen(k)) for k in keys]))
+        row["live"] = _live_rows(ctx, mon)
+        if tp is not None:
+            tp.destroy()
+        runs.append(row)
+    out["migrate"] = runs
+    wd.stop()
+    out["watchdog"] = wd.status()
+    out["stalled_pull"] = [e for e in wd.events
+                           if e["type"] == "stalled_pull"]
+    # the journal's checkpoint, replicated to the other rank
+    jr.register_inventory("frozen_page_keys", pools[0].frozen_keys)
+    jr.checkpoint()
+    ctx.comm_fence()
+    other = 1 - rank
+    blob, deadline = None, time.monotonic() + 10.0
+    while time.monotonic() < deadline:
+        blob = jr.peer_blob(other)
+        if blob is not None:
+            break
+        time.sleep(0.05)
+    out["peer_blob_keys"] = sorted((blob or {}).get("inventory", {})
+                                   .get("frozen_page_keys") or [])
+    out["own_keys"] = sorted(pools[0].frozen_keys())
+    out["lost_peers"] = sorted(jr.lost_peers())
+    out["migrate_s"] = time.perf_counter() - t_all
+    jr.stop()
+    mon.stop()
+    dev.stop()
+    if dev.stats["dp_errors"]:
+        raise AssertionError(f"14b rank {rank}: dp_errors "
+                             f"{dev.stats['dp_errors']}")
+    out["dp_errors"] = dev.stats["dp_errors"]
+    ctx.comm_fini()
+    ctx.destroy()
+
+    # 14c: phase 12b's NORM chain through the transfer plane
+    t = time.perf_counter()
+    ctx = pt.Context(nb_workers=4)
+    ctx.set_rank(rank, nodes)
+    ctx.comm_init(port + 4)
+    mon = LiveMonitor(ctx, path=os.path.join(
+        out_dir, "phase14_live_{rank}.jsonl"), interval=3600.0)
+    _knobs.set("device.dp_transfer", True)
+    try:
+        # (on the CPU, a rehearsal, no token is served: bytes move)
+        out["xfer"] = comm_norm_chain(
+            ctx, rank, nodes, dev_t, norm_dims, "NORM transfer plane",
+            lambda c: CudaDevice(c, device=dev_t), tag="x",
+            xfer=dev_t.type == "cuda")
+    finally:
+        _knobs.unset("device.dp_transfer")
+    out["xfer"]["pool"] = dc._xfer_sessions().stats()
+    out["xfer"]["live"] = _live_rows(ctx, mon)
+    mon.stop()
+    ctx.comm_fini()
+    ctx.destroy()
+    out["xfer_s"] = time.perf_counter() - t
+    out["wall_s"] = time.perf_counter() - t_all
+    return out
+
+
+def _author_frozen(pool, key, k, v) -> None:
+    """Freeze one page of `pool` under `key` holding k and v."""
+    p = pool.alloc()
+    pool.k_tile(p)[...] = k
+    pool.v_tile(p)[...] = v
+    pool.host_wrote(p)
+    if not pool.freeze(p, key):
+        raise AssertionError(f"14b: key {key} frozen twice")
+    pool.release([p])
+
+
+def _fold_einsum(qb, kb, vb, ab, scale, nh):
+    """ops.paged_attention.fold_heads as it was before its products became
+    elementwise sums: batched einsum products, whose algorithm cuBLAS
+    picks by the batch count.  Kept for 14a's width probe."""
+    import torch
+    n, P, dl = kb.shape
+    dh = dl // nh
+    q = qb.reshape(n, nh, dh)
+    K = kb.reshape(n, P, nh, dh)
+    V = vb.reshape(n, P, nh, dh)
+    a = ab.reshape(n, dl + 2 * nh)
+    acc = a[:, :dl].reshape(n, nh, dh)
+    m = a[:, dl:dl + nh]
+    l_ = a[:, dl + nh:]
+    s_ = torch.einsum("nphd,nhd->nhp", K, q) * scale
+    m_new = torch.maximum(m, s_.amax(-1))
+    p_ = torch.exp(s_ - m_new.unsqueeze(-1))
+    corr = torch.exp(m - m_new)
+    l_new = l_ * corr + p_.sum(-1)
+    acc_new = acc * corr.unsqueeze(-1) + torch.einsum("nhp,nphd->nhd", p_,
+                                                      V)
+    return torch.cat([acc_new.reshape(n, dl), m_new, l_new],
+                     dim=1).unsqueeze(1)
+
+
+def fold_width_probe(dev_t, model, widths) -> dict:
+    """The serving fold's lane 0 at `widths` lanes (copies and stride-0
+    views) against its 1-lane result, for fold_heads and for the einsum
+    form it replaced: a fleet's replicas batch a request's folds in
+    other waves than a single replica, so its bits must not depend on
+    the width.  fold_heads must agree at every width.  Both forms are
+    timed at 1, 8 and 64 lanes in this call (CUDA events on the card):
+    the repair's cost."""
+    import torch
+
+    from parsec_tpu_torch.ops.paged_attention import fold_heads, reset_acc
+    cfg = model.cfg
+    H, P, d = cfg.heads, cfg.page, cfg.d
+    g = torch.Generator(device=dev_t).manual_seed(SEED + 140)
+    q, k, v = (0.5 * torch.randn(1, n_, d, generator=g, device=dev_t)
+               for n_ in (1, P, P))
+    an = np.zeros((1, 1, d + 2 * H), np.float32)
+    reset_acc(an[0], H)
+    a = torch.from_numpy(an).to(dev_t)
+    out = {}
+    for name, fn in (("fold_heads", fold_heads), ("einsum", _fold_einsum)):
+        lane0 = {}
+        for w in widths:
+            for s0 in (False, True):
+                st = [t.expand(w, *t.shape[1:]) for t in (q, k, v, a)]
+                if not s0:
+                    st = [t.contiguous() for t in st]
+                lane0[(w, s0)] = fn(*st, model.scale, H)[0].clone()
+        ref = lane0[(1, False)]
+        same = {f"{w}{' stride0' if s0 else ''}": bool(torch.equal(t, ref))
+                for (w, s0), t in lane0.items()}
+        out[name] = same
+        log(f"  14a probe: {name} lane 0 bit-identical to its 1-lane "
+            f"result at {H} heads, page {P}, d {d}: {same}")
+        ms = {}
+        for w in (1, 8, 64):
+            st = [t.expand(w, *t.shape[1:]).contiguous()
+                  for t in (q, k, v, a)]
+            ms[w] = timed_ms(dev_t, lambda: fn(*st, model.scale, H), 50, 5)
+        out[f"{name}_ms"] = ms
+        log(f"  14a probe: {name} at 1 / 8 / 64 lanes: "
+            + " / ".join(f"{m:.4f}" for m in ms.values()) + " ms a call")
+    if not all(out["fold_heads"].values()):
+        raise AssertionError("14a: fold_heads' bits depend on the width")
+    return out
+
+
+def fleet_serve(dev_t, model, dims) -> dict:
+    """14a: the fleet in this process.  Each round builds fresh replicas:
+    a Context(4 workers, lws), a CudaDevice and an InferenceEngine each,
+    over the one PagedLM `model`.  Requests arrive in two waves, one
+    request per prefix first (cold everywhere), then the rest once their
+    prefixes are frozen; so a request's predicted warm pages (the
+    router's digest, at submit) must equal what acquire_prefix maps
+    (the engine's prefix_hits, at the same synchronous admission).
+      single   one replica serves every request (the reference)
+      routed   Router over two mixed replicas: predicted == mapped for
+               every request; tokens and outputs bit for bit `single`'s
+      disagg   prefill_then_decode over a prefill and a decode replica:
+               bit for bit `single`'s, migrated_pages > 0, migrated_bytes
+               = migrated_pages * the page's k|v bytes
+      replace  a request of prefix 0, then `replace_requests` - 1 of
+               prefix 1, pinned to a replica holding one sequence's
+               pages: the prefix-1 requests queue (no page of theirs is
+               warm there, and decode, which would free the pages, runs
+               only in the router's loop); the replica's health flips
+               (an SLO breach) and the router's pump re-places them:
+               rerouted == the server's cancelled, none dropped, tokens
+               bit for bit `single`'s
+    Returns walls, tokens/s per replica, the migration's GB/s, the
+    fleet's live row and the router counters."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.profiling.live import LiveMonitor
+    from parsec_tpu_torch.serve import (InferenceEngine, Replica, Router,
+                                        RoutePolicy, Server, TenantConfig)
+    reqs = _fleet_prompts(dims, model.cfg.vocab)
+    n_new = dims["max_new"]
+    page_bytes = model.cfg.page * 2 * model.cfg.d * 4
+    out = {"rounds": {}}
+
+    def replicas(n, roles=(), pages=None, tenants=None):
+        reps = []
+        for i in range(n):
+            ctx = pt.Context(nb_workers=4, scheduler="lws")
+            dev = CudaDevice(ctx, device=dev_t)
+            # max_pools above the requests a tenant has in flight: every
+            # admission is synchronous, at submit
+            tcs = tenants() if tenants else [
+                TenantConfig("hi", priority=4, weight=4, max_pools=16),
+                TenantConfig("lo", max_pools=16)]
+            eng = InferenceEngine(
+                ctx, model, n_pages=(pages or {}).get(i, dims["n_pages"]),
+                max_seqs=8, dev=dev, server=Server(ctx, tcs, name=f"r{i}"),
+                name=f"r{i}")
+            reps.append(Replica(eng, role=dict(roles).get(i, "mixed")))
+        return reps
+
+    def teardown(router, reps):
+        if router is not None:
+            router.close()  # closes the engines
+        for r in reps:
+            if router is None:
+                r.engine.close()
+            for d_ in list(r.engine.ctx._devices):
+                d_.stop()
+            r.engine.ctx.destroy()
+
+    def finish(label, hs, reps, t0):
+        wall = time.perf_counter() - t0
+        for h in hs:
+            if h.state != "done" or len(h.generated) != n_new:
+                raise AssertionError(f"14a {label}: request ended "
+                                     f"{h.state} with {len(h.generated)} "
+                                     "tokens")
+        per = {r.name: sum(len(h.generated) for h in hs
+                           if getattr(h, "replica", reps[0]) is r)
+               for r in reps}
+        row = {"wall_s": wall,
+               "tokens_per_s": sum(len(h.generated) for h in hs) / wall,
+               "tokens_per_s_by_replica": {k: v / wall
+                                           for k, v in per.items()},
+               "tokens": [list(h.generated) for h in hs],
+               "outputs": [_digest(np.stack(h.outputs)) for h in hs]}
+        out["rounds"][label] = row
+        log(f"  14a {label}: {len(hs)} requests, {wall:.2f} s, "
+            f"{row['tokens_per_s']:.2f} tokens/s; per replica "
+            + ", ".join(f"{k} {v:.2f}" for k, v in
+                        row["tokens_per_s_by_replica"].items()))
+        return row
+
+    def same_as_single(label, row, idx=None):
+        ref = out["rounds"]["single"]
+        idx = list(range(len(row["tokens"]))) if idx is None else idx
+        ok = all(row["tokens"][k] == ref["tokens"][i] and
+                 row["outputs"][k] == ref["outputs"][i]
+                 for k, i in enumerate(idx))
+        log(f"    check 14a {label} tokens and outputs bit for bit the "
+            f"single replica's: {ok}")
+        if not ok:
+            raise AssertionError(f"14a {label}: differs from the single "
+                                 "replica")
+
+    # single: one replica, the two waves
+    t0 = time.perf_counter()
+    reps = replicas(1)
+    eng = reps[0].engine
+    try:
+        hs = [eng.submit(p, n_new, tn) for p, tn in reqs[:2]]
+        eng.run(timeout_s=dims["timeout"])
+        hs += [eng.submit(p, n_new, tn) for p, tn in reqs[2:]]
+        eng.run(timeout_s=dims["timeout"])
+        finish("single", hs, reps, t0)
+    finally:
+        teardown(None, reps)
+
+    # routed: two mixed replicas, predicted warm == mapped warm
+    t0 = time.perf_counter()
+    reps = replicas(2)
+    router = Router(reps)
+    out_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase14")
+    os.makedirs(out_dir, exist_ok=True)
+    mon = LiveMonitor(reps[0].engine.ctx, path=os.path.join(
+        out_dir, "fleet_live.jsonl"), interval=3600.0)
+    try:
+        fhs, preds = [], []
+        for wave in (reqs[:2], reqs[2:]):
+            for p, tn in wave:
+                hits0 = [r.engine.stats["prefix_hits"] for r in reps]
+                fh = router.submit(p, n_new, tn)
+                if fh.handle.ticket.state == "queued":
+                    raise AssertionError("14a routed: admission was not "
+                                         "synchronous")
+                # the router's decision (scope event) against what the
+                # admission mapped: a priced-in migration lands first
+                ev = fh.replica.engine.scope.events("route_place")[-1]
+                mapped = sum(r.engine.stats["prefix_hits"] - h0
+                             for r, h0 in zip(reps, hits0))
+                preds.append((ev["warm"] + ev["migrate_pages"], mapped,
+                              ev["replica"]))
+                fhs.append(fh)
+            router.run(timeout_s=dims["timeout"])
+        ok = all(p_ == m_ for p_, m_, _ in preds)
+        log(f"    check 14a routed: predicted warm pages == pages "
+            f"acquire_prefix mapped, every request: {ok} "
+            f"{[(p_, m_, r_) for p_, m_, r_ in preds]} (predicted, mapped,"
+            " replica)")
+        if not ok or sum(m_ for _, m_, _ in preds) == 0:
+            raise AssertionError("14a routed: a prediction missed")
+        row = finish("routed", fhs, reps, t0)
+        row["warm"] = preds
+        same_as_single("routed", row)
+        mon._sample()
+        rec = mon.latest()
+        if "fleet" not in rec or rec["fleet"]["router"]["placed"] != \
+                len(reqs):
+            raise AssertionError(f"14d: the replica's live sample lacks "
+                                 f"the fleet row: {sorted(rec)}")
+        out["live_fleet"] = rec["fleet"]
+        log(f"  14d fleet row on replica r0's live sample: router "
+            f"{rec['fleet']['router']}")
+        mon.stop()
+        out["router_routed"] = dict(router.counters)
+    finally:
+        teardown(router, reps)
+
+    # disagg: prefill_then_decode, the pages migrated in process
+    t0 = time.perf_counter()
+    reps = replicas(2, roles=((0, "prefill"), (1, "decode")))
+    router = Router(reps)
+    try:
+        fhs = []
+        mig_ms = 0.0
+        mig0 = router.migrate
+
+        def timed_migrate(*a, **kw):
+            nonlocal mig_ms
+            t = time.perf_counter()
+            try:
+                return mig0(*a, **kw)
+            finally:
+                mig_ms += (time.perf_counter() - t) * 1e3
+        router.migrate = timed_migrate
+        for wave in (reqs[:2], reqs[2:]):
+            for p, tn in wave:
+                fh = router.prefill_then_decode(p, n_new, tn)
+                if fh.replica is not reps[1]:
+                    raise AssertionError("14a disagg: placed off the "
+                                         "decode replica")
+                fhs.append(fh)
+            router.run(timeout_s=dims["timeout"])
+        row = finish("disagg", fhs, reps, t0)
+        c = dict(router.counters)
+        row["counters"] = c
+        row["migrate_ms"] = mig_ms
+        row["migrate_gbps"] = (c["migrated_bytes"] / (mig_ms / 1e3) / 1e9
+                               if mig_ms else None)
+        log(f"  14a disagg: migrated {c['migrated_pages']} pages, "
+            f"{c['migrated_bytes']} B in {mig_ms:.1f} ms of migrate() "
+            f"({row['migrate_gbps']} GB/s, in process), prefill jobs "
+            f"{c['prefill_jobs']}, dedup skips {c['migration_dups']}")
+        if c["migrated_pages"] <= 0 or \
+                c["migrated_bytes"] != c["migrated_pages"] * page_bytes:
+            raise AssertionError(f"14a disagg: counters {c}")
+        same_as_single("disagg", row)
+    finally:
+        teardown(router, reps)
+
+    # replace: queued requests re-placed off a replica whose health flips
+    t0 = time.perf_counter()
+    nr = dims["replace_requests"]
+
+    def tenants():
+        return [TenantConfig("hi", priority=4, weight=4), TenantConfig("lo"),
+                TenantConfig("probe", slo_ms=1e-6, slo_burn=0.5)]
+    reps = replicas(2, pages={0: dims["tight_pages"]}, tenants=tenants)
+    router = Router(reps)
+    try:
+        busy = {0: {"healthy": True}, 1: {"healthy": True,
+                                          "queued_bytes": 1 << 40}}
+        idx = [0] + [2 * k + 1 for k in range(nr - 1)]
+        fhs = [router.submit(*reqs[i][:1], n_new, reqs[i][1], adverts=busy)
+               for i in idx]
+        queued = [fh for fh in fhs if fh.handle.ticket.state == "queued"]
+        if not queued or any(fh.replica is not reps[0] for fh in fhs):
+            raise AssertionError("14a replace: nothing queued on r0")
+        sid = reps[0].engine.scope.new_scope("probe")
+        reps[0].engine.scope.record_done(sid)
+        if reps[0].server.healthy():
+            raise AssertionError("14a replace: r0 did not turn unhealthy")
+        moved = router._pump()
+        router.run(timeout_s=dims["timeout"])
+        row = finish("replace", fhs, reps, t0)
+        cancelled = reps[0].server.stats()["totals"]["cancelled"]
+        c = dict(router.counters)
+        row.update({"queued": len(queued), "moved": moved,
+                    "cancelled": cancelled, "counters": c})
+        ok = c["rerouted"] == cancelled == moved == len(queued) and \
+            c["reroute_failed"] == 0
+        log(f"    check 14a replace: {len(queued)} queued on r0, "
+            f"re-placed {moved}, rerouted {c['rerouted']} == cancelled "
+            f"{cancelled}, none dropped: {ok}")
+        if not ok:
+            raise AssertionError(f"14a replace: {row}")
+        same_as_single("replace", row, idx=idx)
+    finally:
+        teardown(router, reps)
+    return out
+
+
+def fleet_path(dev_t, model=None, dims=None, ranks=None, comm_runs=None,
+               norm_dims=None) -> dict:
+    """Phase 14: the fleet tier and the rest of the multi-rank half.
+      14a fleet_serve (this process)
+      14b-14d the ranks' fleet_rank results (run on phase 12's spawned
+          ranks): imported pages bit for bit the source's export, payload
+          bytes 16 MiB, 8 MiB, then 0 with no pool built, dp_errors 0;
+          the transfer plane's NORM chain: dp_xfer_bytes 512 MiB and
+          dp_recv_bytes 0 on rank 1, O's digest 12b's byte path's, one
+          session per peer established and the rest reused; the live
+          samples' comm/stream/topo rows; no stalled_pull; each rank's
+          checkpoint read on the other through peer_blob, no lost peer
+      14e the tuner's comm axes: propose_stream and propose_collective at
+          `tune_bytes`, ranked, beside phase 12d's and 12b's walls
+    Returns the runs and the RMSNorm launches of 14c (both ranks)."""
+    import torch
+
+    from parsec_tpu_torch.analysis.tune import (propose_collective,
+                                                propose_stream)
+    from parsec_tpu_torch.serve import PagedLM, PagedLMConfig
+    dims = dims or FLEET
+    norm_dims = norm_dims or COMM
+    t0 = time.perf_counter()
+    runs = {}
+    if model is None:
+        model = PagedLM(PagedLMConfig(seed=SEED, **dims["model"]),
+                        device=dev_t)
+    runs["fold_probe"] = fold_width_probe(dev_t, model, dims["fold_widths"])
+    fs = fleet_serve(dev_t, model, dims)
+    runs["serve"] = fs
+    launches = {"rms_norm": 0, "flash_attention": 0}
+    if ranks is not None:
+        r0, r1 = ranks
+        n = dims["mig_pages"]
+        page_bytes = dims["model"]["page"] * 2 * dims["model"]["d"] * 4
+        mig = []
+        for i, (a, b) in enumerate(zip(r0["migrate"], r1["migrate"])):
+            want = (n - b["held"]) * page_bytes
+            row = {"held": b["held"], "wall_ms": [a["wall_ms"],
+                                                  b["wall_ms"]],
+                   "payload_bytes": b["payload_bytes"],
+                   "bytes_recv": b["bytes_recv"],
+                   "chunks_recv": b["chunks_recv"], "built": b["built"],
+                   "gbps": (b["payload_bytes"] / (b["wall_ms"] / 1e3) / 1e9
+                            if b["payload_bytes"] else None),
+                   "bit_for_bit": a["digest"] == b["digest"]}
+            mig.append(row)
+            log(f"  14b migration run {i} (receiver holds {b['held']} of "
+                f"{n}): {row['payload_bytes']} B imported, "
+                f"{b['bytes_recv']} B received on the wire in "
+                f"{b['chunks_recv']} chunks, walls {a['wall_ms']:.1f} / "
+                f"{b['wall_ms']:.1f} ms ({row['gbps']} GB/s), pool built "
+                f"{b['built']}, imported bit for bit the export "
+                f"{row['bit_for_bit']}")
+            if not row["bit_for_bit"] or row["payload_bytes"] != want or \
+                    b["built"] != (want > 0):
+                raise AssertionError(f"14b run {i}: {row}")
+            if want and b["chunks_recv"] < (n - b["held"]) * -(
+                    -page_bytes // dims["mig_chunk"]):
+                raise AssertionError(f"14b run {i}: {b['chunks_recv']} "
+                                     "chunks: the pages did not stream")
+        runs["migrate"] = mig
+        # 14c: the transfer plane against 12b's byte path
+        x0, x1 = r0["xfer"], r1["xfer"]
+        for name, v in x0["launches"].items():
+            launches[name] += v + x1["launches"][name]
+        gb = x1["payload_bytes"] / (x1["wall_ms"] / 1e3) / 1e9
+        byte_row = comm_runs["norm"][0] if comm_runs else None
+        pool = x1["pool"]
+        runs["xfer"] = {"wall_ms": [x0["wall_ms"], x1["wall_ms"]],
+                        "payload_gbps": gb,
+                        "byte_path_gbps": byte_row["payload_gbps"]
+                        if byte_row else None,
+                        "dev": [x0["dev"], x1["dev"]], "pool": pool,
+                        "o_digest": x1["o_digest"],
+                        "max_abs_err": x1["max_abs_err"],
+                        "launches": [x0["launches"], x1["launches"]],
+                        "phase_s": r1["xfer_s"]}
+        log(f"  14c NORM through the transfer plane: walls "
+            f"{x0['wall_ms']:.1f} / {x1['wall_ms']:.1f} ms, "
+            f"{x1['dev']['dp_xfer_bytes']} B pulled card to card "
+            f"({x0['dev']['dp_xfer_tokens']} tokens), dp_recv_bytes "
+            f"{x1['dev']['dp_recv_bytes']}, {gb:.3f} GB/s of the chain's "
+            f"wall against 12b's byte path "
+            f"{runs['xfer']['byte_path_gbps']} GB/s in this run; pulls "
+            f"{x1['dev']['dp_xfer_pull_ns'] / 1e6:.1f} ms of host; "
+            f"session pool {pool}; O {x1['o_digest']}")
+        on_card = dev_t.type == "cuda"
+        if on_card and (x1["dev"]["dp_xfer_bytes"] != x1["payload_bytes"]
+                        or x1["dev"]["dp_recv_bytes"] != 0):
+            raise AssertionError(f"14c: {x1['dev']}")
+        if byte_row and x1["o_digest"] != byte_row["o_digest"]:
+            raise AssertionError("14c: O differs from 12b's byte path")
+        rows_, d_, T_ = norm_dims["norm"]
+        R = rows_ // T_
+        if on_card and (pool["peers"] != 1 or pool["established"] != 1
+                        or pool["reused"] != R - 1):
+            raise AssertionError(f"14c: session pool {pool}")
+        # 14d on the ranks
+        for r_ in ranks:
+            if r_["stalled_pull"]:
+                raise AssertionError(f"14d rank {r_['rank']}: "
+                                     f"{r_['stalled_pull']}")
+            if r_["lost_peers"]:
+                raise AssertionError(f"14d rank {r_['rank']}: lost peers "
+                                     f"{r_['lost_peers']}")
+        for a, b in ((r0, r1), (r1, r0)):
+            if a["peer_blob_keys"] != b["own_keys"] or not b["own_keys"]:
+                raise AssertionError(
+                    f"14d: rank {a['rank']} read {len(a['peer_blob_keys'])}"
+                    f" keys of rank {b['rank']}'s checkpoint, which holds "
+                    f"{len(b['own_keys'])}")
+        runs["observe"] = {
+            "watchdog": [r_["watchdog"] for r_ in ranks],
+            "live_migrate": [r_["migrate"][0]["live"] for r_ in ranks],
+            "live_xfer": [r_["xfer"]["live"] for r_ in ranks]}
+        log(f"  14d live samples on both ranks carry comm/stream/topo rows "
+            f"equal to the engine's counters; watchdog ticks "
+            f"{[r_['watchdog']['ticks'] for r_ in ranks]}, no "
+            f"stalled_pull; each rank read the other's checkpoint "
+            f"({len(r0['own_keys'])} frozen keys) through peer_blob; no "
+            f"lost peer")
+        runs["ranks_s"] = max(r_["wall_s"] for r_ in ranks)
+    # 14e: the tuner's comm axes
+    nb = dims["tune_bytes"]
+    ps = propose_stream(nb)
+    pc = propose_collective(nb, 2)
+    runs["tune"] = {"stream": ps, "collective": pc}
+    for name, props in (("propose_stream", ps),
+                        ("propose_collective", pc)):
+        for rank_, r_ in enumerate(props):
+            log(f"  14e {name}({nb >> 20} MiB) #{rank_}: {r_['knobs']} "
+                f"predicted {r_['predicted_ns'] / 1e6:.3f} ms")
+    if comm_runs:
+        # the model's ranking beside the card's: 12d's all_reduce of the
+        # same size under each topology, 12b's streamed 16 MiB tiles
+        for r_ in pc:
+            w = comm_runs["coll"].get(f"{r_['knobs']['coll.topo']}"
+                                      "/all_reduce")
+            r_["measured_all_reduce_ms"] = w
+            log(f"  14e propose_collective {r_['knobs']}: predicted "
+                f"{r_['predicted_ns'] / 1e6:.3f} ms; phase 12d's "
+                f"all_reduce under that topology, ranks 0 / 1: "
+                + (f"{w[0]:.1f} / {w[1]:.1f} ms" if w else
+                   "not measured (12d runs ring, binomial and star)"))
+        nr = comm_runs["norm"][0]
+        log(f"  14e propose_stream beside phase 12b's streamed NORM chain "
+            f"(16 MiB tiles, comm.chunk_size 1 MiB, 2 rails): "
+            f"{nr['payload_gbps']:.3f} GB/s of the chain's wall, serve "
+            f"copies {nr['serve_d2h_gbps']} GB/s")
+    runs["phase_s"] = time.perf_counter() - t0
+    return {"runs": runs, "launches": launches}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5248,6 +6018,8 @@ def main() -> int:
     rng10 = np.random.default_rng()
     rng10.bit_generator.state = phase4_rng
     obs = observe_path(dev_t, rng10, serve=serve, ptg_norm_o=norm_o)
+    # phase 5's serving model is phase 14's too (same config and seed)
+    fleet_model = serve["_round"][0]
     del norm_o, serve["_round"]
     for name, n in obs["launches"].items():
         launches[name] += n
@@ -5266,15 +6038,18 @@ def main() -> int:
         "the data plane, 12d collectives, 12e merged trace), then two "
         "colocated ranks in this process (12c)")
     t = time.perf_counter()
-    cm = comm_path(dev_t, multi=MULTI)
-    # the ranks ran phase 13b/13d after phase 12: their time is phase 13's
-    comm_s = time.perf_counter() - t - cm["runs"]["multi_s"]
+    cm = comm_path(dev_t, multi=MULTI, fleet=FLEET)
+    # the ranks ran phase 13b/13d and 14b-14d after phase 12: their time
+    # is phase 13's and 14's
+    comm_s = time.perf_counter() - t - cm["runs"]["multi_s"] - \
+        cm["runs"]["fleet_s"]
     for name, n in cm["launches"].items():
         launches[name] += n
     cm["runs"]["phase_s"] = comm_s
     log(f"  COMM phase {comm_s:.1f} s (its ranks' processes "
-        f"{cm['runs']['spmd_s'] - cm['runs']['multi_s']:.1f} s of it, "
-        f"then 13b/13d {cm['runs']['multi_s']:.1f} s); hand-written kernel "
+        f"{cm['runs']['spmd_s'] - cm['runs']['multi_s'] - cm['runs']['fleet_s']:.1f}"
+        f" s of it, then 13b/13d {cm['runs']['multi_s']:.1f} s and "
+        f"14b-14d {cm['runs']['fleet_s']:.1f} s); hand-written kernel "
         f"launches in it (both ranks): {cm['launches']}")
     if comm_s > 90.0:
         raise AssertionError(f"phase 12 took {comm_s:.1f} s (> 90 s)")
@@ -5290,6 +6065,23 @@ def main() -> int:
         f"it: {dict(kernels.LAUNCHES)}")
     if multi_s > 180.0:
         raise AssertionError(f"phase 13 took {multi_s:.1f} s (> 180 s)")
+    log("phase 14: the fleet tier: the router over two replicas in this "
+        "process (14a), page migration over the wire and the transfer "
+        "plane on phase 12's two ranks (14b, 14c), the comm rows of "
+        "observability (14d), the tuner's comm axes (14e)")
+    kernels.reset_launches()
+    fl = fleet_path(dev_t, model=fleet_model, ranks=cm["fleet"],
+                    comm_runs=cm["runs"])
+    del fleet_model
+    fleet_s = fl["runs"]["phase_s"] + cm["runs"]["fleet_s"]
+    fl["runs"]["total_s"] = fleet_s
+    for name, n in fl["launches"].items():
+        launches[name] += n
+    log(f"  FLEET phase {fleet_s:.1f} s (14b-14d on the ranks "
+        f"{cm['runs']['fleet_s']:.1f} s); hand-written kernel launches in "
+        f"it (14c, both ranks): {fl['launches']}")
+    if fleet_s > 120.0:
+        raise AssertionError(f"phase 14 took {fleet_s:.1f} s (> 120 s)")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
@@ -5300,6 +6092,7 @@ def main() -> int:
     print(json.dumps({"comm": cm["runs"]}))
     print(json.dumps({"multi": mu["runs"], "chores": mu["chores"]},
                      default=str))
+    print(json.dumps({"fleet": fl["runs"]}, default=str))
 
     rows_out = []
     for name, r, err, repl in (

@@ -25,8 +25,17 @@ def k_gemm_nn(a, b, c):
     """c + a @ b over lanes ([n, mb, kb] x [n, kb, nb]).  The reference
     computes this product outside any Pallas kernel (XLA's dot), so it
     stays a library product here.  TF32 is switched off explicitly: the
-    product runs in full float32, like the reference's f32 accumulate."""
+    product runs in full float32, like the reference's f32 accumulate.
+
+    A lone lane runs as a two-lane call whose lane 0 is kept: on the
+    card cuBLAS picks another algorithm for a one-lane batched product
+    (a lone 512^2 tile fills 16 of 132 SMs), and a lane's bits would
+    then depend on how many lanes its wave held.  The wider calls agree
+    with each other bit for bit."""
     torch.backends.cuda.matmul.allow_tf32 = False
+    if a.shape[0] == 1:
+        a, b, c = (t.expand(2, -1, -1).contiguous() for t in (a, b, c))
+        return torch.baddbmm(c, a, b)[:1]
     return torch.baddbmm(c, a, b)
 
 

@@ -43,25 +43,25 @@ context reads env at init), snapshotting and restoring both.
 
 Port of parsec_tpu/analysis/tune.py.  The knob registry is the
 reference's, so that the simulator prices the same vector to the same
-nanosecond; but this package acts on four of its axes only:
-`ACTED_KNOBS` — device.staging_slots, device.cache_bytes and
-device.wave_fuse (read by a CudaDevice at construction) and
-runtime.mag_batch (read by the native core at context creation).  The
-comm.* and coll.* axes are MCA parameters since the comm engine came
-(utils/config.py), but the tuner does not act on them yet (ROADMAP
-Queue A item 6b): the simulator prices the values in force
-(`FIXED_KNOBS`, read from the registry), `apply_knobs` refuses to
-change them, and
-`ScheduleSimulator.knob_axes` (so `propose` and `autotune`) searches
-only the acted axes.  All four acted knobs are read when the runtime is
-created, so a vector takes effect only for a Context and CudaDevice
-created under `apply_knobs(vector)` (the tuner's validation runs do so);
+nanosecond, and the tuner acts on the same axes (`ACTED_KNOBS`) but
+the engine's rails: device.staging_slots, device.cache_bytes and
+device.wave_fuse (read by a CudaDevice at construction),
+runtime.mag_batch (read by the native core at context creation), and
+the comm.* and coll.* knobs, MCA parameters read by the comm engine at
+comm_init (comm.eager_limit, comm.chunk_size) and by the collectives
+and the plans when they are built (the rest).  `FIXED_KNOBS` — the
+rails, comm.rails and its per-class overrides — are constants here
+(comm/topology.COMM_KNOBS): the simulator prices them, `apply_knobs`
+refuses to change them, and `ScheduleSimulator.knob_axes` (so
+`propose` and `autotune`) keeps them at their value.  Every acted knob
+binds when the runtime is created or the comm engine starts, so a
+vector takes effect only for a Context and CudaDevice created under
+`apply_knobs(vector)` (the tuner's validation runs do so);
 `Taskpool.run(tuned=)` checks that its vector is the one in force
 (`knobs_in_force`) and raises where it is not, instead of reporting a
-vector that changed nothing as applied.  The closed-form
-collective and streaming price models (the reference's
-price_collective / price_stream and their proposers) price the comm
-engine's collectives and streamed serve, and come with it.
+vector that changed nothing as applied.  The closed-form collective and
+streaming price models (`price_collective`, `price_stream`) and their
+proposers rank the comm engine's collective and streaming knobs.
 
 Model constants: the dispatch constants and the default transfer
 economics are the reference's, calibrated on its own host (its
@@ -81,7 +81,7 @@ import sys
 from typing import Callable, Dict, List, Optional, Tuple
 
 from .. import _native as N
-from ..comm.topology import comm_knob
+from ..comm.topology import COMM_KNOBS, comm_knob
 from ..core import expr as E
 from ..core.taskclass import Mem, Ref
 from .flowgraph import FlowGraph, extract_flowgraph
@@ -114,21 +114,14 @@ TUNE_KNOBS: Tuple[str, ...] = (
     "coll.topo.dcn",
 )
 
-# Knobs this package acts on (module docstring); every other knob of
-# TUNE_KNOBS is priced by the simulator but refused by apply_knobs.
-ACTED_KNOBS: Tuple[str, ...] = (
-    "device.staging_slots",
-    "device.cache_bytes",
-    "device.wave_fuse",
-    "runtime.mag_batch",
-)
-# The knobs of TUNE_KNOBS this package prices but does not tune yet (the
-# comm engine's and the collectives'): the simulator prices the values in
-# force (comm.topology.comm_knob: the MCA registry, else the constant of
-# a knob that is no parameter here) and apply_knobs refuses to change
-# them.
+# The knobs of TUNE_KNOBS this package prices but does not tune: the
+# engine's rails, constants here (comm.topology.COMM_KNOBS).  The
+# simulator prices their value and apply_knobs refuses to change it.
 FIXED_KNOBS: Tuple[str, ...] = tuple(
-    k for k in TUNE_KNOBS if k not in ACTED_KNOBS)
+    k for k in TUNE_KNOBS if k in COMM_KNOBS)
+# Knobs this package acts on (module docstring): every other knob.
+ACTED_KNOBS: Tuple[str, ...] = tuple(
+    k for k in TUNE_KNOBS if k not in FIXED_KNOBS)
 
 # Modeled dispatch-path constants (nanoseconds), the reference's,
 # calibrated against its committed BENCH_dispatch level-0 numbers (its
@@ -370,10 +363,14 @@ def bound_value(name: str, value):
     """An acted knob's value as the runtime binds it: the native core
     keeps a magazine batch in [1, 8192] (else its default, 64), a
     CudaDevice at least one staging slot, a cache budget of 0 is the
-    device's default of 4 GiB, and wave fusion is on or off."""
+    device's default of 4 GiB, and wave fusion is on or off; a comm or
+    collective knob is its registered type's value."""
+    from ..utils import params as reg
+    from ..utils.config import _coerce
     if name == "device.wave_fuse":
-        from ..utils.config import _coerce
         return _coerce(str(value), bool)
+    if name.startswith(("comm.", "coll.")):
+        return _coerce(str(value), reg._reg[name].type)
     v = int(value or 0)
     if name == "runtime.mag_batch":
         return v if 1 <= v <= 8192 else 64
@@ -384,16 +381,27 @@ def bound_value(name: str, value):
 
 def knobs_in_force(ctx) -> Dict[str, list]:
     """The acted knobs' values bound on `ctx`'s runtime: the magazine
-    batch its native core read at creation, and each attached
-    CudaDevice's staging slots, cache budget and wave compiler (on when
-    it has one; with no device attached, the value a device created now
-    would read)."""
+    batch its native core read at creation; each attached CudaDevice's
+    staging slots, cache budget and wave compiler (on when it has one;
+    with no device attached, the value a device created now would
+    read); the eager threshold and chunk quantum the comm engine runs
+    when it is up (an adaptive threshold is not a knob's value, so the
+    registry's answers then); and the registry's value of every other
+    comm and collective knob, which is read when a collective or a plan
+    is built."""
     from ..utils import params as _mca
     devs = list(ctx._devices)
 
     def fresh(name):
         return [bound_value(name, _mca.get(name))]
-    return {
+    out = {k: fresh(k) for k in ACTED_KNOBS
+           if k.startswith(("comm.", "coll."))}
+    if ctx.comm_enabled:
+        tuning = ctx.comm_tuning()
+        if not tuning["eager_adaptive"]:
+            out["comm.eager_limit"] = [tuning["eager_limit"]]
+        out["comm.chunk_size"] = [tuning["chunk_size"]]
+    return dict(out, **{
         "runtime.mag_batch": [ctx.mag_batch],
         "device.staging_slots": [d._pf_slots_max for d in devs]
         or fresh("device.staging_slots"),
@@ -401,7 +409,7 @@ def knobs_in_force(ctx) -> Dict[str, list]:
         or fresh("device.cache_bytes"),
         "device.wave_fuse": [d._fuser is not None for d in devs]
         or fresh("device.wave_fuse"),
-    }
+    })
 
 
 def check_tuned(ctx, knobs: Dict[str, object]) -> None:
@@ -825,15 +833,37 @@ class ScheduleSimulator:
     # --------------------------------------------------------- axes
     def knob_axes(self) -> Dict[str, List[object]]:
         """Graph-relevant candidate values per knob.  Axes that cannot
-        change this DAG's simulated cost (device knobs without device
-        chores, wave fusion without a certified fusable wave) collapse
-        to the current default so the search space stays small and the
-        proposals deterministic; so do the axes this package does not
-        act on (everything outside ACTED_KNOBS: the comm and coll
-        knobs, which the reference searches on multi-rank DAGs)."""
+        change this DAG's simulated cost (wire knobs on a single-rank
+        DAG, device knobs without device chores, wave fusion without a
+        certified fusable wave) collapse to the current default so the
+        search space stays small and the proposals deterministic; so do
+        the axes this package does not act on (FIXED_KNOBS: the rails,
+        which the reference searches on multi-rank DAGs)."""
         kv = default_knobs()
+        multi = (self.tmodel is not None
+                 and self.tmodel.n_islands > 1
+                 and len(self.ranks) > 1)
         axes: Dict[str, List[object]] = {k: [kv[k]] for k in TUNE_KNOBS}
         axes["runtime.mag_batch"] = [16, 64, 128, 256]
+        if self.has_wire:
+            axes["comm.chunk_size"] = [256 << 10, 1 << 20, 4 << 20]
+            axes["comm.eager_limit"] = [16 << 10, 64 << 10, 256 << 10]
+        if self.has_coll and self.has_wire:
+            axes["coll.topo"] = ["auto", "ring", "binomial", "star"]
+            if multi:
+                axes["coll.topo"].append("hier")
+            axes["coll.max_slices"] = [1, 4, 16]
+        # per-class overrides: only a multi-island mesh has a 'dcn' class
+        # for them to act on, so the dcn axes open there ("" = inherit
+        # base always a candidate) and collapse to the current value
+        # everywhere else.  The ici spellings stay collapsed — on a
+        # single-island mesh they ARE the base knob.
+        if self.has_wire and multi:
+            axes["comm.chunk_size.dcn"] = ["", 1 << 20, 4 << 20,
+                                           16 << 20]
+            axes["comm.eager_limit.dcn"] = ["", 8 << 10, 64 << 10]
+        if self.has_coll and self.has_wire and multi:
+            axes["coll.topo.dcn"] = ["", "hier", "star", "binomial"]
         if self.has_device:
             axes["device.staging_slots"] = [1, 2, 4]
             peak = int(self.plan.peak_bytes(device_only=True) or 0)
@@ -884,9 +914,13 @@ class ScheduleSimulator:
                         changed = True
             if not changed:
                 break
+        # ties break by the vector; a per-class axis mixes "" (inherit)
+        # with ints, so each value sorts within its own type (the
+        # reference compares them raw and raises on a two-island mesh)
         ranked = sorted(seen.values(),
-                        key=lambda r: (r["predicted_ns"],
-                                       key(r["knobs"])))
+                        key=lambda r: (r["predicted_ns"], tuple(
+                            (isinstance(v, str), v)
+                            for v in key(r["knobs"]))))
         out, have = [], set()
         for r in ranked:
             k = key(r["knobs"])
@@ -992,3 +1026,143 @@ def autotune(tp, measure: Optional[Callable] = None, topk: int = 3,
         result["persisted"] = True
         result["store_path"] = st.path
     return result
+
+
+# ------------------------------------------- collective knob pricing
+def price_collective(knobs: Dict[str, object], size_bytes: int,
+                     nranks: int, econ=None,
+                     task_overhead_ns: float = DISPATCH_BASE_NS) -> float:
+    """Model-side price (ns) of one runtime-native collective of
+    `size_bytes` across `nranks` under a knob vector — the proposal
+    model a collective's knobs are searched with (the graph itself is
+    built rank-side inside gemm_panel_reduce, so the proposals come
+    from this closed-form model and are validated with real multi-rank
+    runs, the simulator->validate loop in miniature).
+
+    Prices the fitted topology cost of the reduction — on the EAGER
+    legs when the per-rank segment fits under the knob's eager
+    threshold (the fitted eager path is markedly cheaper per byte than
+    rendezvous on loopback: the single biggest lever this model
+    surfaces), rendezvous otherwise — plus the slicing trade-off: more
+    slices overlap wire and compute (T3-style) but each slice is its
+    own task chain and frame."""
+    if econ is None:
+        from ..comm.economics import default_economics
+        econ = default_economics()
+    topo = knobs.get("coll.topo", "auto")
+    slices = max(1, int(knobs.get("coll.max_slices", 16)))
+    limit = knobs.get("comm.eager_limit")
+    if limit is None:
+        limit = comm_knob("comm.eager_limit")
+    seg = max(1, size_bytes) / max(2, nranks)
+    path = "eager" if seg <= int(limit) else "rdv"
+    costs = econ.topology_costs("reduce", max(1, size_bytes),
+                                max(2, nranks), path=path)
+    base = (min(costs.values()) if topo in (None, "", "auto")
+            else costs.get(topo, min(costs.values())))
+    base_ns = base * 1e9
+    # slicing: up to PIPE_DEPTH slices genuinely overlap (wire vs the
+    # downstream partial reduction), every slice beyond that is pure
+    # per-slice chain overhead (step tasks + frames on every rank)
+    PIPE_DEPTH = 4
+    per_slice = 3 * task_overhead_ns + CHUNK_ENVELOPE_NS
+    alpha_ns = econ.alpha(path) * 1e9
+    wire_ns = max(0.0, base_ns - alpha_ns)
+    return (alpha_ns + wire_ns / min(slices, PIPE_DEPTH)
+            + slices * per_slice)
+
+
+def price_stream(knobs: Dict[str, object], size_bytes: int,
+                 hops: int = 1, econ=None) -> float:
+    """Model-side price (ns) of a `hops`-deep cross-rank DEVICE tile
+    chain under a knob vector (a streamed tile chain): per hop the
+    fitted device-path alpha leg, one more alpha-sized envelope per
+    extra chunk (every chunk is its own d2h-slice + ranged wire
+    round), and the per-byte leg divided by the diminishing-returns
+    rail stripe.  Like price_collective, this is the proposal half of
+    the miniature simulate->validate loop; the validation half is real
+    two-process runs."""
+    if econ is None:
+        from ..comm.economics import default_economics
+        econ = default_economics()
+    chunk = int(knobs.get("comm.chunk_size", 1 << 20))
+    rails = max(1, int(knobs.get("comm.rails", 2)))
+    a = econ.alpha("device") * 1e9
+    b = econ.beta("device") * 1e9
+    if chunk > 0 and size_bytes > chunk:
+        nch = (size_bytes + chunk - 1) // chunk
+        hop = (a + (nch - 1) * max(a, CHUNK_ENVELOPE_NS)
+               + size_bytes * b / _stripe_div(rails, nch))
+    else:
+        hop = a + size_bytes * b
+    return hops * hop
+
+
+def propose_stream(size_bytes: int, hops: int = 1, econ=None,
+                   topk: int = 3) -> List[dict]:
+    """Ranked streaming knob proposals (chunk quantum x rails) from
+    price_stream, defaults included."""
+    default = {"comm.chunk_size": comm_knob("comm.chunk_size"),
+               "comm.rails": comm_knob("comm.rails")}
+    cands = []
+    seen_behavior = set()
+    for chunk in (256 << 10, 1 << 20, 4 << 20, 2 * size_bytes):
+        for rails in (1, 2, 4):
+            kv = {"comm.chunk_size": chunk, "comm.rails": rails}
+            # behavioral dedupe: a single-chunk payload never stripes,
+            # so the rails axis collapses (validating three identical
+            # configs would waste the top-k slots)
+            nch = ((size_bytes + chunk - 1) // chunk
+                   if chunk > 0 and size_bytes > chunk else 1)
+            key = (chunk, rails if nch > 1 else 0)
+            if key in seen_behavior and kv != default:
+                continue
+            seen_behavior.add(key)
+            cands.append({
+                "knobs": kv,
+                "predicted_ns": price_stream(kv, size_bytes, hops,
+                                             econ)})
+    cands.sort(key=lambda r: (r["predicted_ns"],
+                              str(sorted(r["knobs"].items()))))
+    out = cands[:max(1, topk)]
+    if not any(r["knobs"] == default for r in out):
+        out.append({"knobs": default,
+                    "predicted_ns": price_stream(default, size_bytes,
+                                                 hops, econ)})
+    return out
+
+
+def propose_collective(size_bytes: int, nranks: int, econ=None,
+                       topk: int = 3) -> List[dict]:
+    """Ranked collective knob proposals from the closed-form model:
+    the cross product of topology x slicing x eager threshold, priced
+    by price_collective, defaults included."""
+    default = {"coll.topo": comm_knob("coll.topo"),
+               "coll.max_slices": comm_knob("coll.max_slices"),
+               "comm.eager_limit": comm_knob("comm.eager_limit")}
+    cands = []
+    seen_behavior = set()
+    seg = max(1, size_bytes) / max(2, nranks)
+    for topo in ("auto", "ring", "binomial", "star"):
+        for slices in (1, 4, 16):
+            for eager in sorted({default["comm.eager_limit"],
+                                 1 << 20, 4 << 20}):
+                kv = {"coll.topo": topo, "coll.max_slices": slices,
+                      "comm.eager_limit": eager}
+                # behavioral dedupe: two thresholds on the same side of
+                # the segment size run identically
+                key = (topo, slices, seg <= eager)
+                if key in seen_behavior and kv != default:
+                    continue
+                seen_behavior.add(key)
+                cands.append({
+                    "knobs": kv,
+                    "predicted_ns": price_collective(kv, size_bytes,
+                                                     nranks, econ)})
+    cands.sort(key=lambda r: (r["predicted_ns"],
+                              str(sorted(r["knobs"].items()))))
+    out = cands[:max(1, topk)]
+    if not any(r["knobs"] == default for r in out):
+        pred = price_collective(default, size_bytes, nranks, econ)
+        out.append({"knobs": default, "predicted_ns": pred})
+    return out

@@ -14,8 +14,10 @@ This package adds:
 - `coll`: the runtime-native collectives (ptc_coll_* task classes)
 - `economics` and `topology`: the fitted transfer economics and the
   hosts-and-islands topology the collectives and the analyses price with
+- `migrate`: content-hash KV page migration between PagePools, in
+  process and over the wire (the fleet router's handoff)
 
-Port of parsec_tpu/comm (without migrate.py, the page migration).
+Port of parsec_tpu/comm.
 """
 import os
 

@@ -14,13 +14,18 @@ or several cards), tile movement between them never touches the host:
   neighbor exchange of ring attention and halo swaps; the chain broadcast
   topology's rank+1 walk, parsec/remote_dep.c:43).
 
-Port of parsec_tpu/comm/ici.py.  The reference's `TransferSessionPool`
-(persistent sessions of the cross-process device transfer plane) has no
-counterpart here yet: that plane does not exist in this package.
+- `TransferSessionPool`: the per-peer sessions of the cross-process
+  device transfer plane (device.dp_transfer; CUDA IPC between processes
+  on one host and card, device/cuda.py), with each peer's setup cost
+  kept apart from its reuse.
+
+Port of parsec_tpu/comm/ici.py.
 """
 from __future__ import annotations
 
-from typing import List, Sequence
+import threading
+import time
+from typing import Dict, List, Sequence
 
 import numpy as np
 import torch
@@ -79,3 +84,83 @@ class PermuteEngine:
                              f"{tuple(t.shape)} does not split {self.n} ways")
         return [c.to(d, copy=True) for c, d in
                 zip(torch.chunk(t, self.n, dim=shard_dim), self.devices)]
+
+
+class TransferSessionPool:
+    """Persistent per-peer transfer-plane sessions.
+
+    A session carries the cross-process card-to-card pulls of the
+    PK_DEVICE data plane from one peer (device/cuda.py: CUDA IPC between
+    processes on one host and card).  It is established ONCE per peer
+    address — `server.connect(addr)`, whose cost is the peer's first
+    handle open — and reused for every later pull.  The pool records
+    establishment cost per peer (`setup_ms`) separately from use counts:
+    first-transfer setup against steady-state pulls.
+
+    Thread-safe: pulls arrive on the comm thread while probes run on
+    the caller's thread.  A lost race establishes two connections and
+    keeps the first registered (the loser is dropped; connections are
+    cheap to leak once, unlike per-pull setup).
+
+    When the caller knows the peer's RANK it passes it to get(); the
+    pool classes the session against the process topology model
+    (comm/topology.py) and reports setup cost per link class in
+    `stats()["by_class"]`.
+    """
+
+    def __init__(self, topo=None, my_rank: int = 0):
+        self._lock = threading.Lock()
+        self._conns: Dict[str, object] = {}
+        self._setup_ms: Dict[str, float] = {}
+        self._cls: Dict[str, str] = {}
+        self._established = 0
+        self._reused = 0
+        self._topo = topo
+        self._my_rank = int(my_rank)
+
+    def _class_of(self, peer_rank) -> str:
+        if peer_rank is None:
+            return "ici"
+        topo = self._topo
+        if topo is None:
+            from .topology import default_topology
+            topo = self._topo = default_topology(
+                max(self._my_rank, int(peer_rank)) + 1)
+        return topo.class_of(self._my_rank, int(peer_rank))
+
+    def get(self, server, addr: str, peer_rank=None):
+        """The session for `addr`, establishing it on first use."""
+        with self._lock:
+            conn = self._conns.get(addr)
+            if conn is not None:
+                self._reused += 1
+                return conn
+        t0 = time.perf_counter()
+        conn = server.connect(addr)
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:
+            prior = self._conns.get(addr)
+            if prior is not None:  # lost an establishment race
+                self._reused += 1
+                return prior
+            self._conns[addr] = conn
+            self._setup_ms[addr] = dt_ms
+            self._cls[addr] = self._class_of(peer_rank)
+            self._established += 1
+        return conn
+
+    def stats(self) -> dict:
+        with self._lock:
+            by_class: Dict[str, dict] = {}
+            for addr, ms in self._setup_ms.items():
+                c = by_class.setdefault(self._cls.get(addr, "ici"),
+                                        {"peers": 0, "setup_ms": 0.0})
+                c["peers"] += 1
+                c["setup_ms"] += ms
+            return {
+                "peers": len(self._conns),
+                "established": self._established,
+                "reused": self._reused,
+                "setup_ms": dict(self._setup_ms),
+                "by_class": by_class,
+            }

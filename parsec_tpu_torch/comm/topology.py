@@ -23,8 +23,8 @@ Spec sources, in priority order:
      "0,1|2,3;4,5|6,7" = two islands of two 2-rank hosts each), or a
      path to a JSON file {"islands": [[[0,1],[2,3]], [[4,5],[6,7]]]}.
      The reference reads it from PTC_MCA_comm_topology; here that
-     parameter is still a COMM_KNOBS constant (flat), to be registered
-     with the tuner's comm axes.
+     parameter is a COMM_KNOBS constant (flat), which the tuner does
+     not search.
   2. RTT auto-detect (`TopologyModel.from_rtts`): cluster this rank's
      measured PING/PONG round trips at the largest relative gap into a
      near set (my island) and a far set.  Per-rank and therefore NOT

@@ -50,10 +50,14 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
     has a current mirror here is served from the card, by one d2h into
     pinned memory, or streamed in comm.chunk_size slices from the
     writeback lane (device.stream_serve), or, to a colocated rank, as a
-    by-reference token whose tensor is cloned on the consumer's device;
+    by-reference token whose tensor is cloned on the consumer's device,
+    or, with device.dp_transfer, to a rank in another process on this
+    host and card, as a CUDA IPC token the consumer pulls card to card;
     a payload that arrives is staged on the least-loaded device as a raw
     mirror.  A failed callback hands the dependency to the host path,
-    as in the reference, and counts in stats["dp_errors"]
+    as in the reference, and counts in stats["dp_errors"]; a failed pull
+    of a CUDA IPC token counts there too and fails the consuming task,
+    and so its pool (its bytes were never sent)
 
 A failing kernel fails its tasks (ctx.task_fail) and so the pool: there
 is no silent fallback to another path.
@@ -90,8 +94,10 @@ from __future__ import annotations
 
 import contextlib
 import ctypes as C
+import json
 import os
 import queue
+import socket
 import sys
 import threading
 import time
@@ -103,7 +109,7 @@ import numpy as np
 import torch
 
 from .. import _native as N
-from ..comm.ici import device_transfer
+from ..comm.ici import TransferSessionPool, device_transfer
 from ..core.context import Context
 from ..core.taskclass import Mem, TaskClass, TaskView, register_copy_pull
 from ..core.taskpool import Taskpool
@@ -248,10 +254,17 @@ def sync_copy_handle(handle: int) -> None:
 def maybe_sync_copy(cptr) -> None:
     """Coherence entry point for host-side reads of a task flow: no-op for
     copies no device ever staged (zero handle), dirty-mirror writeback
-    otherwise."""
+    otherwise.  A copy whose transfer-plane pull failed raises."""
     h = N.lib.ptc_copy_handle(cptr)
     if h:
+        _check_delivered(h)
         sync_copy_handle(h)
+
+
+def _check_delivered(uid: int) -> None:
+    if _DP_FAILED and uid in _DP_FAILED:
+        raise RuntimeError(f"copy {uid}: its transfer-plane pull failed "
+                           "after the token was sent; no bytes exist")
 
 
 register_copy_pull(maybe_sync_copy)
@@ -292,15 +305,215 @@ _DP_XFER: Dict[int, tuple] = {}
 _DP_REF_MAGIC = b"PTCDPRF1"
 
 
-def _dp_error(ctx, where: str, dev=None) -> None:
+# ------------------------------------------- the cross-process transfer plane
+# device.dp_transfer: a payload pulled by a rank in ANOTHER process on this
+# host and card is served as a token naming its CUDA IPC handles, and the
+# consumer copies it card to card; the payload never exists in either
+# host's buffers.  Reference seam: jax.experimental.transfer in
+# parsec_tpu/device/tpu.py (_xfer_token, _xfer_pull, the GET-frame bit).
+#
+# Who gets a token.  The producer decides before the token is on the wire:
+# the plane is on here, the consumer set the GET frame's pull bit (its
+# device probed the plane, device.dp_pull), and the consumer's identity —
+# (host name, card UUID), shared at its device init through the comm
+# engine's blob frame, which precedes its GET on the same ordered
+# connection — equals this device's.  The engine connects its ranks over
+# the loopback interface only (native/comm.cpp), so every peer is on this
+# host; the card UUID is what tells a peer on this card from one on
+# another.  Every other consumer gets bytes, as in the reference.
+#
+# Lifetime.  The token is torch's CUDA IPC form of the payload
+# (torch.multiprocessing.reductions.reduce_tensor: the allocation's
+# memory handle, the storage's place in it, an interprocess event
+# recorded after the payload's event on the d2h stream, and a slot of
+# torch's IPC ref counter).  The native serve-done callback fires once
+# the token is on the wire and drops the producer's pin, but torch keeps
+# a freed block whose counter is above zero in its "limbo" until the
+# consumer lets go: the plane relies on that counter.  The consumer opens
+# the handle on its h2d stream (which waits on the producer's event),
+# clones into memory of its own, waits on the clone's event and drops the
+# mapping, which releases the counter.  A token whose consumer never pulls
+# (it died first) keeps its block in limbo for the producer's lifetime.
+# Handles are not cached across pulls: a mapping held open keeps its
+# block in limbo, so the producer's allocator could not reuse it and a
+# cached handle would never be hit again.
+#
+# A pull that fails after its token was sent cannot fall back to bytes:
+# it counts in dp_errors, and its delivery's uid is marked failed, so the
+# consuming task fails at dispatch (or at a host read) and aborts its
+# pool.
+_DP_XFER_MAGIC = b"PTCDPIP1"
+_DP_FAILED: set = set()
+_XFER_LOCK = threading.Lock()
+_XFER_STATE: Dict[str, object] = {"sessions": None, "can_pull": {}}
+
+
+def _xfer_enabled() -> bool:
+    return bool(_knobs.get("device.dp_transfer"))
+
+
+def _xfer_sessions(my_rank: int = 0):
+    """The process-wide per-peer session pool (comm/ici.py), created at
+    the first pull with this process's rank."""
+    with _XFER_LOCK:
+        pool = _XFER_STATE["sessions"]
+        if pool is None:
+            pool = _XFER_STATE["sessions"] = TransferSessionPool(
+                my_rank=my_rank)
+        return pool
+
+
+def _card_identity(device: torch.device) -> dict:
+    """This process's (host, card) identity for `device`."""
+    props = torch.cuda.get_device_properties(device)
+    return {"host": socket.gethostname(), "card": str(props.uuid)}
+
+
+def _xfer_can_pull(dev: "CudaDevice") -> bool:
+    """One-time probe per card: can this process take part in the plane?
+    It checks what one process can check: the card is a CUDA device and a
+    tensor on it shares through CUDA IPC under the allocator settings in
+    force (expandable_segments refuses it), with the probe's ref-counter
+    slot released again.  It does NOT cover opening a handle, which a
+    process cannot do on its own memory: a consumer whose open fails
+    after a token was sent aborts its pool.  device.dp_pull=0 refuses
+    pulls on this rank."""
+    if not _knobs.get("device.dp_pull") or dev.device.type != "cuda":
+        return False
+    idx = dev.device.index
+    with _XFER_LOCK:
+        cached = _XFER_STATE["can_pull"].get(idx)
+    if cached is not None:
+        return cached
+    ok = False
+    try:
+        from torch.multiprocessing.reductions import reduce_tensor
+        probe = torch.zeros(4, device=dev.device)
+        args = reduce_tensor(probe)[1]
+        torch.storage.TypedStorage._release_ipc_counter(
+            args[11], args[12], device=idx)
+        ok = True
+    except Exception as e:
+        sys.stderr.write(f"ptc [device]: transfer-plane probe failed "
+                         f"({e!r}); this rank will request host bytes\n")
+    with _XFER_LOCK:
+        _XFER_STATE["can_pull"][idx] = ok
+    return ok
+
+
+def _peer_identity(ctx, rank: int) -> Optional[dict]:
+    """The (host, card) identity rank `rank` shared through the comm
+    engine's blob frame, or None (none received, or the blob has none)."""
+    peers = ctx.__dict__.setdefault("_dp_peers", {})
+    ident = peers.get(rank)
+    if ident is not None:
+        return ident
+    cap = 1 << 16
+    while True:
+        buf = C.create_string_buffer(cap)
+        n = N.lib.ptc_comm_peer_blob(ctx._ptr, int(rank), buf, cap)
+        if n <= cap:
+            break
+        cap = int(n)
+    if n <= 0:
+        return None
+    try:
+        ident = json.loads(buf.raw[:n].decode()).get("dp")
+    except (ValueError, AttributeError):
+        return None
+    if isinstance(ident, dict):
+        peers[rank] = ident
+        return ident
+    return None
+
+
+def _xfer_peer_ok(ctx, dev: "CudaDevice", from_rank: int) -> bool:
+    """The producer's decision: may `from_rank` take a token for a
+    payload of `dev`?  (The pull bit and the knob are checked by the
+    caller; see the block comment above for what this uses.)"""
+    if dev._ident is None:
+        return False
+    return _peer_identity(ctx, from_rank) == dev._ident
+
+
+def _xfer_encode(fields: dict) -> bytes:
+    """A token: the magic, then the fields as JSON (bytes in hex)."""
+    out = {k: (v.hex() if isinstance(v, bytes) else v)
+           for k, v in fields.items()}
+    return _DP_XFER_MAGIC + json.dumps(out, sort_keys=True).encode()
+
+
+_XFER_BYTES = ("handle", "ref", "event")
+
+
+def _xfer_decode(tok: bytes) -> dict:
+    if tok[:8] != _DP_XFER_MAGIC:
+        raise ValueError("not a transfer-plane token")
+    f = json.loads(tok[8:].decode())
+    for k in _XFER_BYTES:
+        f[k] = bytes.fromhex(f[k])
+    return f
+
+
+def _xfer_token(ctx, dev: "CudaDevice", arr: torch.Tensor, raw: bool,
+                event) -> bytes:
+    """The token of one pull of `arr`: its CUDA IPC form, shared on the
+    d2h stream after the payload's event (torch records its interprocess
+    event there), with this rank and identity as the session's key."""
+    from torch.multiprocessing.reductions import reduce_tensor
+    with torch.cuda.stream(dev._d2h_stream):
+        dev._await(event)
+        a = reduce_tensor(arr)[1]
+    return _xfer_encode({
+        "rank": int(ctx.myrank),
+        "addr": f"{dev._ident['host']}/{dev._ident['card']}/{os.getpid()}",
+        "raw": bool(raw), "dtype": str(arr.dtype).replace("torch.", ""),
+        "shape": list(a[1]), "stride": list(a[2]), "offset": int(a[3]),
+        "handle": a[7], "size": int(a[8]), "soffset": int(a[9]),
+        "ref": a[11], "ref_offset": int(a[12]), "event": a[13],
+        "event_sync": bool(a[14])})
+
+
+def _ipc_open(f: dict, device: torch.device) -> torch.Tensor:
+    """The producer's tensor mapped into this process (torch's CUDA IPC
+    rebuild: it waits on the producer's event on the current stream)."""
+    from torch.multiprocessing.reductions import rebuild_cuda_tensor
+    return rebuild_cuda_tensor(
+        torch.Tensor, torch.Size(f["shape"]), tuple(f["stride"]),
+        f["offset"], torch.storage.TypedStorage,
+        getattr(torch, f["dtype"]), device.index, f["handle"], f["size"],
+        f["soffset"], False, f["ref"], f["ref_offset"], f["event"],
+        f["event_sync"])
+
+
+class _IpcConnect:
+    """The session pool's `server` for one pull.  CUDA keeps no per-peer
+    connection (see the lifetime note above): establishing a peer's
+    session is its first handle open, so `connect` opens this pull's
+    token, keeps the mapped tensor for the caller and returns the peer's
+    address as the session."""
+
+    def __init__(self, fields: dict, device: torch.device):
+        self.fields, self.device = fields, device
+        self.view: Optional[torch.Tensor] = None
+
+    def connect(self, addr: str) -> str:
+        self.view = _ipc_open(self.fields, self.device)
+        return addr
+
+
+def _dp_error(ctx, where: str, dev=None,
+              outcome: str = "the host path carries this dependency") \
+        -> None:
     """A data-plane callback failed: print the traceback, log it and count
     it in dp_errors (of `dev`, else of the context's first device).  The
     callback's return value then hands the dependency to the host path, as
-    the reference's does, so a job still finishes; dp_errors is what makes
-    the fallback visible."""
+    the reference's does, so a job still finishes (a failed transfer-plane
+    pull aborts its pool instead: `outcome`); dp_errors is what makes the
+    fallback visible."""
     traceback.print_exc()
-    sys.stderr.write(f"ptc [device]: data plane {where} failed; the host "
-                     "path carries this dependency\n")
+    sys.stderr.write(f"ptc [device]: data plane {where} failed; "
+                     f"{outcome}\n")
     if dev is None and ctx._devices:
         dev = ctx._devices[0]
     if dev is not None:
@@ -359,7 +572,9 @@ def _make_dp_callbacks(ctx):
     def dp_serve(user, tag, from_rank, xfer_ok, ptr_out, real_out) -> int:
         """Produce one pull's wire bytes: the payload itself (one d2h into
         pinned memory, waited on by its event only), or, for a colocated
-        consumer, a by-reference token."""
+        consumer, a by-reference token, or, for a consumer in another
+        process on this card that can pull (device.dp_transfer), a CUDA
+        IPC token."""
         dev = None
         try:
             with _DP_LOCK:
@@ -378,7 +593,19 @@ def _make_dp_callbacks(ctx):
                     _DP_REF_MAGIC + int(pull_id).to_bytes(8, "little")),
                     dtype=torch.uint8)
             else:
-                buf = dev._serve_d2h(arr, ev)
+                buf = None
+                if xfer_ok and _xfer_enabled() and \
+                        _xfer_peer_ok(ctx, dev, from_rank):
+                    try:
+                        buf = torch.frombuffer(bytearray(_xfer_token(
+                            ctx, dev, arr, rec[3], ev)), dtype=torch.uint8)
+                        dev._stats_add("dp_xfer_tokens")
+                    except Exception:
+                        # before the wire: this pull still gets bytes
+                        _dp_error(ctx, "transfer-plane token", dev,
+                                  "this pull is served bytes")
+                if buf is None:
+                    buf = dev._serve_d2h(arr, ev)
             with _DP_LOCK:
                 _DP_SERVING.setdefault(tag, []).append(buf)
             ptr_out[0] = buf.data_ptr()
@@ -394,7 +621,7 @@ def _make_dp_callbacks(ctx):
         ENQUEUEING the sliced d2h on the owning device's writeback lane
         (never block: this runs on the comm thread).  Declined for a
         colocated consumer, whose by-ref handoff moves the tile on the
-        card."""
+        card, and for one the transfer plane serves a token."""
         dev = None
         try:
             if not _knobs.get("device.stream_serve"):
@@ -406,6 +633,9 @@ def _make_dp_callbacks(ctx):
             if rec is None:
                 return 0
             arr, dev = rec[0], rec[4]
+            if xfer_ok and _xfer_enabled() and \
+                    _xfer_peer_ok(ctx, dev, from_rank):
+                return 0
             if int(arr.nbytes) != int(total):
                 return 0
             if dev._wb_thread is None or not dev._wb_thread.is_alive():
@@ -462,6 +692,25 @@ def _make_dp_callbacks(ctx):
                 dev._cache_put(uid, 0, darr, darr.nbytes, raw=was_raw,
                                event=dev_ev)
                 dev._stats_add("dp_d2d_bytes", darr.nbytes)
+                dev._pf_wake.set()
+                return uid
+            if size > 8 and bytes(src[:8]) == _DP_XFER_MAGIC:
+                # a transfer-plane token: pull card to card.  Past this
+                # point there is no byte path: a failure fails the
+                # consuming task (its uid is marked failed)
+                try:
+                    darr, dev_ev, was_raw = dev._xfer_pull(bytes(src))
+                except Exception:
+                    _dp_error(ctx, "transfer-plane pull", dev,
+                              "the consuming pool aborts")
+                    uid = _next_uid()
+                    with _DP_LOCK:
+                        _DP_FAILED.add(uid)
+                    return uid
+                uid = _next_uid()
+                dev._cache_put(uid, 0, darr, darr.nbytes, raw=was_raw,
+                               event=dev_ev)
+                dev._stats_add("dp_xfer_bytes", darr.nbytes)
                 dev._pf_wake.set()
                 return uid
             darr, dev_ev = dev._h2d_async(
@@ -565,6 +814,8 @@ class CudaDevice:
         else:
             raise ValueError(f"CudaDevice: unsupported device {device!r}")
         self.device = dev
+        # (host, card) identity: the transfer plane's peer check
+        self._ident = _card_identity(dev) if dev.type == "cuda" else None
         self.ctx = ctx
         self.qid = ctx.device_queue_new()
         # max tasks fused into one launch, and a byte cap on one launch's
@@ -664,6 +915,12 @@ class CudaDevice:
                       "dp_sends": 0, "dp_recv_bytes": 0, "dp_d2d_bytes": 0,
                       "dp_serve_bytes": 0, "dp_serve_d2h_ns": 0,
                       "dp_serve_copy_ns": 0, "dp_errors": 0,
+                      # the transfer plane (device.dp_transfer): tokens
+                      # served, bytes pulled card to card and the pulls'
+                      # host ns (the first pull of a peer opens its
+                      # session: comm/ici.TransferSessionPool)
+                      "dp_xfer_tokens": 0, "dp_xfer_bytes": 0,
+                      "dp_xfer_pull_ns": 0,
                       # progressive serve (writeback lane slicing)
                       "stream_serves": 0, "stream_slices": 0,
                       "stream_d2h_ns": 0, "stream_copy_ns": 0,
@@ -718,6 +975,9 @@ class CudaDevice:
             # tuple: a ctypes thunk dies with its last reference)
             ctx._dp_stream_cb = N.DP_STREAM_CB_T(strm)
             N.lib.ptc_set_dp_stream(ctx._ptr, ctx._dp_stream_cb)
+        # the transfer plane's pull bit follows device.dp_transfer as the
+        # newest device on the context reads it
+        self._xfer_advertise()
         ctx._devices.append(self)  # stopped before the native ctx dies
         _ALL_DEVICES.append(self)
         # writeback lane (reference: the CUDA stage-out stream,
@@ -1510,6 +1770,46 @@ class CudaDevice:
             self.stats["dp_serve_copy_ns"] += copy_ns
         return buf
 
+    def _xfer_advertise(self) -> None:
+        """The transfer plane's consumer side at device init: probe the
+        plane (_xfer_can_pull), share this rank's (host, card) identity
+        with every peer through the comm engine's blob frame, and set the
+        GET frames' pull bit.  With the plane off, without comm up, or
+        where the probe fails, the bit is clear and producers serve this
+        rank bytes."""
+        ctx = self.ctx
+        ok = _xfer_enabled() and ctx.comm_enabled and \
+            self._ident is not None and _xfer_can_pull(self)
+        if ok:
+            ctx._dp_ident = dict(self._ident)
+            blob = json.dumps({"rank": ctx.myrank, "dp": self._ident}) \
+                .encode()
+            ok = N.lib.ptc_comm_share_blob(ctx._ptr, blob, len(blob)) == 0
+        N.lib.ptc_set_dp_can_pull(ctx._ptr, 1 if ok else 0)
+
+    def _xfer_pull(self, tok: bytes):
+        """Resolve a transfer-plane token: map the producer's tensor
+        through its peer's session (the first pull of a peer establishes
+        it), clone it into this device's memory on the h2d stream (after
+        the producer's event), wait on the clone's event and drop the
+        mapping.  Returns (tensor, the clone's event, raw)."""
+        t0 = time.perf_counter_ns()
+        f = _xfer_decode(tok)
+        if self._stream is None:
+            raise RuntimeError("a transfer-plane token needs a card")
+        with torch.cuda.stream(self._h2d_stream):
+            conn = _IpcConnect(f, self.device)
+            _xfer_sessions(self.ctx.myrank).get(conn, f["addr"], f["rank"])
+            view = conn.view if conn.view is not None else \
+                _ipc_open(f, self.device)
+            out = view.clone()
+            done = self._record(self._h2d_stream)
+        done.synchronize()
+        del view, conn
+        out.record_stream(self._stream)
+        self._stats_add("dp_xfer_pull_ns", time.perf_counter_ns() - t0)
+        return out, done, bool(f["raw"])
+
     def _clone_in(self, arr: torch.Tensor, event):
         """A colocated payload onto this device: a clone on the h2d stream
         after the producer's event (comm/ici.py device_transfer), for the
@@ -1770,7 +2070,9 @@ class CudaDevice:
 
     def _flow_uid_ver(self, view, body, flow):
         cptr = N.lib.ptc_task_copy(view._ptr, body.flow_index(flow))
-        return cptr, self._copy_uid(cptr), N.lib.ptc_copy_version(cptr)
+        uid = self._copy_uid(cptr)
+        _check_delivered(uid)
+        return cptr, uid, N.lib.ptc_copy_version(cptr)
 
     def _flow_shape(self, view, body: _DeviceBody, flow) -> tuple:
         """A flow's tile shape: the declared one, else (a DTD argument

@@ -565,12 +565,17 @@ def finalize_heads(at: np.ndarray, nh: int) -> np.ndarray:
 def fold_heads(qb: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
                ab: torch.Tensor, scale: float, nh: int) -> torch.Tensor:
     """The device chore of PATTF/VATF: `attend_heads` on LANE STACKS,
-    every head of every lane at once (one product for the scores, one
-    for p @ V).  qb [n, 1, dl], kb/vb [n, P, dl] (any lane stride, 0
-    included), ab [n, 1, dl + 2*nh] -> the folded accumulators
-    [n, 1, dl + 2*nh].  Per head it computes what the reference's
-    `_fold_kernel_heads` computes, in f32: on the card the products must
-    not round to TF32, so a context that turned TF32 on is refused."""
+    every head of every lane at once.  qb [n, 1, dl], kb/vb [n, P, dl]
+    (any lane stride, 0 included), ab [n, 1, dl + 2*nh] -> the folded
+    accumulators [n, 1, dl + 2*nh].  Per head it computes what the
+    reference's `_fold_kernel_heads` computes, in f32: on the card the
+    products must not round to TF32, so a context that turned TF32 on is
+    refused.  The scores and p @ V are elementwise products reduced by
+    sums, not batched matrix products: cuBLAS picks its algorithm by the
+    batch count, so a lane's bits would depend on how many lanes its
+    wave held (on the H100 widths 1-17, 32-256 and 1024 gave three sets
+    of bits), and a fleet's replicas would then disagree with a single
+    replica serving the same requests."""
     if kb.is_cuda and (torch.backends.cuda.matmul.allow_tf32 or
                        torch.get_float32_matmul_precision() != "highest"):
         raise RuntimeError(
@@ -586,12 +591,13 @@ def fold_heads(qb: torch.Tensor, kb: torch.Tensor, vb: torch.Tensor,
     acc = a[:, :dl].reshape(n, nh, dh)
     m = a[:, dl:dl + nh]
     l = a[:, dl + nh:]
-    s = torch.einsum("nphd,nhd->nhp", K, q) * scale
+    s = (K * q.unsqueeze(1)).sum(-1).transpose(1, 2) * scale
     m_new = torch.maximum(m, s.amax(-1))
     p = torch.exp(s - m_new.unsqueeze(-1))
     corr = torch.exp(m - m_new)
     l_new = l * corr + p.sum(-1)
-    acc_new = acc * corr.unsqueeze(-1) + torch.einsum("nhp,nphd->nhd", p, V)
+    pv = (p.transpose(1, 2).unsqueeze(-1) * V).sum(1)
+    acc_new = acc * corr.unsqueeze(-1) + pv
     return torch.cat([acc_new.reshape(n, dl), m_new, l_new],
                      dim=1).unsqueeze(1)
 

@@ -18,9 +18,11 @@ is the recorder:
              runtime.journal_checkpoint_s the journal records this
              rank's recovery-relevant INVENTORY (live scope ids, QoS
              pool census, inflight EXEC bodies, registered providers
-             such as PagePool.frozen_keys) in its journal (the
-             reference also replicates it to every peer and journals
-             peer loss, not ported yet).  The journal also
+             such as PagePool.frozen_keys, the comm clock offsets) and
+             replicates it to every live peer as a control frame; a
+             peer's connection dying outside shutdown is journalled as
+             `peer_loss` with that peer's last inventory.  The journal
+             also
              arms the native fatal-signal crash dump
              (<dir>/crash.<rank>.ptt; runtime.journal_crash_dump).
 
@@ -43,13 +45,11 @@ one JSON object per line with at least
 clock so journal records align exactly with .ptt trace spans and the
 checkpointed clock offsets make cross-rank merges causally consistent.
 
-Port of parsec_tpu/profiling/blackbox.py, rank-local: the checkpoint
-is journalled but not replicated to the peers, no peer loss is polled
-and the inventory carries no clock offsets; the three are not ported
-yet (the engine's blob and peer-loss calls are bound in _native.py).
+Port of parsec_tpu/profiling/blackbox.py.
 """
 from __future__ import annotations
 
+import ctypes as C
 import json
 import os
 import sys
@@ -79,8 +79,9 @@ class Journal:
     `record()` is the hot-path API: it formats the line and appends it
     to an in-memory pending list (bounded; overflow is counted, never
     blocks).  The cadence thread drains pending lines to the sink,
-    fsyncs on `fsync_s`, checkpoints inventory on `checkpoint_s` and
-    refreshes the preformatted crash-dump header."""
+    fsyncs on `fsync_s`, checkpoints inventory on `checkpoint_s`,
+    refreshes the preformatted crash-dump header, and polls the comm
+    peer-loss flags."""
 
     _PENDING_CAP = 16384  # lines buffered before drops (cadence wedged)
 
@@ -118,6 +119,7 @@ class Journal:
         self.path: Optional[str] = None
         self._providers: Dict[str, Callable[[], object]] = {}
         self._armed_rank: Optional[int] = None
+        self._lost_seen: set = set()
         self._stop = threading.Event()
         self._thread: Optional[threading.Thread] = None
         ctx._journal = self
@@ -183,6 +185,10 @@ class Journal:
             inv["inflight"] = [list(q) for q in ctx.metrics_inflight()]
         except Exception:
             inv["inflight"] = []
+        try:
+            inv["clock"] = ctx.comm_clock()
+        except Exception:
+            inv["clock"] = {}
         with self._lock:
             providers = dict(self._providers)
         for name, fn in providers.items():
@@ -193,13 +199,73 @@ class Journal:
         return inv
 
     def checkpoint(self) -> dict:
-        """Record the inventory (the reference also replicates it to
-        every live peer, which is not ported yet)."""
+        """Record the inventory and replicate it to every live peer as
+        a blob control frame (control frames never dirty a fence)."""
         inv = self.inventory()
         self.record("checkpoint", inventory=inv)
         with self._lock:
             self._checkpoints += 1
+        if getattr(self.ctx, "comm_enabled", False):
+            try:
+                rec = {"rank": self.ctx.myrank, "t_ns": _now_ns(),
+                       "inventory": inv}
+                # the transfer plane's (host, card) identity rides the
+                # same latest-blob slot (device/cuda.py): keep it there
+                if getattr(self.ctx, "_dp_ident", None):
+                    rec["dp"] = self.ctx._dp_ident
+                blob = json.dumps(rec, default=str).encode()
+                N.lib.ptc_comm_share_blob(self.ctx._ptr, blob, len(blob))
+            except Exception:
+                pass
         return inv
+
+    # -------------------------------------------------------- peer loss
+    def peer_blob(self, rank: int, cap: int = 1 << 20) -> Optional[dict]:
+        """The latest inventory blob held for `rank` (parsed JSON),
+        None when no blob has been received / comm is off."""
+        try:
+            buf = C.create_string_buffer(cap)
+            n = N.lib.ptc_comm_peer_blob(self.ctx._ptr, int(rank), buf, cap)
+            if n <= 0:
+                return None
+            if n > cap:
+                buf = C.create_string_buffer(int(n))
+                n = N.lib.ptc_comm_peer_blob(self.ctx._ptr, int(rank),
+                                             buf, int(n))
+                if n <= 0:
+                    return None
+            return json.loads(buf.raw[:int(n)].decode(errors="replace"))
+        except Exception:
+            return None
+
+    def lost_peers(self) -> set:
+        """Ranks whose connection died outside shutdown (so far)."""
+        self._poll_peers()
+        return set(self._lost_seen)
+
+    def _poll_peers(self):
+        if not getattr(self.ctx, "comm_enabled", False):
+            return
+        nodes = int(getattr(self.ctx, "nodes", 1) or 1)
+        try:
+            buf = (C.c_int64 * nodes)()
+            n = N.lib.ptc_comm_peers_lost(self.ctx._ptr, buf, nodes)
+        except Exception:
+            return
+        for r in range(int(n)):
+            if not buf[r] or r in self._lost_seen:
+                continue
+            self._lost_seen.add(r)
+            rec = {"peer": r, "inventory": self.peer_blob(r)}
+            try:
+                rec["rdv"] = self.ctx.comm_rdv_stats()
+            except Exception:
+                pass
+            crash = os.path.join(self.dir,
+                                 f"crash.{self.ctx.myrank}.ptt")
+            if os.path.exists(crash):
+                rec["crash_dump"] = crash
+            self.record("peer_loss", **rec)
 
     # ------------------------------------------------------- crash path
     def _maybe_arm_crash(self):
@@ -226,6 +292,10 @@ class Journal:
             # rank may have been assigned after construction: re-arm the
             # crash path so the artifact lands under the right name
             self._maybe_arm_crash()
+            try:
+                self._poll_peers()
+            except Exception:
+                pass
             if self.checkpoint_s > 0 and \
                     now - last_ckpt >= self.checkpoint_s:
                 last_ckpt = now
@@ -324,8 +394,7 @@ class Journal:
                     "fsyncs": self._fsyncs, "rotations": self._rotations,
                     "checkpoints": self._checkpoints,
                     "crash_armed": self._armed_rank is not None,
-                    # peer loss is not polled yet (rank-local)
-                    "lost_peers": []}
+                    "lost_peers": sorted(self._lost_seen)}
 
 
 def enable_from_param(ctx, value) -> Optional[Journal]:

@@ -25,11 +25,12 @@ construction), so the env-installed monitor picks up set_rank() done by
 comm bring-up.  On shared hosts point `path` somewhere private — the
 default lives in the temporary directory for tail-ability.
 
-Port of parsec_tpu/profiling/live.py.  A sample has no comm, stream,
-topo or fleet-router rows yet (they are ported with the router and the
-rest of the multi-rank serving stack); `dev{i}_cache_bytes` is the device's live cache occupancy; the
-default sink lies in tempfile.gettempdir() (TMPDIR), where the
-reference's is /tmp.
+Port of parsec_tpu/profiling/live.py.  With the comm engine up, a
+sample carries the rank's `comm`, `stream` and `topo` rows, and a
+context a fleet Router fronts carries the `fleet` row, under the
+reference's keys.  `dev{i}_cache_bytes` is the device's live cache
+occupancy; the default sink lies in tempfile.gettempdir() (TMPDIR),
+where the reference's is /tmp.
 """
 from __future__ import annotations
 
@@ -159,6 +160,29 @@ class LiveMonitor:
                               "prefetch_staged", "h2d_stall_ns",
                               "prefetch_h2d_ns", "overlap_ratio",
                               "spills", "reserve_fails")}
+        if ctx.comm_enabled:
+            rec["comm"] = ctx.comm_stats()
+            # streaming-pipeline counters: session count + the d2h/wire
+            # overlap fraction, live
+            ss = ctx.comm_stream_stats()
+            rec["stream"] = {k: ss[k] for k in
+                             ("sessions", "parked_gets",
+                              "overlap_fraction")}
+            # per-link-class wire split: compact rows — the ici/dcn byte
+            # balance is the live signal that hierarchical collectives
+            # and rank remaps keep bulk traffic off the inter-island
+            # links
+            try:
+                ts = ctx.comm_topo_stats()
+                rec["topo"] = {
+                    "n_islands": ts["n_islands"],
+                    "classes": {c: [row["bytes_sent"],
+                                    row["msgs_sent"]]
+                                for c, row in ts["classes"].items()
+                                if row["msgs_sent"]
+                                or row["bytes_sent"]}}
+            except Exception:
+                pass  # topo rows are best-effort in a live sample
         # always-on latency quantiles: per-class exec p50/p99 +
         # the per-kind p99s — the continuous-serving signal the offline
         # trace can't give.  Compact form: [count, p50_ns, p99_ns].
@@ -193,6 +217,17 @@ class LiveMonitor:
                            "queued": row["queue_depth"],
                            "rejected": row["rejected"]}
                     for name, row in sv["tenants"].items()}
+            except Exception:
+                pass
+        # fleet rows: the Router registers on every replica context it
+        # fronts; one stats() snapshot per sample feeds the per-replica
+        # table (occupancy, pfx_hit, migrated bytes)
+        routers = getattr(ctx, "_routers", None)
+        if routers:
+            try:
+                rt = routers[-1].stats()
+                rec["fleet"] = {"router": rt["router"],
+                                "replicas": rt["replicas"]}
             except Exception:
                 pass
         # ptc-pilot: the self-driving controller's decision snapshot

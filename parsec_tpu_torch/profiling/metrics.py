@@ -28,7 +28,7 @@ module only snapshots and renders them — safe to call from any thread at
 any frequency.
 
 Port of parsec_tpu/profiling/metrics.py.  The watchdog's stalled-pull
-check (the comm engine's rendezvous counters) is not ported yet; its
+check reads the comm engine's rendezvous, chunk and byte counters; its
 slow-rank check reads the fence-time RTTs.
 """
 from __future__ import annotations
@@ -498,6 +498,7 @@ class Watchdog:
         self._reported = set()  # dedup key per incident
         self._prev_exec: Optional[list] = None
         self._starve_count: Dict[int, int] = {}
+        self._prev_pull = None
         self._stop = threading.Event()
         self._thread = threading.Thread(target=self._loop, daemon=True,
                                         name="ptc-watchdog")
@@ -665,6 +666,29 @@ class Watchdog:
             else:
                 self._starve_count[w] = 0
 
+    def _check_stalled_pull(self):
+        """A pull parked across two ticks with no chunk and no byte
+        received in between: the rendezvous is not advancing."""
+        if not self.ctx.comm_enabled:
+            return
+        rdv = self.ctx.comm_rdv_stats()
+        tuning = self.ctx.comm_tuning()
+        cur = (rdv["pending_pulls"], tuning["chunks_recv"],
+               self.ctx.comm_stats()["bytes_recv"])
+        prev = self._prev_pull
+        self._prev_pull = cur
+        if prev is None:
+            return
+        if cur[0] > 0 and prev[0] > 0 and cur[1] == prev[1] and \
+                cur[2] == prev[2]:
+            self._emit({
+                "type": "stalled_pull",
+                "key": cur[1],
+                "pending_pulls": int(cur[0]),
+                "stalled_for_s": round(self.interval, 3),
+                "live_requests": self._live_requests(),
+            })
+
     def _check_slow_ranks(self):
         ctx = self.ctx
         if not ctx.comm_enabled or ctx.myrank != 0 or ctx.nodes < 3:
@@ -713,6 +737,7 @@ class Watchdog:
         self.ticks += 1
         self._check_stuck(_native_now())
         self._check_starved()
+        self._check_stalled_pull()
         self._check_slow_ranks()
         self._check_slo_burn()
 

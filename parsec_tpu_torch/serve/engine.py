@@ -568,6 +568,15 @@ class InferenceEngine:
             req.done_t = time.monotonic()
         return req
 
+    def prefill_warm(self, prompt: Sequence[int],
+                     tenant: str = "default") -> RequestHandle:
+        """Disaggregated-prefill entry point: prefill the prompt, FREEZE
+        its full pages into the prefix cache, emit nothing.  A
+        prefill-role replica runs these so a decode-role replica can
+        import the frozen pages (page migration) and serve the real
+        request fully warm."""
+        return self.submit(prompt, max_new=0, tenant=tenant)
+
     def _build_prefill(self, req: RequestHandle, priority, weight):
         """Server-side builder: admit the page table ATOMICALLY —
         `acquire_prefix` maps the longest warm prefix onto existing
@@ -1124,16 +1133,18 @@ class InferenceEngine:
         for req in self.requests:
             if req.state in ("submitted", "active") and \
                     req.ticket is not None and \
-                    req.ticket.state not in ("rejected", "failed"):
+                    req.ticket.state not in ("rejected", "failed",
+                                             "cancelled"):
                 return True
         return False
 
     def settle(self):
         """Give requests that never passed admission (or whose prefill
-        failed) their ticket's terminal state."""
+        failed, or whose queued ticket was cancelled) their ticket's
+        terminal state."""
         for req in self.requests:
             if req.state == "submitted" and req.ticket is not None and \
-                    req.ticket.state in ("rejected", "failed"):
+                    req.ticket.state in ("rejected", "failed", "cancelled"):
                 req.state = req.ticket.state
                 req.done_t = req.done_t or time.monotonic()
 

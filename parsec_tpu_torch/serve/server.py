@@ -22,8 +22,8 @@ and /stats.json.  With `conformance` (the default) every admitted pool
 is planned (Taskpool.plan()) and its prediction folds into the scope
 registry's plan-vs-measured record at retirement.
 
-Not ported yet: `cancel`, which only the fleet router calls (it comes
-with the router).
+`cancel` withdraws a still-queued ticket: the fleet router
+(serve/router.py) re-places work off an unhealthy replica with it.
 """
 from __future__ import annotations
 
@@ -81,7 +81,10 @@ class TenantConfig:
 
 class Ticket:
     """One submission's lifecycle handle.  States:
-    queued -> running -> done | failed, or rejected (terminal)."""
+    queued -> running -> done | failed, or rejected / cancelled
+    (terminal).  `cancelled` only ever happens to a still-QUEUED ticket
+    (Server.cancel — the fleet router re-placing work off an unhealthy
+    replica); a running pool is never torn out from under its waves."""
 
     __slots__ = ("tenant", "est_bytes", "meta", "state", "submitted_t",
                  "admitted_t", "done_t", "error", "_event", "_make_pool",
@@ -114,7 +117,7 @@ class Ticket:
 
     @property
     def terminal(self) -> bool:
-        return self.state in ("done", "failed", "rejected")
+        return self.state in ("done", "failed", "rejected", "cancelled")
 
     def wait(self, timeout: Optional[float] = None) -> str:
         """Block until terminal; returns the final state."""
@@ -145,7 +148,7 @@ class _TenantState:
         self.counters = {
             "submitted": 0, "admitted": 0, "rejected": 0,
             "completed": 0, "failed": 0, "resource_waits": 0,
-            "queue_wait_ns": 0, "discounted_bytes": 0,
+            "queue_wait_ns": 0, "discounted_bytes": 0, "cancelled": 0,
             "pressure_inflated_bytes": 0,
         }
 
@@ -283,6 +286,36 @@ class Server:
             return
         jr.record("serve", op=op, server=self.name,
                   tenant=ticket.tenant, scope_id=ticket.scope_id)
+
+    def cancel(self, ticket: Ticket) -> bool:
+        """Withdraw a still-QUEUED ticket (fleet re-placement off an
+        unhealthy replica).  True = removed from its tenant's queue and
+        marked terminal `cancelled` (counted, never silently dropped);
+        False = already running or terminal — a decoding sequence is
+        NEVER re-placed, per the fleet contract."""
+        t = self._tenants.get(ticket.tenant)
+        if t is None:
+            return False
+        with self._lock:
+            if ticket.state != "queued":
+                return False
+            try:
+                t.queue.remove(ticket)
+            except ValueError:
+                return False  # the pump loop popped it first
+            t.queued_bytes -= ticket.est_bytes or 0
+            t.counters["cancelled"] += 1
+            ticket.state = "cancelled"
+            ticket.done_t = time.monotonic()
+            ticket._event.set()
+        if ticket._owns_scope and ticket.scope_id is not None:
+            # scope-side terminal: counts as a rejection (the router's
+            # re-route counter pairs with it, so nothing is lost)
+            self.scope.record_rejected(ticket.scope_id)
+        self._journal_rec("cancel", ticket)
+        if ticket._pool is not None:
+            self._destroy_pool(ticket)  # planning pool never admitted
+        return True
 
     def submit(self, tenant: str, make_pool: Callable, est_bytes: int = 0,
                meta=None, wait: bool = False,
@@ -591,7 +624,7 @@ class Server:
             totals = {"submitted": 0, "admitted": 0, "rejected": 0,
                       "completed": 0, "failed": 0, "resource_waits": 0,
                       "queue_depth": 0, "queued_bytes": 0,
-                      "active_pools": 0}
+                      "active_pools": 0, "cancelled": 0}
             for name, t in self._tenants.items():
                 row = dict(t.counters)
                 row["queue_depth"] = len(t.queue)

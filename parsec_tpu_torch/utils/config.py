@@ -457,11 +457,32 @@ register("device.stream_serve", True, bool,
          "session's watermark, so the wire overlaps the d2h instead of "
          "waiting for the whole-tile snapshot.  0 declines every offer "
          "(the synchronous dp_serve path serves, as in comm.stream=0)")
+register("device.dp_transfer", False, bool,
+         "cross-process device data plane over CUDA IPC: a PK_DEVICE "
+         "payload pulled by a NON-colocated rank in another process on "
+         "this host and card is served as a token (the payload's CUDA "
+         "IPC memory and event handles) instead of d2h+TCP+h2d, and the "
+         "consumer copies it card to card.  Each rank probes at device "
+         "init what one process can check (CUDA is up and a tensor "
+         "shares under the allocator settings in force; "
+         "expandable_segments refuses it) and advertises the verdict on "
+         "GET frames, together with its host and card identity, so a "
+         "producer serves tokens only to capable pullers on its own "
+         "card and real bytes to everyone else.  The probe does NOT "
+         "open a handle (a process cannot open its own): a pull that "
+         "fails after its token was sent counts in dp_errors and ABORTS "
+         "the consuming pool (the real bytes were never sent).  Create "
+         "the device after comm_init: the identity rides the comm "
+         "engine")
+register("device.dp_pull", True, bool,
+         "this rank's willingness to PULL through the transfer plane; "
+         "set 0 to force producers to serve this rank host bytes even "
+         "when the probe would succeed (a per-rank escape hatch)")
 
 # runtime.mag_batch, one of the tuner's knob axes, is read by the
-# native core at context creation.  The tuner prices its comm axes
-# (comm.*, coll.*) at the values registered above and does not change
-# them (analysis/tune.py's FIXED_KNOBS).
+# native core at context creation.  The tuner acts on the comm.* and
+# coll.* knobs registered above too; the rails are constants
+# (analysis/tune.py's FIXED_KNOBS, comm/topology.COMM_KNOBS).
 register("runtime.mag_batch", 64, int,
          "task/arena freelist magazine batch: items moved between a "
          "worker's private magazine and the shared pool per lock "

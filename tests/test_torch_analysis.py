@@ -824,21 +824,26 @@ def test_simulator_wave_fuse_pricing_matches_reference():
 
 
 def test_knob_axes_search_only_acted_knobs():
-    """propose() on the port moves only the knobs it acts on, and ranks
-    them by the same simulated makespan the reference computes for the
-    same vectors."""
+    """propose() on the port moves only the knobs it acts on, opens the
+    axes the reference opens on the same one-rank device DAG (its wire
+    and collective axes stay closed there), and ranks them by the same
+    simulated makespan the reference computes for the same vectors."""
     with tpt.Context(nb_workers=1) as ctx:
         plan = _fan_plan(PORT)
     sim = ttune.ScheduleSimulator(plan, workers=2)
     axes = sim.knob_axes()
     opened = {k for k, v in axes.items() if len(v) > 1}
-    assert opened == set(ttune.ACTED_KNOBS)
+    assert opened <= set(ttune.ACTED_KNOBS)
+    jsim = jtune.ScheduleSimulator(_fan_plan(REF), workers=2)
+    jaxes = jsim.knob_axes()
+    assert opened == {k for k, v in jaxes.items() if len(v) > 1} == {
+        "runtime.mag_batch", "device.staging_slots",
+        "device.cache_bytes", "device.wave_fuse"}
     ranked = sim.propose(topk=3)
     dflt = ttune.default_knobs()
     for r in ranked:
         moved = {k for k in ttune.TUNE_KNOBS if r["knobs"][k] != dflt[k]}
         assert moved <= set(ttune.ACTED_KNOBS)
-    jsim = jtune.ScheduleSimulator(_fan_plan(REF), workers=2)
     for r in ranked:
         assert jsim.simulate(r["knobs"])["makespan_ns"] == \
             r["predicted_ns"]
@@ -868,11 +873,15 @@ def test_apply_knobs_refuses_knobs_the_port_does_not_act_on():
     # comm.rails is no parameter of the port (the engine reads its env)
     with pytest.raises(KeyError):
         tutils.params.get("comm.rails")
+    assert set(ttune.FIXED_KNOBS) == {"comm.rails", "comm.rails.ici",
+                                      "comm.rails.dcn"}
+    # the collective knobs are acted: applied, then restored
     topo = ttune.default_knobs()["coll.topo"]
-    with pytest.raises(ValueError, match="does not act"):
-        with ttune.apply_knobs({"coll.topo": "star" if topo != "star"
-                                else "ring"}):
-            pass
+    other = "star" if topo != "star" else "ring"
+    with ttune.apply_knobs({"coll.topo": other}) as applied:
+        assert applied == {"coll.topo": other}
+        assert os.environ["PTC_MCA_coll_topo"] == other
+    assert ttune.default_knobs()["coll.topo"] == topo
     # an unchanged value of such a knob passes (a full vector)
     with ttune.apply_knobs(ttune.default_knobs()) as applied:
         assert set(applied) == set(ttune.TUNE_KNOBS)
@@ -905,9 +914,11 @@ def test_default_knobs_read_the_registry(monkeypatch):
     assert ttopo.resolve_class_knob("comm.eager_limit", "dcn") == 8192
     with ttune.apply_knobs({"comm.eager_limit": 0}) as applied:
         assert applied == {"comm.eager_limit": 0}
-    with pytest.raises(ValueError, match="does not act"):
-        with ttune.apply_knobs({"comm.eager_limit": 64 * 1024}):
-            pass
+    # an acted knob: a change applies for the block, then restores
+    with ttune.apply_knobs({"comm.eager_limit": 64 * 1024}) as applied:
+        assert applied == {"comm.eager_limit": 64 * 1024}
+        assert ttune.default_knobs()["comm.eager_limit"] == 64 * 1024
+    assert ttune.default_knobs()["comm.eager_limit"] == 0
 
 
 def test_apply_knobs_acts_on_wave_fuse():

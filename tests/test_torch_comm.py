@@ -116,10 +116,16 @@ def test_comm_set_colocated_and_params():
                  "coll.topo", "coll.topo.ici", "coll.topo.dcn",
                  "coll.slice", "coll.max_slices", "device.stream_serve"):
         assert tparams.get(name) == jparams.get(name), name
-    # the tuner does not act on the comm axes yet: apply_knobs refuses
+    # the tuner acts on the comm axes (applied for the block, then
+    # restored) but the rails, a constant here: apply_knobs refuses them
     from parsec_tpu_torch.analysis.tune import apply_knobs
+    before = tparams.get("comm.chunk_size")
+    with apply_knobs({"comm.chunk_size": 4096}) as applied:
+        assert applied == {"comm.chunk_size": 4096}
+        assert tparams.get("comm.chunk_size") == 4096
+    assert tparams.get("comm.chunk_size") == before
     with pytest.raises(ValueError):
-        with apply_knobs({"comm.chunk_size": 4096}):
+        with apply_knobs({"comm.rails": 4}):
             pass
 
 

@@ -473,6 +473,548 @@ def device_dataplane(rank: int, nodes: int, port: int, elems: int = 1024,
         return {"A1": arr[1].copy()} if rank == 1 else {}
 
 
+def _xfer_pool(ctx, pt, dev, elems: int, cons_body=None):
+    """Prod(0) on rank 0 writes X = 3 * A(0) on its device; Cons(0) on
+    rank 1 reads X through the data plane and writes A(1) = X + 1 (on its
+    device, or with `cons_body` on the host).  Returns (pool, A)."""
+    nodes = ctx.nodes
+    esize = elems * 4
+    arr = np.zeros((nodes, elems), dtype=np.float32)
+    if ctx.myrank == 0:
+        arr[0, :] = np.arange(elems, dtype=np.float32)
+    ctx.register_linear_collection("A", arr, elem_size=esize, nodes=nodes,
+                                   myrank=ctx.myrank)
+    ctx.register_arena("t", esize)
+    tp = pt.Taskpool(ctx)
+    k = pt.L("k")
+    prod = tp.task_class("Prod")
+    prod.param("k", 0, 0)
+    prod.affinity("A", 0)
+    cons = tp.task_class("Cons")
+    cons.param("k", 0, 0)
+    cons.affinity("A", 1)
+    prod.flow("X", "RW", pt.In(pt.Mem("A", 0)),
+              pt.Out(pt.Ref("Cons", k, flow="X")))
+    cons.flow("X", "R", pt.In(pt.Ref("Prod", k, flow="X")), arena="t")
+    cons.flow("Y", "W", pt.Out(pt.Mem("A", 1)), arena="t")
+    dev.attach(prod, tp, kernel=lambda x: x * 3.0, reads=["X"],
+               writes=["X"], shapes={"X": (elems,)}, dtype=np.float32)
+    if cons_body is None:
+        dev.attach(cons, tp, kernel=lambda x: x + 1.0, reads=["X"],
+                   writes=["Y"], shapes={"X": (elems,), "Y": (elems,)},
+                   dtype=np.float32)
+    else:
+        cons.body(cons_body)
+    return tp, arr
+
+
+def xfer_tile(rank: int, nodes: int, port: int, elems: int = 1 << 18,
+              device: str = "cuda"):
+    """The transfer plane (device.dp_transfer) between two processes on
+    one card: rank 0's device-produced tile reaches rank 1's device chore
+    as a CUDA IPC token, pulled card to card (dp_xfer_bytes), with no
+    byte on the wire's host path (no producer d2h, no dp_recv_bytes, no
+    consumer h2d).  Returns rank 1's A(1), its pull counters and the
+    session pool's stats."""
+    os.environ["PTC_MCA_comm_eager_limit"] = "1024"
+    os.environ["PTC_MCA_device_dp_transfer"] = "1"
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.device import cuda as dc
+    pt, ctx = _mk_ctx(rank, nodes, port, nb_workers=1)
+    with ctx:
+        dev = CudaDevice(ctx, device=device)
+        tp, arr = _xfer_pool(ctx, pt, dev, elems)
+        tp.run()
+        tp.wait()
+        ctx.comm_fence()
+        st = dict(dev.stats)
+        _stop(dev)
+        ctx.comm_fini()
+    esize = elems * 4
+    if rank == 0:
+        assert st["dp_xfer_tokens"] == 1 and st["d2h_bytes"] == 0, st
+        return {}
+    assert st["dp_xfer_bytes"] == esize and st["dp_recv_bytes"] == 0, st
+    assert st["h2d_bytes"] == 0, st
+    pool = dc._xfer_sessions().stats()
+    return {"A1": arr[1].copy(), "dev": {k: st[k] for k in (
+        "dp_xfer_bytes", "dp_recv_bytes", "dp_xfer_pull_ns")},
+        "pool": pool}
+
+
+def xfer_failed_pull(rank: int, nodes: int, port: int, elems: int = 1 << 16,
+                     host_consumer: bool = False):
+    """A transfer-plane pull that fails after its token was sent: the
+    consumer's pull bit is forced on, the producer's decision is forced to
+    serve a token naming no memory, so the consumer's pull fails.  That
+    counts in the consumer's dp_errors and fails the consuming task — its
+    pool aborts (no byte path is left: the bytes were never sent) and
+    A(1) is never written.  The producer's pool completes."""
+    os.environ["PTC_MCA_comm_eager_limit"] = "1024"
+    os.environ["PTC_MCA_device_dp_transfer"] = "1"
+    from parsec_tpu_torch import _native as N
+    from parsec_tpu_torch.device import cuda as dc
+    if rank == 0:
+        dc._xfer_peer_ok = lambda ctx, dev, from_rank: True
+        dc._xfer_token = lambda ctx, dev, arr, raw, ev: dc._xfer_encode({
+            "rank": 0, "addr": "nowhere", "raw": bool(raw),
+            "dtype": "float32", "shape": [int(arr.numel())], "stride": [1],
+            "offset": 0, "handle": b"\0" * 64, "size": int(arr.nbytes),
+            "soffset": 0, "ref": b"none", "ref_offset": 0,
+            "event": b"\0" * 64, "event_sync": True})
+    pt, ctx = _mk_ctx(rank, nodes, port, nb_workers=1)
+    with ctx:
+        dev = _device(ctx)
+        if rank == 1:
+            N.lib.ptc_set_dp_can_pull(ctx._ptr, 1)
+
+        def host_cons(view):
+            x = view.data("X", np.float32, (elems,))
+            view.data("Y", np.float32, (elems,))[...] = x + 1.0
+
+        tp, arr = _xfer_pool(ctx, pt, dev, elems,
+                             cons_body=host_cons if host_consumer else None)
+        tp.run()
+        aborted = False
+        try:
+            tp.wait()
+        except RuntimeError:
+            aborted = True
+        ctx.comm_fence()
+        st = dict(dev.stats)
+        dev.stop()
+        ctx.comm_fini()
+    if rank == 0:
+        assert not aborted and st["dp_xfer_tokens"] == 1, (aborted, st)
+        return {}
+    assert aborted, "the consuming pool completed after a failed pull"
+    assert st["dp_errors"] == 1 and st["dp_xfer_bytes"] == 0, st
+    assert not arr[1].any(), "A(1) was written from no bytes"
+    return {"dp_errors": st["dp_errors"]}
+
+
+def xfer_decision(rank: int, nodes: int, port: int, same_card: bool = True,
+                  advertise: bool = True):
+    """The producer's token decision over a live engine: rank 1 shares a
+    (host, card) identity through the comm engine's blob frame at device
+    init (the CPU device has none, so one is given and the probe forced);
+    rank 0, whose device claims the same card or another, then decides
+    whether rank 1 may take a token.  Returns rank 0's decision and the
+    identity it read."""
+    os.environ["PTC_MCA_device_dp_transfer"] = "1"
+    from parsec_tpu_torch.device import cuda as dc
+    dc._xfer_can_pull = lambda dev: True
+    pt, ctx = _mk_ctx(rank, nodes, port, nb_workers=1)
+    with ctx:
+        dev = _device(ctx)
+        card = "card-a" if rank == 1 or same_card else "card-b"
+        dev._ident = {"host": "this-host", "card": card}
+        if rank == 1 and advertise:
+            dev._xfer_advertise()
+        ctx.comm_fence()
+        out = {}
+        if rank == 0:
+            out = {"decision": dc._xfer_peer_ok(ctx, dev, 1),
+                   "identity": dc._peer_identity(ctx, 1)}
+        ctx.comm_fence()
+        dev.stop()
+        ctx.comm_fini()
+    return out
+
+
+def _author_page(pool, key, seed, page, d):
+    """Freeze one page whose bytes are a pure function of `seed` (the
+    content-hash contract: same key, same bytes)."""
+    p = pool.alloc()
+    assert p is not None
+    rng = np.random.RandomState(seed)
+    pool.k_tile(p)[...] = rng.randn(page, d).astype(np.float32)
+    pool.v_tile(p)[...] = rng.randn(page, d).astype(np.float32)
+    pool.host_wrote(p)
+    assert pool.freeze(p, key)
+    pool.release([p])
+
+
+def migrate_pages_wire(rank: int, nodes: int, port: int, n_keys: int = 4,
+                       held: int = 0, page: int = 16, d: int = 16,
+                       chunk: int = 1024):
+    """Fleet handoff over the wire (tests/comm/_workers.py's worker of the
+    same name): rank 0's PagePool holds `n_keys` frozen content-keyed
+    pages, rank 1 the first `held` of them; build_page_migration moves
+    only the wanted tail, each page's k|v payload a remote-dep pull that,
+    with eager off and chunk_size below the page, streams as chunks.  The
+    receiver asserts bit-exact imports and, when it held everything,
+    that no payload chunk moved.  Returns rank 1's pages and counters."""
+    build_page_migration, wanted_keys = _imp(
+        "comm.migrate", "build_page_migration", "wanted_keys")
+    PagePool, prefix_page_keys = _imp("ops.paged_attention", "PagePool",
+                                      "prefix_page_keys")
+    os.environ["PTC_MCA_comm_eager_limit"] = "0"
+    os.environ["PTC_MCA_comm_chunk_size"] = str(chunk)
+    os.environ["PTC_MCA_comm_inflight"] = "3"
+    pt, ctx = _mk_ctx(rank, nodes, port)
+    with ctx:
+        pool = PagePool(ctx, n_keys + 2, page, d, name="MIGP")
+        keys = prefix_page_keys("wire-model", list(range(n_keys * page)),
+                                page)
+        if rank == 0:
+            for j, key in enumerate(keys):
+                _author_page(pool, key, 1000 + j, page, d)
+        elif held:
+            for j in range(held):
+                _author_page(pool, keys[j], 1000 + j, page, d)
+        # both ranks agree on the execution space; the receiver's own
+        # dedup decision is this plan
+        wanted = list(range(held, n_keys))
+        if rank == 1:
+            assert wanted_keys(pool, keys) == keys[held:]
+        tp = build_page_migration(pt, ctx, keys, wanted, src_pool=pool,
+                                  dst_pool=pool, src_rank=0, dst_rank=1,
+                                  page=page, d=d)
+        if tp is None:
+            assert held == n_keys
+        else:
+            tp.run()
+            tp.wait()
+        ctx.comm_fence()
+        tune = ctx.comm_tuning()
+        out = {}
+        if rank == 1:
+            st = pool.stats()
+            assert st["imported"] == n_keys - held, st
+            assert st["migrated_in_bytes"] == \
+                (n_keys - held) * pool.bytes_per_page, st
+            assert pool.probe(keys) == n_keys, st
+            for j, key in enumerate(keys):
+                rng = np.random.RandomState(1000 + j)
+                p = pool._index[key]
+                assert (pool.k_tile(p) ==
+                        rng.randn(page, d).astype(np.float32)).all(), j
+                assert (pool.v_tile(p) ==
+                        rng.randn(page, d).astype(np.float32)).all(), j
+            if wanted:
+                assert page * 2 * d * 4 > chunk
+                assert tune["chunks_recv"] > 0, tune
+            else:
+                assert tune["chunks_recv"] == 0, tune
+            out = {"pages": np.stack([np.concatenate(
+                [pool.k_tile(pool._index[k]), pool.v_tile(pool._index[k])])
+                for k in keys]), "keys": list(keys),
+                "imported": st["imported"], "built": tp is not None}
+        if rank == 0 and wanted:
+            assert pool.stats()["exported"] == len(wanted), pool.stats()
+        rd = ctx.comm_rdv_stats()
+        assert rd["pending_pulls"] == 0 and rd["registered_bytes"] == 0, rd
+        ctx.comm_fini()
+    return out
+
+
+def migrate_kill_receiver(rank: int, nodes: int, port: int,
+                          page: int = 512, d: int = 128,
+                          chunk: int = 4096, die_after_s: float = 1.0):
+    """Kill-a-receiver on the migration stream (tests/comm/_workers.py's
+    worker of the same name): rank 1 crawls (a recv delay) and dies
+    mid-chunked-page-pull; rank 0 must REAP its streaming session (reap
+    counter up, registered bytes back to zero) instead of pinning the
+    exported page.  Rank 1 pushes nothing."""
+    import threading
+    import time as _time
+    build_page_migration = _imp("comm.migrate", "build_page_migration")
+    PagePool = _imp("ops.paged_attention", "PagePool")
+    apply_comm_faults = _imp("utils.faults", "apply_comm_faults")
+    os.environ["PTC_MCA_comm_eager_limit"] = "0"
+    os.environ["PTC_MCA_comm_chunk_size"] = str(chunk)
+    os.environ["PTC_MCA_comm_inflight"] = "2"
+    if rank == 1:
+        apply_comm_faults(delay_us=20000)
+    pt, ctx = _mk_ctx(rank, nodes, port)
+    with ctx:
+        pool = PagePool(ctx, 2, page, d, name="MIGP")
+        key = "victim-page"
+        if rank == 0:
+            _author_page(pool, key, 7, page, d)
+        tp = build_page_migration(pt, ctx, [key], [0], src_pool=pool,
+                                  dst_pool=pool, src_rank=0, dst_rank=1,
+                                  page=page, d=d)
+        if rank == 1:
+            threading.Timer(die_after_s, lambda: os._exit(0)).start()
+        tp.run()
+        if rank == 1:
+            tp.wait()  # never finishes: the timer kills the process
+            return None
+        tp.wait()
+        deadline = _time.time() + 90.0
+        st = rd = None
+        while _time.time() < deadline:
+            st = ctx.comm_stream_stats()
+            rd = ctx.comm_rdv_stats()
+            if st["reaps"] >= 1 and rd["registered_bytes"] == 0:
+                break
+            _time.sleep(0.1)
+        assert st is not None and st["reaps"] >= 1, (st, rd)
+        assert rd["registered_bytes"] == 0, rd
+        ctx.comm_fini()
+    return {"reaps": st["reaps"]}
+
+
+def live_rows(rank: int, nodes: int, port: int, elems: int = 16384,
+              chunk: int = 4096):
+    """The live sampler's comm rows on a rank: a chunked host broadcast
+    from rank 0, a fence, then one LiveMonitor sample whose comm, stream
+    and topo rows equal the engine's counters read at that moment.
+    Returns the rows (their keys, and the byte counts of this SPMD
+    program)."""
+    LiveMonitor = _imp("profiling.live", "LiveMonitor")
+    os.environ["PTC_MCA_comm_eager_limit"] = "0"
+    os.environ["PTC_MCA_comm_chunk_size"] = str(chunk)
+    pt, ctx = _mk_ctx(rank, nodes, port)
+    with ctx:
+        size = elems * 8
+        arr = np.zeros((nodes, elems), dtype=np.int64)
+        ctx.register_linear_collection("V", arr, elem_size=size,
+                                       nodes=nodes, myrank=rank)
+        ctx.register_arena("t", size)
+        tp = pt.Taskpool(ctx, globals={"NT": nodes - 1})
+        k = pt.L("k")
+        root = tp.task_class("Root")
+        root.affinity("V", 0)
+        recv = tp.task_class("Recv")
+        recv.param("k", 1, pt.G("NT"))
+        recv.affinity("V", k)
+
+        def root_body(view):
+            view.data("X", dtype=np.int64, shape=(elems,))[:] = \
+                np.arange(elems, dtype=np.int64)
+
+        def recv_body(view):
+            x = view.data("X", dtype=np.int64, shape=(elems,))
+            assert (x == np.arange(elems, dtype=np.int64)).all()
+        root.flow("X", "W", pt.Out(pt.Ref("Recv", pt.Range(1, pt.G("NT")),
+                                          flow="X")), arena="t")
+        root.body(root_body)
+        recv.flow("X", "R", pt.In(pt.Ref("Root", flow="X")), arena="t")
+        recv.body(recv_body)
+        tp.run()
+        tp.wait()
+        ctx.comm_fence()
+        mon = LiveMonitor(ctx, path=os.devnull, interval=3600.0)
+        # the peer's control frames (its fence, clock sync) may land
+        # while sampling: a sample is held to the counters read right
+        # before and after it once they agree
+        for _ in range(50):
+            before = ctx.comm_stats()
+            mon._sample()
+            rec = mon.latest()
+            comm, ss, ts = (ctx.comm_stats(), ctx.comm_stream_stats(),
+                            ctx.comm_topo_stats())
+            if comm == before:
+                break
+        mon.stop()
+        assert rec["comm"] == comm, (rec["comm"], comm)
+        assert rec["stream"] == {k_: ss[k_] for k_ in (
+            "sessions", "parked_gets", "overlap_fraction")}, rec["stream"]
+        assert rec["topo"]["n_islands"] == ts["n_islands"]
+        assert rec["topo"]["classes"] == {
+            c: [r["bytes_sent"], r["msgs_sent"]]
+            for c, r in ts["classes"].items()
+            if r["msgs_sent"] or r["bytes_sent"]}, rec["topo"]
+        if rank == 1:
+            assert ctx.comm_tuning()["chunks_recv"] > 0
+        ctx.comm_fini()
+    return {rank: {"comm_keys": sorted(rec["comm"]),
+                   "stream": sorted(rec["stream"]),
+                   "topo": rec["topo"],
+                   "bytes": [rec["comm"]["bytes_sent"] > 0,
+                             rec["comm"]["bytes_recv"] > 0]}}
+
+
+def stalled_pull(rank: int, nodes: int, port: int, elems: int = 2048,
+                 chunk: int = 4096, delay_us: int = 300000):
+    """A parked pull: rank 1's receives crawl (a recv delay per frame), so
+    its chunked pull of rank 0's payload sits pending across watchdog
+    ticks with no chunk and no byte arriving in between: the watchdog
+    emits `stalled_pull`.  Returns rank 1's events."""
+    Watchdog = _imp("profiling.metrics", "Watchdog")
+    apply_comm_faults = _imp("utils.faults", "apply_comm_faults")
+    os.environ["PTC_MCA_comm_eager_limit"] = "0"
+    os.environ["PTC_MCA_comm_chunk_size"] = str(chunk)
+    if rank == 1:
+        apply_comm_faults(delay_us=delay_us)
+    pt, ctx = _mk_ctx(rank, nodes, port)
+    with ctx:
+        size = elems * 8
+        arr = np.zeros((nodes, elems), dtype=np.int64)
+        ctx.register_linear_collection("V", arr, elem_size=size,
+                                       nodes=nodes, myrank=rank)
+        ctx.register_arena("t", size)
+        tp = pt.Taskpool(ctx)
+        prod = tp.task_class("Prod")
+        prod.affinity("V", 0)
+        cons = tp.task_class("Cons")
+        cons.affinity("V", 1)
+
+        def pbody(view):
+            view.data("X", dtype=np.int64, shape=(elems,))[:] = 5
+
+        def cbody(view):
+            assert (view.data("X", dtype=np.int64, shape=(elems,)) == 5).all()
+        prod.flow("X", "W", pt.Out(pt.Ref("Cons", flow="X")), arena="t")
+        prod.body(pbody)
+        cons.flow("X", "R", pt.In(pt.Ref("Prod", flow="X")), arena="t")
+        cons.body(cbody)
+        wd = Watchdog(ctx, interval=0.05) if rank == 1 else None
+        tp.run()
+        tp.wait()
+        if wd is not None:
+            wd.stop()
+        ctx.comm_fence()
+        ctx.comm_fini()
+    if wd is None:
+        return {}
+    return {"events": [e for e in wd.events if e["type"] == "stalled_pull"]}
+
+
+def scoped_serve(rank: int, nodes: int, port: int, out_dir: str,
+                 nb: int = 14):
+    """The two-rank serve round trip of tests/serve/_scope_workers.py's
+    worker of the same name: two tenants each submit one rank-hopping RW
+    chain through an admission-controlled Server (max_pools=1 keeps the
+    admission order, and so the SPMD scope ids, deterministic).  Every
+    rank saves its trace; rank 0 merges them and asserts that scope tags
+    cross the wire, each request's flows match in both directions, its
+    EXEC spans land on both ranks, its stage partition sums to the
+    ticket's latency, its critical path lies inside its window, and the
+    conformance record covers every pool with a sound wire bound.
+    Returns rank 0's per-request figures."""
+    Trace, take_trace = _imp("profiling", "Trace", "take_trace")
+    Server, TenantConfig = _imp("serve", "Server", "TenantConfig")
+    pt, ctx = _mk_ctx(rank, nodes, port)
+    out = {}
+    with ctx:
+        ctx.profile_enable(2)
+        srv = Server(ctx, [
+            TenantConfig("hi", priority=2, weight=2, max_pools=1,
+                         slo_ms=60_000),
+            TenantConfig("lo", max_pools=1, slo_ms=60_000)])
+        arr = np.zeros(nodes, dtype=np.int64)
+        ctx.register_linear_collection("A", arr, elem_size=8, nodes=nodes,
+                                       myrank=rank)
+        ctx.register_arena("t", 8)
+
+        def build(priority, weight):
+            tp = pt.Taskpool(ctx, globals={"NB": nb}, priority=priority,
+                             weight=weight)
+            k = pt.L("k")
+            tc = tp.task_class("Hop")
+            tc.param("k", 0, pt.G("NB"))
+            tc.affinity("A", k % nodes)
+            tc.flow("A", "RW",
+                    pt.In(pt.Mem("A", 0), guard=(k == 0)),
+                    pt.In(pt.Ref("Hop", k - 1, flow="A")),
+                    pt.Out(pt.Ref("Hop", k + 1, flow="A"),
+                           guard=(k < pt.G("NB"))),
+                    pt.Out(pt.Mem("A", 0), guard=(k == pt.G("NB"))),
+                    arena="t")
+
+            def body(view):
+                view.data("A", dtype=np.int64)[0] += 1
+            tc.body(body)
+            return tp
+
+        tickets = [srv.submit("hi", build, est_bytes=64),
+                   srv.submit("lo", build, est_bytes=64)]
+        assert srv.drain(timeout=60), [t.state for t in tickets]
+        assert all(t.state == "done" and t.scope_id is not None
+                   for t in tickets)
+        sids = [t.scope_id for t in tickets]
+        assert len(set(sids)) == 2, sids
+        ctx.comm_fence()
+        take_trace(ctx).save(os.path.join(out_dir, f"r{rank}.ptt"))
+        ctx.comm_fence()
+        if rank == 0:
+            traces = [Trace.load(os.path.join(out_dir, f"r{r}.ptt"))
+                      for r in range(nodes)]
+            m = Trace.merge(traces)
+            reg = ctx.scope_registry()
+            sf = m.scope_flows()
+            assert sf and set(sf.values()) == set(sids), sf
+            for tkt in tickets:
+                sub = m.filter_scope(tkt.scope_id)
+                fl = sub.flows()
+                assert len(fl) >= nb - 2, (tkt.tenant, len(fl))
+                assert (fl[:, 6] >= 0).all()
+                assert {(int(r[0]), int(r[1])) for r in fl} == \
+                    {(0, 1), (1, 0)}
+                phases = {e["ph"] for e in
+                          sub.to_perfetto()["traceEvents"]}
+                assert "s" in phases and "f" in phases, phases
+                ev, rk = sub.events, sub.ranks
+                assert set(int(r) for r in np.unique(
+                    rk[(ev[:, 0] == 0) & (ev[:, 1] == 0)])) == {0, 1}
+                tl = reg.scope_timeline(m, tkt.scope_id)
+                assert tl["stages_sum_ns"] == tl["e2e_ns"], tl
+                measured_ns = tkt.latency_s * 1e9
+                assert abs(tl["e2e_ns"] - measured_ns) <= \
+                    max(0.05 * measured_ns, 5e6), (tl["e2e_ns"],
+                                                   measured_ns)
+                assert tl["stages"]["exec_ns"] > 0
+                assert tl["stages"]["wire_ns"] >= 0
+                cp = sub.critical_path()
+                assert cp["nodes"] >= nb // nodes, cp
+                assert 0 < cp["total_ns"] <= tl["window_ns"]
+                out[tkt.tenant] = {"flows": len(fl),
+                                   "stages": sorted(tl["stages"]),
+                                   "cp_nodes": cp["nodes"]}
+            conf = ctx.stats()["scope"]["conformance"]
+            assert conf["coverage"] == 1.0, conf
+            assert conf["comm_bytes"]["sound"] is True, conf
+            out["scopes"] = sorted(set(sf.values())) == sorted(sids)
+        srv.close()
+        ctx.comm_fini()
+    return out
+
+
+def blackbox_kill(rank: int, nodes: int, port: int, jdir: str,
+                  victim: int) -> None:
+    """One rank of the SIGKILL postmortem (tests/profiling/
+    _blackbox_kill_worker.py on the port): every rank journals into
+    `jdir`, registers a frozen-page-key inventory provider, opens a live
+    request scope (admitted, never done) and checkpoints, replicating its
+    inventory to every peer; the victim then spins until its parent
+    SIGKILLs it; a survivor waits until its journal's peer-loss poll
+    names the victim, stops the journal and exits 0."""
+    import time as _time
+    Journal = _imp("profiling", "Journal")
+    pt = PKG
+    ctx = pt.Context(nb_workers=2)
+    ctx.set_rank(rank, nodes)
+    ctx.comm_init(port)
+    jr = Journal(ctx, dirpath=jdir, fsync_s=0.05, checkpoint_s=0.15)
+    jr.register_inventory("frozen_page_keys",
+                          lambda: [f"page:{rank}:{i}" for i in range(3)])
+    reg = ctx.scope_registry()
+    reg.tenant(f"t{rank}")
+    sid = reg.new_scope(tenant=f"t{rank}", kind="request", rid=f"req-{rank}")
+    reg.record_admitted(sid)
+    ctx.comm_fence()
+    jr.checkpoint()
+    _time.sleep(0.5)
+    with open(os.path.join(jdir, f"ready.{rank}"), "w") as f:
+        f.write("1")
+    if rank == victim:
+        while True:
+            _time.sleep(0.05)
+    deadline = _time.time() + 60
+    while _time.time() < deadline:
+        if victim in jr.lost_peers():
+            break
+        _time.sleep(0.05)
+    assert victim in jr.lost_peers(), "peer loss never detected"
+    assert "jax" not in sys.modules, "a port worker imported jax"
+    jr.stop()
+    os._exit(0)
+
+
 def ptg_block_cyclic_scale(rank: int, nodes: int, port: int, mt: int = 4,
                            nt: int = 4):
     """Owner-computes over a 2D block-cyclic collection: Scale(m,n) doubles
@@ -2410,3 +2952,11 @@ def hold(results: list, ref: dict, tol=None) -> None:
             np.testing.assert_allclose(np.asarray(a), np.asarray(b),
                                        rtol=tol[0], atol=tol[1],
                                        err_msg=repr(k))
+
+
+if __name__ == "__main__":
+    # python tests/test_torch_comm_workers.py blackbox_kill <rank> <nodes>
+    #     <port> <dir> <victim>: a process its parent may SIGKILL
+    if sys.argv[1] == "blackbox_kill":
+        blackbox_kill(*(int(a) for a in sys.argv[2:5]), sys.argv[5],
+                      int(sys.argv[6]))

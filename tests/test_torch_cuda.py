@@ -1198,3 +1198,51 @@ def test_ring_attention_two_colocated_ranks_on_the_card(card):
     for r in range(2):
         assert isinstance(out.get(r), dict), out.get(r)
         assert out[r]["max_abs_err"] <= 2e-4
+
+
+def test_transfer_plane_moves_a_tile_between_two_processes(card):
+    """Two spawned processes on the card, device.dp_transfer on: rank 0's
+    device-produced tile reaches rank 1's chore as a CUDA IPC token pulled
+    card to card, bit for bit, with no byte on the host path and one
+    session established."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import test_torch_comm_workers as W
+    elems = 1 << 18
+    res = W.spmd(W.xfer_tile, 2, timeout=120, elems=elems)
+    want = np.arange(elems, dtype=np.float32) * 3.0 + 1.0
+    np.testing.assert_array_equal(res[1]["A1"], want)
+    assert res[1]["dev"]["dp_xfer_bytes"] == elems * 4
+    assert res[1]["pool"]["established"] == 1
+
+
+def test_k_gemm_nn_lane_bits_independent_of_width_on_the_card(card):
+    """Lane 0 of k_gemm_nn at 512^2 is bit for bit the same at widths 1,
+    2 and 64 (a lone lane is a two-lane product: cuBLAS's one-lane
+    batched product takes another algorithm)."""
+    import torch
+
+    from parsec_tpu_torch.algos.gemm import k_gemm_nn
+    ops = [_t(card, (512, 512), s) for s in (1, 2, 3)]
+    lane0 = {w: k_gemm_nn(*[o.unsqueeze(0).expand(w, 512, 512).contiguous()
+                            for o in ops])[0].clone() for w in (1, 2, 64)}
+    assert torch.equal(lane0[1], lane0[2])
+    assert torch.equal(lane0[1], lane0[64])
+
+
+def test_two_replica_fleet_on_the_card_matches_one_replica(card):
+    """14a at a small width: routed, disaggregated and re-placed fleets of
+    two replicas on the card give tokens and outputs bit for bit a
+    single replica's, each request's predicted warm pages are what its
+    admission mapped, and no queued request is dropped."""
+    from parsec_tpu_torch.serve import PagedLM, PagedLMConfig
+    cs = _chip_smoke()
+    dims = dict(cs.FLEET, model={"vocab": 512, "d": 256, "heads": 4,
+                                 "page": 16}, prefix=64, tight_pages=5,
+                n_pages=96, timeout=120.0)
+    model = PagedLM(PagedLMConfig(seed=0, **dims["model"]), device=card)
+    out = cs.fleet_serve(card, model, dims)
+    assert set(out["rounds"]) == {"single", "routed", "disagg", "replace"}
+    assert all(p == m for p, m, _ in out["rounds"]["routed"]["warm"])
+    assert out["rounds"]["disagg"]["counters"]["migrated_pages"] > 0

@@ -628,3 +628,32 @@ def test_device_peek_front_census():
         np.testing.assert_allclose(
             src, np.arange(6 * 16, dtype=np.float32).reshape(6, 16) * 2)
         dev.stop()
+
+
+@pytest.mark.parametrize("side", [16, 64, 128])
+def test_k_gemm_nn_lane_bits_independent_of_wave_width(side):
+    """A lone lane of k_gemm_nn runs as a two-lane product: lane 0
+    at width 1 is bit for bit the same lane at widths 2 and 8 (on the
+    card cuBLAS picks another algorithm for a one-lane batched product,
+    so a wave's width decided a GEMM tile's bits), and it is the
+    reference's chore's product within f32 rounding."""
+    import jax.numpy as jnp
+
+    from parsec_tpu.algos.gemm import k_gemm_nn as jax_k_gemm_nn
+    from parsec_tpu_torch.algos.gemm import k_gemm_nn
+    rng = np.random.default_rng(side)
+    a, b, c = (rng.standard_normal((side, side), dtype=np.float32)
+               for _ in range(3))
+    lane0 = {}
+    for w in (1, 2, 8):
+        st = [torch.from_numpy(x).unsqueeze(0).expand(w, side, side)
+              .contiguous() for x in (a, b, c)]
+        out = k_gemm_nn(*st)
+        assert out.shape == (w, side, side) and out.is_contiguous()
+        lane0[w] = out[0].clone()
+    assert torch.equal(lane0[1], lane0[2])
+    assert torch.equal(lane0[1], lane0[8])
+    ref = np.asarray(jax_k_gemm_nn(jnp.asarray(a), jnp.asarray(b),
+                                   jnp.asarray(c)))
+    np.testing.assert_allclose(lane0[1].numpy(), ref, rtol=1e-5,
+                               atol=1e-4)

@@ -815,8 +815,9 @@ def test_journal_fsync_cadence_durable_without_stop(tmp_path):
     (ck, *_) = [r for r in recs if r["type"] == "checkpoint"]
     inv = ck["inventory"]
     assert inv["rank"] == 0 and inv["frozen_page_keys"] == ["k1", "k2"]
+    # the reference's inventory: the comm clock offsets included
     assert set(inv) == {"rank", "live_scopes", "qos_pools", "inflight",
-                        "frozen_page_keys"}
+                        "clock", "frozen_page_keys"}
 
 
 def _serve_pool(P, ctx, n=4, body=None):

@@ -855,3 +855,33 @@ def test_unported_paths_raise():
         assert srv.conformance
         assert InferenceEngine(ctx, model, server=srv).conformance
         srv.close()
+
+
+@pytest.mark.parametrize("heads", [1, 4])
+def test_fold_heads_lane_bits_independent_of_wave_width(heads):
+    """The device fold's lane 0 is bit for bit the same at 1, 2, 3, 8 and
+    32 lanes, given as copies or as a lane-stride-0 view (the scores and
+    p @ V are elementwise products and sums: no batched product whose
+    algorithm a wave's width picks), and within f32 rounding of the
+    numpy host fold, which is the reference's."""
+    d, P = 16, 8
+    rng = np.random.default_rng(heads)
+    q = (0.5 * rng.standard_normal((1, 1, d))).astype(np.float32)
+    k = (0.5 * rng.standard_normal((1, P, d))).astype(np.float32)
+    v = (0.5 * rng.standard_normal((1, P, d))).astype(np.float32)
+    a = np.zeros((1, 1, d + 2 * heads), np.float32)
+    tpa.reset_acc(a[0], heads)
+    host = a.copy()
+    jpa.attend_heads(q[0, 0], k[0], v[0], host[0], 0.25, heads)
+    lane0 = {}
+    for w in (1, 2, 3, 8, 32):
+        for stride0 in (False, True):
+            st = [torch.from_numpy(x).expand(w, *x.shape[1:])
+                  for x in (q, k, v, a)]
+            if not stride0:
+                st = [t.contiguous() for t in st]
+            lane0[(w, stride0)] = tpa.fold_heads(*st, 0.25, heads)[0]
+    first = lane0[(1, False)]
+    assert all(torch.equal(first, t) for t in lane0.values())
+    np.testing.assert_allclose(first.numpy(), host[0], rtol=1e-5,
+                               atol=1e-6)
