@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port (parsec_tpu_torch) on one card.
 
     python3 chip_smoke.py            # from the root of a checkout
+    python3 chip_smoke.py --gloo-probe   # which gloo ops take CUDA tensors
 
 Phases (any failure exits non-zero; no phase swallows an exception):
   1. print the card's name and power limit (nvidia-smi) and build every
@@ -106,12 +107,25 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      watchdog's stalled-pull check and the journal's replicated
      checkpoints (14d); the tuner's collective and streaming proposals
      beside 12d's and 12b's walls (14e)
+ 15. drive the transformer's training path (train_path) at Llama-2-7B's
+     widths (vocab 32000, d 4096, 32 heads x 128, d_ff 11008; depth 4 of
+     32), f32 with TF32 off, both kernels in it (use_flash,
+     use_pallas_norm): 8 steps of training.train on one fixed batch of
+     4 x 2048 tokens, every loss finite and falling, the kernels'
+     launches per step (15a); the loss and every gradient at batch 1
+     through both kernels against the plain path in float64 on the card
+     (15b); 2 steps, a checkpoint, 2 more, against a fresh model and
+     optimizer loaded from it, bit for bit, at depth 1 (15c); each
+     kernel at 15a's shapes against its plain version, timed beside its
+     bound; on phase 12's two ranks, gloo with CUDA tensors, the mesh
+     libraries (ring and Ulysses attention, MoE, gpipe, the LM's forward
+     at tp=2 and sp=2) against their one-rank calls (15d, mesh_rank)
 Phases 1-10 run with fusion on, the default.  Then print the dense-LA
 line, the pipeline line, the DSL line, the runtime line, the observe
 line, the fuse line, the comm line, the multi line (with the chores'
-rows), the fleet line and the kernels line (JSON; the kernels' launches
-are those of phases 4, 7-11, 12 and 14c, both ranks') and, last, the
-device line (JSON).
+rows), the fleet line, the train line and the kernels line (JSON; the
+kernels' launches are those of phases 4, 7-11, 12, 14c (both ranks')
+and 15a) and, last, the device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
@@ -3921,21 +3935,22 @@ def _comm_panels(ctx, rank, nodes, dims) -> dict:
 
 
 def comm_rank(rank, nodes, port, q, dev_s, dims, out_dir, multi=None,
-              fleet=None):
+              fleet=None, mesh=None):
     """One spawned rank of phase 12 (12a, 12b, 12d, 12e) and, with
-    `multi` (phase 13's sizes), of phase 13 (13b, 13d), and with `fleet`
-    (phase 14's), of phase 14 (14b-14d): pushes ("ok", rank, results) or
-    ("err", rank, traceback)."""
+    `multi` (phase 13's sizes), of phase 13 (13b, 13d), with `fleet`
+    (phase 14's), of phase 14 (14b-14d), and with `mesh` (phase 15's), of
+    phase 15d: pushes ("ok", rank, results) or ("err", rank,
+    traceback)."""
     import traceback
     try:
         q.put(("ok", rank, _comm_rank(rank, nodes, port, dev_s, dims,
-                                      out_dir, multi, fleet)))
+                                      out_dir, multi, fleet, mesh)))
     except Exception:
         q.put(("err", rank, traceback.format_exc()))
 
 
 def _comm_rank(rank, nodes, port, dev_s, dims, out_dir,
-               multi=None, fleet=None) -> dict:
+               multi=None, fleet=None, mesh=None) -> dict:
     import torch
 
     import parsec_tpu_torch as pt
@@ -4024,6 +4039,8 @@ def _comm_rank(rank, nodes, port, dev_s, dims, out_dir,
     if fleet is not None:
         res["fleet"] = fleet_rank(rank, nodes, port + 28, dev_t, fleet,
                                   dims, out_dir)
+    if mesh is not None:
+        res["mesh"] = mesh_rank(rank, nodes, port + 40, dev_t, mesh)
     if "jax" in sys.modules:
         raise AssertionError("phase 12 rank imported jax")
     return res
@@ -4073,7 +4090,7 @@ def comm_colocated(dev_t, dims, port: int) -> list:
 
 
 def comm_path(dev_t, dims=None, out_dir=None, multi=None,
-              fleet=None) -> dict:
+              fleet=None, mesh=None) -> dict:
     """Phase 12: the comm engine on the card, two ranks as two spawned
     processes on the one card over the loopback transport (the card
     time-slices them: the walls include it), then two colocated ranks in
@@ -4094,10 +4111,11 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None,
           against chain
       12e 12a's GEMM traced on both ranks, merged on the clock offsets
     With `multi` (phase 13's sizes) the same two ranks then run phase
-    13b and 13d (multi_rank), and with `fleet` (phase 14's) phase 14b-14d
-    (fleet_rank).  Returns the runs, the hand-written kernels' launches
-    (12b's on both ranks, traced run included, and 12c's) and the ranks'
-    phase 13 and 14 results."""
+    13b and 13d (multi_rank), with `fleet` (phase 14's) phase 14b-14d
+    (fleet_rank), and with `mesh` (phase 15's) phase 15d (mesh_rank).
+    Returns the runs, the hand-written kernels' launches (12b's on both
+    ranks, traced run included, and 12c's) and the ranks' phase 13, 14
+    and 15d results."""
     import multiprocessing as mp
 
     import torch
@@ -4110,13 +4128,13 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None,
         os.path.abspath(__file__)), "build", "phase12")
     os.makedirs(out_dir, exist_ok=True)
     nodes = 2
-    port = free_port_base(40)
+    port = free_port_base(44)
     mpctx = mp.get_context("spawn")
     q = mpctx.Queue()
     dev_s = str(dev_t)
     procs = [mpctx.Process(target=comm_rank, args=(r, nodes, port, q, dev_s,
                                                    dims, out_dir, multi,
-                                                   fleet))
+                                                   fleet, mesh))
              for r in range(nodes)]
     t0 = time.perf_counter()
     for p in procs:
@@ -4124,7 +4142,8 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None,
     import queue
     got = []
     wait_s = dims["timeout"] + (multi["timeout"] if multi else 0.0) + \
-        (fleet["timeout"] if fleet else 0.0)
+        (fleet["timeout"] if fleet else 0.0) + \
+        (mesh["timeout"] if mesh else 0.0)
     try:
         for _ in range(nodes):
             got.append(q.get(timeout=wait_s))
@@ -4151,7 +4170,10 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None,
     multi_s = max(r["wall_s"] for r in multi_ranks) if multi else 0.0
     fleet_ranks = [r.pop("fleet") for r in ranks] if fleet else None
     fleet_s = max(r["wall_s"] for r in fleet_ranks) if fleet else 0.0
-    runs = {"spmd_s": spmd_s, "multi_s": multi_s, "fleet_s": fleet_s}
+    mesh_ranks = [r.pop("mesh") for r in ranks] if mesh else None
+    mesh_s = max(r["wall_s"] for r in mesh_ranks) if mesh else 0.0
+    runs = {"spmd_s": spmd_s, "multi_s": multi_s, "fleet_s": fleet_s,
+            "mesh_s": mesh_s}
 
     # 12a: walls and wire bytes per run; fused against unfused
     gem = list(zip(*[r["gemm"] for r in ranks]))
@@ -4352,7 +4374,7 @@ def comm_path(dev_t, dims=None, out_dir=None, multi=None,
         f"{runs['trace']['clock_err_ns']} ns), wire latency p50 "
         f"{runs['trace']['latency_ns_p50'] / 1e3:.1f} us")
     return {"runs": runs, "launches": launches, "multi": multi_ranks,
-            "fleet": fleet_ranks}
+            "fleet": fleet_ranks, "mesh": mesh_ranks}
 
 
 # phase 13 sizes: ring attention (S shards, T tokens a shard, head dim d:
@@ -5770,6 +5792,563 @@ def fleet_path(dev_t, model=None, dims=None, ranks=None, comm_runs=None,
     return {"runs": runs, "launches": launches}
 
 
+# phase 15 sizes: 15a-15c the reference's transformer at Llama-2-7B's
+# published widths (HF meta-llama/Llama-2-7b-hf config.json: vocab 32000,
+# d 4096, 32 heads x 128, d_ff 11008; the FFN is this repo's GELU form),
+# depth cut to 4 of 32 layers (15c: 1), batch 4 x 2048 tokens (15b: 1 x
+# 2048); 15d the mesh libraries on phase 12's two ranks (attention
+# [B, L, H, D], MoE tokens a rank (B, S), d, f, experts, top-k; the pipeline
+# (n_mb, mb, d); the LM at narrow widths)
+TRAIN = {"model": {"vocab": 32000, "d_model": 4096, "n_heads": 32,
+                   "head_dim": 128, "d_ff": 11008},
+         "layers": 4, "batch": (4, 2048), "steps": 8, "lr": 3e-4,
+         "warmup": 2, "oracle_tol": 1e-3, "resume_layers": 1,
+         "resume_batch": (2, 2048), "resume_steps": 2}
+MESH = {"attn": (1, 4096, 8, 128), "moe": ((2, 512), 1024, 2048, 8, 2),
+        "pipe": (4, 64, 1024),
+        "lm": {"vocab": 32000, "d_model": 512, "n_heads": 8,
+               "head_dim": 64, "n_layers": 2, "d_ff": 2048},
+        "lm_batch": (2, 1024), "timeout": 180.0}
+
+
+def _rel_err(got, want) -> float:
+    """max |got - want| / max |want| (float64)."""
+    g, w = got.detach().double(), want.detach().double()
+    return float((g - w).abs().max() / w.abs().max().clamp_min(1e-300))
+
+
+def train_path(dev_t, dims=None, out_dir=None) -> dict:
+    """Phase 15a-15c: the transformer's training path, both hand-written
+    kernels in it (use_flash, use_pallas_norm), f32 with TF32 off.
+      15a training.train, `steps` steps of AdamW (clip, warmup-cosine) on
+          one fixed batch drawn from a seeded generator: every loss
+          finite, the last below the first, the parameters on the card;
+          per-step wall (CUDA events), tokens/s, peak memory, and the
+          kernels' launches, which must be n_layers flash and
+          2*n_layers+1 RMSNorm forward launches a step (the backward of
+          each is plain torch, as the reference's is plain jnp)
+      15b on 15a's parameters, its optimizer state freed: the loss and
+          every gradient at batch 1 through both kernels in f32 against
+          the plain path in float64 on the card, each gradient within
+          `oracle_tol` of its max-abs
+      15c depth `resume_layers`: 2 steps, save, 2 more; a fresh model and
+          optimizer loaded from the file run the same 2 steps: every
+          parameter and moment bit for bit, under
+          torch.use_deterministic_algorithms(True) with
+          CUBLAS_WORKSPACE_CONFIG=:4096:8 (both restored after); the save
+          and load rates in GB/s of the file
+    Returns the runs and 15a's launches."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.checkpoint import save_train_state
+    from parsec_tpu_torch.models import training as TR
+    from parsec_tpu_torch.models import transformer as T
+    dims = dims or TRAIN
+    on_card = dev_t.type == "cuda"
+    if on_card and (torch.backends.cuda.matmul.allow_tf32 or
+                    torch.backends.cudnn.allow_tf32):
+        raise AssertionError("phase 15 wants TF32 off")
+    out_dir = out_dir or os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "build", "phase15")
+    os.makedirs(out_dir, exist_ok=True)
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(dev_t) / 1e9 if on_card \
+            else 0.0
+
+    def reset_peak():
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(dev_t)
+
+    cfg = T.TransformerConfig(**dims["model"], n_layers=dims["layers"],
+                              use_flash=True, use_pallas_norm=True)
+    steps = dims["steps"]
+    gen = torch.Generator(device=dev_t)
+    gen.manual_seed(SEED + 15)
+    B, S = dims["batch"]
+    toks = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                         device=dev_t)
+    batch = (toks[:, :-1].contiguous(), toks[:, 1:].contiguous())
+    tc = TR.TrainConfig(lr=dims["lr"], warmup_steps=dims["warmup"],
+                        total_steps=steps)
+    runs = {"model": dict(dims["model"], layers=dims["layers"]),
+            "batch": [B, S], "steps": steps}
+
+    # ------------------------------------------------------------ 15a
+    t = time.perf_counter()
+    state = TR.init_train_state(cfg, tc, gen, device=dev_t)
+    sync(dev_t)
+    runs["init_s"] = time.perf_counter() - t
+    n_params = sum(p.numel() for p in state["params"].parameters())
+    reset_peak()
+    marks = []
+
+    def mark(*_):
+        if on_card:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append(ev)
+        else:
+            marks.append(time.perf_counter())
+
+    kernels.reset_launches()
+    mark()
+    state, losses = TR.train(cfg, tc, [batch] * steps, state=state,
+                             on_step=mark)
+    sync(dev_t)
+    launches = dict(kernels.LAUNCHES)
+    step_ms = [marks[i].elapsed_time(marks[i + 1]) if on_card
+               else (marks[i + 1] - marks[i]) * 1e3
+               for i in range(steps)]
+    want = {"flash_attention": cfg.n_layers * steps,
+            "rms_norm": (2 * cfg.n_layers + 1) * steps}
+    runs.update({"params": n_params, "losses": losses, "step_ms": step_ms,
+                 "tokens_per_s": B * S * 1e3 / float(np.median(step_ms)),
+                 "peak_gb_a": peak_gb(), "launches": launches,
+                 "launches_expected": want})
+    log(f"  15a {n_params} parameters ({n_params * 4 / 1e9:.2f} GB f32), "
+        f"init {runs['init_s']:.2f} s; losses "
+        f"{[f'{x:.4f}' for x in losses]}")
+    log(f"  15a step wall (CUDA events) {[f'{x:.1f}' for x in step_ms]} "
+        f"ms, {runs['tokens_per_s']:.1f} tokens/s (median step), peak "
+        f"{runs['peak_gb_a']:.2f} GB; launches {launches} (expected "
+        f"{want} on the card: n_layers flash and 2*n_layers+1 RMSNorm "
+        "forward launches a step)")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"15a: losses {losses}")
+    devs = {p.device.type for p in state["params"].parameters()}
+    if devs != {dev_t.type}:
+        raise AssertionError(f"15a: parameters on {devs}")
+    if on_card and launches != want:
+        raise AssertionError(f"15a: launches {launches} != {want}")
+
+    # ------------------------------------------------------------ 15b
+    model = state["params"]
+    del state
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    reset_peak()
+    b1 = (batch[0][:1], batch[1][:1])
+    t = time.perf_counter()
+    loss32, g32 = T.value_and_grad(model, b1, cfg)
+    cfg64 = dataclasses.replace(cfg, dtype=torch.float64, use_flash=False,
+                                use_pallas_norm=False)
+    p64 = T.tree_from_items((k, v.detach().double())
+                            for k, v in T.tree_items(model.tree()))
+    loss64, g64 = T.value_and_grad(p64, b1, cfg64)
+    sync(dev_t)
+    g64 = dict(T.tree_items(g64))
+    errs = {k: _rel_err(g, g64[k]) for k, g in T.tree_items(g32)}
+    loss_err = abs(float(loss32) - float(loss64)) / abs(float(loss64))
+    runs.update({"oracle_s": time.perf_counter() - t,
+                 "oracle_loss": [float(loss32), float(loss64)],
+                 "oracle_loss_rel_err": loss_err, "oracle_grad_rel_err": errs,
+                 "peak_gb_b": peak_gb()})
+    log(f"  15b batch 1 x {S}: loss f32 kernels {float(loss32):.6f} vs "
+        f"float64 plain {float(loss64):.6f} (rel {loss_err:.2e}, tol 1e-5); "
+        f"gradient max-abs error / max-abs (tol {dims['oracle_tol']:g}): "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f"; {runs['oracle_s']:.1f} s, peak {runs['peak_gb_b']:.2f} GB")
+    if loss_err > 1e-5 or max(errs.values()) > dims["oracle_tol"]:
+        raise AssertionError(f"15b: loss rel {loss_err}, gradients {errs}")
+    del model, g32, g64, p64, loss32, loss64
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------ 15c
+    reset_peak()
+    cfg1 = dataclasses.replace(cfg, n_layers=dims["resume_layers"])
+    n = dims["resume_steps"]
+    tc1 = TR.TrainConfig(lr=dims["lr"], warmup_steps=1, total_steps=2 * n)
+    gen.manual_seed(SEED + 151)
+    b, s = dims["resume_batch"]
+    toks = torch.randint(0, cfg.vocab, (b, s + 1), generator=gen,
+                         device=dev_t)
+    batch1 = [(toks[:, :-1].contiguous(), toks[:, 1:].contiguous())] * n
+    path = os.path.join(out_dir, "train_state.npz")
+    prev_det = torch.are_deterministic_algorithms_enabled()
+    prev_env = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        state = TR.init_train_state(cfg1, tc1, gen, device=dev_t)
+        state, _ = TR.train(cfg1, tc1, batch1, state=state)
+        sync(dev_t)
+        t = time.perf_counter()
+        save_train_state(path, state)
+        save_s = time.perf_counter() - t
+        nbytes = os.path.getsize(path)
+        state, la = TR.train(cfg1, tc1, batch1, state=state)
+        sync(dev_t)
+        t = time.perf_counter()
+        resumed = TR.resume_train_state(cfg1, tc1, path, device=dev_t)
+        sync(dev_t)
+        load_s = time.perf_counter() - t
+        resumed, lb = TR.train(cfg1, tc1, batch1, state=resumed)
+        sync(dev_t)
+        diff = [k for k, a in T.tree_items(state["params"].tree())
+                if not torch.equal(a, dict(T.tree_items(
+                    resumed["params"].tree()))[k])]
+        for which in ("mu", "nu"):
+            rb = dict(T.tree_items(resumed["opt"][which]))
+            diff += [f"{which}.{k}" for k, a in
+                     T.tree_items(state["opt"][which])
+                     if not torch.equal(a, rb[k])]
+    finally:
+        torch.use_deterministic_algorithms(prev_det)
+        if prev_env is None:
+            os.environ.pop("CUBLAS_WORKSPACE_CONFIG", None)
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = prev_env
+        if os.path.exists(path):
+            os.remove(path)
+    n1 = sum(p.numel() for p in state["params"].parameters())
+    runs.update({"resume_params": n1, "ckpt_bytes": nbytes,
+                 "save_s": save_s, "load_s": load_s,
+                 "save_gbps": nbytes / save_s / 1e9,
+                 "load_gbps": nbytes / load_s / 1e9,
+                 "resume_losses": [la, lb], "peak_gb_c": peak_gb()})
+    log(f"  15c depth {cfg1.n_layers}, {n1} parameters: checkpoint "
+        f"{nbytes / 1e9:.2f} GB saved in {save_s:.2f} s "
+        f"({runs['save_gbps']:.2f} GB/s), loaded in {load_s:.2f} s "
+        f"({runs['load_gbps']:.2f} GB/s); losses after resume {lb} vs "
+        f"straight {la}; parameters and moments differing: {diff or 'none'}"
+        f"; peak {runs['peak_gb_c']:.2f} GB")
+    if diff or la != lb:
+        raise AssertionError(f"15c: resume not bit for bit: {diff}, "
+                             f"{la} vs {lb}")
+    del state, resumed
+    gc.collect()
+    if on_card:
+        torch.cuda.empty_cache()
+    return {"runs": runs, "launches": launches}
+
+
+def train_kernels(dev_t, runs: dict, bw: float, f32_peak: float,
+                  tf32_peak: float) -> None:
+    """15a's kernels at its shapes, f32: the flash kernel causal at
+    [B*H, S, D] and the RMSNorm kernel at [B*S, d], each held against its
+    plain version on the same inputs (phase 2's 2e-5) and timed (CUDA
+    events) beside its plain version, one library call (SDPA causal,
+    F.rms_norm) and its bound: the bytes (each input read once, the
+    output written once) or the operations a causal run needs (the
+    query-key pairs at or below the diagonal), as phase 3 counts them."""
+    import torch
+    import torch.nn.functional as F
+    fa_mod = importlib.import_module("parsec_tpu_torch.ops.flash_attention")
+    rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
+    B, S = runs["batch"]
+    H, D, d = (runs["model"][k] for k in ("n_heads", "head_dim", "d_model"))
+    gen = torch.Generator(device=dev_t)
+    gen.manual_seed(SEED + 152)
+    n = B * H
+    q, k, v = (torch.randn((n, S, D), generator=gen, device=dev_t)
+               for _ in range(3))
+    sc = D ** -0.5
+    fa = {"shape": [n, S, D], "max_abs_err": check_close(
+        f"flash_attention causal [{n}, {S}, {D}] (15a's)",
+        fa_mod.flash_attention_cuda(q, k, v, True, sc),
+        fa_mod.attention_reference(q, k, v, True, sc), 2e-5, 2e-5)}
+    fa["ms"] = time_ms(lambda: fa_mod.flash_attention_cuda(q, k, v, True,
+                                                           sc), 10)
+    fa["plain_ms"] = time_ms(lambda: fa_mod.attention_reference(
+        q, k, v, True, sc), 3)
+    fa["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+        q, k, v, is_causal=True, scale=sc), 5)
+    ops = 4.0 * n * (S * (S + 1) / 2) * D
+    t_ops = min(ops / f32_peak, 3 * ops / tf32_peak)
+    t_bytes = 4 * n * S * D * 4 / bw
+    fa["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    fa["bound_by"] = "operations" if t_ops >= t_bytes else "bytes"
+    del q, k, v
+    x = torch.randn((B * S, d), generator=gen, device=dev_t)
+    w = torch.randn((d,), generator=gen, device=dev_t)
+    rms = {"shape": [B * S, d], "max_abs_err": check_close(
+        f"rms_norm [{B * S}, {d}] (15a's)", rn_mod.rms_norm_cuda(x, w, EPS),
+        rn_mod.rms_norm_plain(x, w, EPS), 2e-5, 2e-5)}
+    rms["ms"] = time_ms(lambda: rn_mod.rms_norm_cuda(x, w, EPS), 20)
+    rms["plain_ms"] = time_ms(lambda: rn_mod.rms_norm_plain(x, w, EPS), 10)
+    rms["library_ms"] = time_ms(lambda: F.rms_norm(x, (d,), w, EPS), 20) \
+        if hasattr(F, "rms_norm") else None
+    t_bytes = (2 * x.numel() + d) * 4 / bw
+    t_ops = 4 * x.numel() / f32_peak
+    rms["bound_ms"] = max(t_ops, t_bytes) * 1e3
+    rms["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    del x, w
+    runs["kernels"] = {"flash_attention": fa, "rms_norm": rms}
+    for name, r in runs["kernels"].items():
+        log(f"  15a {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, library {r['library_ms']} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+
+# 15d: each mesh library's output and gradients within this fraction of
+# the one-rank call's max-abs (f32 with TF32 off, sums in other orders;
+# the flash kernel's 3xTF32 products as in phase 2)
+MESH_TOL = 1e-4
+
+
+def mesh_check(ranks) -> dict:
+    """15d's results from the two ranks: every error within MESH_TOL, the
+    capped MoE dropping (token, choice) pairs; prints the bytes staged
+    through host memory per op."""
+    out = {"staged": ranks[0]["staged"],
+           "moe_dropped_pairs": ranks[0]["moe_dropped_pairs"],
+           "launches": [r["launches"] for r in ranks],
+           "wall_s": [r["wall_s"] for r in ranks], "err": {}}
+    for r in ranks:
+        for k, v in r["err"].items():
+            out["err"][k] = max(out["err"].get(k, 0.0), v)
+    log(f"  15d bytes staged through pinned host memory (rank 0): "
+        f"{out['staged']}")
+    log("  15d max-abs error / max-abs of the one-rank call (tol "
+        f"{MESH_TOL:g}): " + ", ".join(f"{k} {v:.2e}"
+                                       for k, v in out["err"].items())
+        + f"; capped MoE dropped {out['moe_dropped_pairs']} (token, "
+        "choice) pairs; "
+        f"ranks' kernel launches {out['launches']}, walls "
+        f"{[f'{w:.1f}' for w in out['wall_s']]} s")
+    bad = {k: v for k, v in out["err"].items() if not v <= MESH_TOL}
+    if bad or out["moe_dropped_pairs"] <= 0:
+        raise AssertionError(f"15d: {bad}, dropped pairs "
+                             f"{out['moe_dropped_pairs']}")
+    return out
+
+
+GLOO_PROBE_OPS = ("all_reduce", "broadcast", "all_gather",
+                  "reduce_scatter", "all_to_all", "send_recv")
+
+
+def _gloo_probe_rank(op: str, rank: int, port: int, q) -> None:
+    """One rank of the gloo probe: `op` once over two ranks with tensors
+    on the card, its result checked on the host."""
+    import torch
+    import torch.distributed as dist
+    try:
+        dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:"
+                                f"{port}", world_size=2, rank=rank)
+        x = torch.full((1 << 16,), rank + 1.0, device="cuda")
+        peer = 1 - rank
+        if op == "all_reduce":
+            dist.all_reduce(x)
+            want = [3.0]
+        elif op == "broadcast":
+            dist.broadcast(x, 0)
+            want = [1.0]
+        elif op == "all_gather":
+            outs = [torch.empty_like(x) for _ in range(2)]
+            dist.all_gather(outs, x)
+            x, want = torch.cat(outs), [1.0, 2.0]
+        elif op == "reduce_scatter":
+            out = torch.empty_like(x[:1 << 15])
+            dist.reduce_scatter(out, list(x.chunk(2)))
+            x, want = out, [3.0]
+        elif op == "all_to_all":
+            outs = [torch.empty_like(x[:1 << 15]) for _ in range(2)]
+            dist.all_to_all(outs, list(x.chunk(2)))
+            x, want = torch.cat(outs), [1.0, 2.0]
+        else:
+            out = torch.empty_like(x)
+            for r in dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, x, peer),
+                    dist.P2POp(dist.irecv, out, peer)]):
+                r.wait()
+            x, want = out, [peer + 1.0]
+        torch.cuda.synchronize()
+        got = sorted(set(x.cpu().tolist()))
+        q.put((rank, "ok" if got == want else f"wrong result {got}"))
+        dist.destroy_process_group()
+    except (RuntimeError, ValueError, TypeError) as e:
+        q.put((rank, f"{type(e).__name__}: {str(e).splitlines()[0][:120]}"))
+
+
+def gloo_cuda_probe() -> dict:
+    """Which gloo collectives take tensors on the card: each op of
+    GLOO_PROBE_OPS on two fresh spawned ranks (a gloo op that does not
+    check its device can abort its process, so each gets its own):
+    "ok", the error it raised, or how its ranks ended."""
+    import multiprocessing as mp
+    import queue
+
+    from parsec_tpu_torch.comm.launch import free_port_base
+    out = {}
+    for op in GLOO_PROBE_OPS:
+        mpctx = mp.get_context("spawn")
+        q = mpctx.Queue()
+        port = free_port_base(1)
+        procs = [mpctx.Process(target=_gloo_probe_rank, args=(op, r, port, q))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        got = []
+        try:
+            for _ in range(2):
+                got.append(q.get(timeout=60))
+        except queue.Empty:
+            pass
+        for p in procs:
+            p.join(timeout=10)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+        verdicts = sorted({v for _, v in got})
+        out[op] = verdicts[0] if len(got) == 2 and len(verdicts) == 1 else \
+            f"ranks reported {dict(got)}, exit codes " \
+            f"{[p.exitcode for p in procs]}"
+        log(f"  gloo {op} on CUDA tensors: {out[op]}")
+    return out
+
+
+def _moe_oracle(x, wg, wu, wd, k: int, cap: int, shards: int):
+    """moe_ffn's arithmetic on one rank: each shard of x routes its own
+    tokens (capacity `cap` per expert) through every expert.  Returns the
+    output and the (token, choice) pairs the capacity dropped."""
+    import torch
+
+    from parsec_tpu_torch.parallel.expert import _dispatch_combine, gelu
+    outs, dropped = [], 0
+    for xs in x.chunk(shards, 0):
+        bl, sl, d = xs.shape
+        tok = xs.reshape(-1, d)
+        disp, comb = _dispatch_combine(tok @ wg, k, cap)
+        dropped += k * tok.shape[0] - int(disp.sum())
+        send = torch.einsum("tec,td->ecd", disp, tok)
+        h = gelu(torch.einsum("ecd,edf->ecf", send, wu))
+        y = torch.einsum("tec,ecd->td", comb,
+                         torch.einsum("ecf,efd->ecd", h, wd))
+        outs.append(y.reshape(bl, sl, d))
+    return torch.cat(outs, 0), dropped
+
+
+def mesh_rank(rank: int, nodes: int, port: int, dev_t, dims) -> dict:
+    """15d on one of phase 12's spawned ranks: a gloo job over the two
+    ranks with CUDA tensors (NCCL refuses two ranks on one card; the ops
+    gloo cannot take on the card are staged through pinned host memory,
+    parallel/collectives.py), then each mesh library at
+    sp/ep/pp/tp = 2 held against the one-rank call on the card (every
+    rank computes it): ring and Ulysses attention (its local attention
+    the flash kernel), causal; MoE uncapped against moe_ffn_reference and
+    capped against one rank's dispatch/combine; gpipe forward and
+    gradients against the sequential stack; the LM's forward at tp=2 and
+    sp=2 with both kernels against its one-rank forward.  Returns the
+    errors, the staged bytes per op and the wall."""
+    import torch
+    import torch.distributed as dist
+
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch import parallel as pp
+    from parsec_tpu_torch.models import transformer as T
+    from parsec_tpu_torch.ops import flash_attention
+    from parsec_tpu_torch.parallel.mesh import shard, unshard
+    from parsec_tpu_torch.parallel.pipeline import gpipe
+    t0 = time.perf_counter()
+    pp.init_distributed(f"127.0.0.1:{port}", nodes, rank, device=dev_t,
+                        backend="gloo")
+    res = {"err": {}, "staged": {}}
+    err = res["err"]
+    kernels.reset_launches()
+    try:
+        gen = torch.Generator(device=dev_t)
+        gen.manual_seed(SEED + 150)
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=gen, device=dev_t) * scale
+
+        # attention at sp=2, causal
+        sp = pp.make_mesh(sp=nodes, device=dev_t)
+        q, k, v = (randn(*dims["attn"]) for _ in range(3))
+        want = pp.blockwise_attention_reference(q, k, v, causal=True)
+        loc = [shard(a, sp, (None, "sp")) for a in (q, k, v)]
+        ring = pp.ring_attention(*loc, sp, "sp", causal=True)
+        uly = pp.ulysses_attention(*loc, sp, "sp", causal=True,
+                                   local_attn=flash_attention)
+        err["ring_attention"] = _rel_err(unshard(ring, sp, (None, "sp")),
+                                         want)
+        err["ulysses_attention"] = _rel_err(
+            unshard(uly, sp, (None, "sp")), want)
+        del q, k, v, want, loc, ring, uly
+        # MoE at ep=2
+        (bl, sl), d, f, e, topk = dims["moe"]
+        ep = pp.make_mesh(ep=nodes, device=dev_t)
+        # tokens drawn N(0.5, 1), as phase 13's: the untrained router is
+        # unbalanced and the capped run drops pairs
+        x = randn(bl * nodes, sl, d) + 0.5
+        wg = randn(d, e, scale=0.1)
+        wu, wd = randn(e, d, f, scale=d ** -0.5), randn(e, f, d,
+                                                        scale=f ** -0.5)
+        xl, wul, wdl = (shard(a, ep, ("ep",)) for a in (x, wu, wd))
+        full = pp.moe_ffn(xl, wg, wul, wdl, ep, "ep", k=topk,
+                          capacity=bl * sl)
+        err["moe_uncapped"] = _rel_err(
+            unshard(full, ep, ("ep",)),
+            pp.moe_ffn_reference(x, wg, wu, wd, k=topk))
+        cap = max(1, int(1.25 * topk * bl * sl / e))
+        capped = unshard(pp.moe_ffn(xl, wg, wul, wdl, ep, "ep", k=topk),
+                         ep, ("ep",))
+        want, res["moe_dropped_pairs"] = _moe_oracle(x, wg, wu, wd, topk,
+                                                     cap, nodes)
+        err["moe_capped"] = _rel_err(capped, want)
+        del x, wu, wd, xl, wul, wdl, full, capped, want
+        # gpipe at pp=2: forward and gradients
+        n_mb, mb, dd = dims["pipe"]
+        ppm = pp.make_mesh(pp=nodes, device=dev_t)
+        w, b = randn(nodes, dd, dd, scale=dd ** -0.5), randn(nodes, dd,
+                                                             scale=0.1)
+        xs = randn(n_mb, mb, dd)
+
+        def stage(params, h):
+            return torch.tanh(h @ params[0] + params[1])
+
+        wl, bl_ = (shard(a, ppm, ("pp",)).requires_grad_()
+                   for a in (w, b))
+        out = gpipe(stage, (wl, bl_), xs, ppm, "pp")
+        (out ** 2).sum().backward()
+        wr, br = w.clone().requires_grad_(), b.clone().requires_grad_()
+        ref = xs
+        for i in range(nodes):
+            ref = stage((wr[i], br[i]), ref)
+        (ref ** 2).sum().backward()
+        err["gpipe"] = _rel_err(out, ref)
+        err["gpipe_grad_w"] = _rel_err(unshard(wl.grad, ppm, ("pp",)),
+                                       wr.grad)
+        err["gpipe_grad_b"] = _rel_err(unshard(bl_.grad, ppm, ("pp",)),
+                                       br.grad)
+        # the LM's forward at tp=2 and at sp=2, both kernels on
+        cfg = T.TransformerConfig(**dims["lm"], use_flash=True,
+                                  use_pallas_norm=True)
+        model = T.init_params(cfg, gen, device=dev_t)
+        bb, ss = dims["lm_batch"]
+        toks = torch.randint(0, cfg.vocab, (bb, ss), generator=gen,
+                             device=dev_t)
+        with torch.no_grad():
+            want = T.forward(model, toks, cfg)
+            for axis in ("tp", "sp"):
+                mesh = pp.make_mesh(device=dev_t, **{axis: nodes})
+                loc = T.shard_params(model, cfg, mesh)
+                tl = shard(toks, mesh, (None, "sp" if axis == "sp"
+                                        else None))
+                got = T.forward(loc, tl, cfg, mesh)
+                if axis == "sp":
+                    got = unshard(got, mesh, (None, "sp"))
+                err[f"lm_forward_{axis}"] = _rel_err(got, want)
+                for op, nb in mesh.staged.items():
+                    res["staged"][f"lm_{axis}.{op}"] = nb
+        for name, m in (("attn", sp), ("moe", ep), ("pipe", ppm)):
+            for op, nb in m.staged.items():
+                res["staged"][f"{name}.{op}"] = nb
+        res["launches"] = dict(kernels.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    res["wall_s"] = time.perf_counter() - t0
+    return res
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -5777,6 +6356,11 @@ def main() -> int:
               "false)", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:] == ["--gloo-probe"]:
+        # which gloo ops take CUDA tensors (parallel/collectives.py
+        # stages the others through pinned host memory)
+        print(json.dumps({"gloo_cuda": gloo_cuda_probe()}))
+        return 0
     from parsec_tpu_torch import kernels
     from parsec_tpu_torch.convert import to_tensor
     # the modules (the ops package exports functions of the same names)
@@ -6038,18 +6622,19 @@ def main() -> int:
         "the data plane, 12d collectives, 12e merged trace), then two "
         "colocated ranks in this process (12c)")
     t = time.perf_counter()
-    cm = comm_path(dev_t, multi=MULTI, fleet=FLEET)
-    # the ranks ran phase 13b/13d and 14b-14d after phase 12: their time
-    # is phase 13's and 14's
+    cm = comm_path(dev_t, multi=MULTI, fleet=FLEET, mesh=MESH)
+    # the ranks ran phase 13b/13d, 14b-14d and 15d after phase 12: their
+    # time is phase 13's, 14's and 15's
     comm_s = time.perf_counter() - t - cm["runs"]["multi_s"] - \
-        cm["runs"]["fleet_s"]
+        cm["runs"]["fleet_s"] - cm["runs"]["mesh_s"]
     for name, n in cm["launches"].items():
         launches[name] += n
     cm["runs"]["phase_s"] = comm_s
     log(f"  COMM phase {comm_s:.1f} s (its ranks' processes "
-        f"{cm['runs']['spmd_s'] - cm['runs']['multi_s'] - cm['runs']['fleet_s']:.1f}"
-        f" s of it, then 13b/13d {cm['runs']['multi_s']:.1f} s and "
-        f"14b-14d {cm['runs']['fleet_s']:.1f} s); hand-written kernel "
+        f"{cm['runs']['spmd_s'] - cm['runs']['multi_s'] - cm['runs']['fleet_s'] - cm['runs']['mesh_s']:.1f}"
+        f" s of it, then 13b/13d {cm['runs']['multi_s']:.1f} s, "
+        f"14b-14d {cm['runs']['fleet_s']:.1f} s and 15d "
+        f"{cm['runs']['mesh_s']:.1f} s); hand-written kernel "
         f"launches in it (both ranks): {cm['launches']}")
     if comm_s > 90.0:
         raise AssertionError(f"phase 12 took {comm_s:.1f} s (> 90 s)")
@@ -6082,6 +6667,23 @@ def main() -> int:
         f"it (14c, both ranks): {fl['launches']}")
     if fleet_s > 120.0:
         raise AssertionError(f"phase 14 took {fleet_s:.1f} s (> 120 s)")
+    log("phase 15: the transformer's training path at Llama-2-7B widths, "
+        "both kernels in it: train (15a), float64 oracle (15b), "
+        "checkpoint resume (15c); the mesh libraries on phase 12's two "
+        "ranks (15d)")
+    t = time.perf_counter()
+    tr = train_path(dev_t)
+    for name, n in tr["launches"].items():
+        launches[name] += n
+    train_kernels(dev_t, tr["runs"], bw, f32_peak, tf32_peak)
+    tr["runs"]["mesh"] = mesh_check(cm["mesh"])
+    train_s = time.perf_counter() - t + cm["runs"]["mesh_s"]
+    tr["runs"]["phase_s"] = train_s
+    log(f"  TRAIN phase {train_s:.1f} s (15d on the ranks "
+        f"{cm['runs']['mesh_s']:.1f} s); hand-written kernel launches in "
+        f"15a: {tr['launches']}")
+    if train_s > 120.0:
+        raise AssertionError(f"phase 15 took {train_s:.1f} s (> 120 s)")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
@@ -6093,6 +6695,7 @@ def main() -> int:
     print(json.dumps({"multi": mu["runs"], "chores": mu["chores"]},
                      default=str))
     print(json.dumps({"fleet": fl["runs"]}, default=str))
+    print(json.dumps({"train": tr["runs"]}, default=str))
 
     rows_out = []
     for name, r, err, repl in (

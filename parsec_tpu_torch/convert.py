@@ -8,6 +8,10 @@ identical inputs.
                             dense matrix -> TwoDimBlockCyclic (tiles filled)
   paged_lm_params(model)    a PagedLM's weights as numpy, for
                             serve.PagedLM.from_params
+  transformer_params(tree)  the JAX transformer's parameter tree (numpy)
+                            -> a models.transformer.Transformer state_dict
+  transformer_tree(params)  its inverse: a Transformer (or its tree or
+                            state_dict) -> the JAX package's nested tree
 """
 from __future__ import annotations
 
@@ -54,6 +58,34 @@ def paged_lm_params(model) -> Dict[str, np.ndarray]:
         a = to_numpy(w) if isinstance(w, torch.Tensor) else np.asarray(w)
         out[name] = np.array(a, dtype=np.float32, copy=True)
     return out
+
+
+def transformer_params(tree, device="cpu",
+                       dtype: Optional[torch.dtype] = None
+                       ) -> Dict[str, torch.Tensor]:
+    """The JAX package's transformer parameter tree ({"embed", "ln_f",
+    "blocks": {...}}, arrays as numpy) as the state_dict of this
+    package's Transformer (dotted names, "blocks.wqkv"), bit for bit
+    unless `dtype` casts."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update({f"{k}.{kk}": to_tensor(vv, device, dtype)
+                        for kk, vv in v.items()})
+        else:
+            out[k] = to_tensor(v, device, dtype)
+    return out
+
+
+def transformer_tree(params) -> dict:
+    """transformer_params' inverse: a Transformer, its tree or its
+    state_dict as the JAX package's nested tree of numpy arrays."""
+    from .models.transformer import as_tree
+    tree = as_tree(params.state_dict() if hasattr(params, "state_dict")
+                   else params)
+    return {k: ({kk: to_numpy(vv) for kk, vv in v.items()}
+                if isinstance(v, dict) else to_numpy(v))
+            for k, v in tree.items()}
 
 
 def to_collection(dense, mb: int, nb: int, dtype=None) -> TwoDimBlockCyclic:

@@ -1246,3 +1246,53 @@ def test_two_replica_fleet_on_the_card_matches_one_replica(card):
     assert set(out["rounds"]) == {"single", "routed", "disagg", "replace"}
     assert all(p == m for p, m, _ in out["rounds"]["routed"]["warm"])
     assert out["rounds"]["disagg"]["counters"]["migrated_pages"] > 0
+
+
+def test_transformer_step_with_both_kernels_matches_plain(card):
+    """A small transformer's loss and gradients with use_flash and
+    use_pallas_norm (both kernels forward, their plain backward) against
+    the plain path on the same card: loss 1e-5 relative, every gradient
+    within 1e-4 of its max-abs (f32 with TF32 off; the flash kernel's
+    3xTF32 products); one flash launch a layer, two RMSNorm launches a
+    layer and one for ln_f."""
+    import dataclasses
+
+    import torch
+    from parsec_tpu_torch.models import transformer as T
+    cfg = T.TransformerConfig(vocab=256, d_model=256, n_heads=4,
+                              head_dim=64, n_layers=2, d_ff=512,
+                              use_flash=True, use_pallas_norm=True)
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = T.init_params(cfg, gen, device=card)
+    toks = torch.randint(0, 256, (2, 257), generator=gen, device=card)
+    batch = (toks[:, :-1], toks[:, 1:])
+    kernels.reset_launches()
+    loss, grads = T.value_and_grad(model, batch, cfg)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == {"rms_norm": 5, "flash_attention": 2}
+    plain = dataclasses.replace(cfg, use_flash=False, use_pallas_norm=False)
+    want_loss, want = T.value_and_grad(model, batch, plain)
+    want = dict(T.tree_items(want))
+    assert abs(float(loss) - float(want_loss)) <= 1e-5 * float(want_loss)
+    for path, g in T.tree_items(grads):
+        w = want[path]
+        assert float((g - w).abs().max()) <= 1e-4 * float(w.abs().max()), \
+            path
+
+
+def test_flash_causal_gradient_through_autograd(card):
+    """The causal flash kernel inside autograd (_Flash: the kernel
+    forward, the reference's recompute backward) against autograd through
+    the plain attention: output at phase 2's 2e-5, gradients at 1e-4."""
+    import torch
+    from parsec_tpu_torch.ops.flash_attention import _Flash
+    q, k, v = (_t(card, (4, 256, 64), s).requires_grad_()
+               for s in (21, 22, 23))
+    o = _Flash.apply(q, k, v, True, 0.125)
+    g = _t(card, (4, 256, 64), 24)
+    got = torch.autograd.grad(o, (q, k, v), g)
+    ref = attention_reference(q, k, v, True, 0.125)
+    want = torch.autograd.grad(ref, (q, k, v), g)
+    torch.testing.assert_close(o, ref, rtol=2e-5, atol=2e-5)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)

@@ -827,34 +827,48 @@ def test_spec_verify_wave_batches_on_device():
                                    rtol=1e-5, atol=1e-6)
 
 
-# ----------------------------------------------------------- not ported
+# ------------------------------------------- once unported, ported now
 def test_unported_paths_raise():
-    """What is not ported yet raises: the collectives' mesh path and the
-    local path without a live multi-rank ctx (tensor-parallel serving
-    and sharded pages are ported, tests/test_torch_tp_shard.py).
-    Conformance (the default now), the plan and the plan bound of an
-    unknown byte estimate are ported, and run on both packages in
-    tests/test_torch_profiling.py."""
+    """The collectives' front door, once refused off the runtime path,
+    returns the reference's results on every path: without a live
+    multi-rank ctx the local semantics (a one-rank ctx records no
+    collective), with a mesh (here one gloo rank against the reference's
+    one-device mesh) the mesh path.  What still raises: tp serving on a
+    one-rank ctx, as in the reference.  Conformance (the default now) is
+    on for the Server and the engine (tests/test_torch_profiling.py runs
+    it on both packages)."""
+    import torch.distributed as dist
+    from parsec_tpu import parallel as jpar
     from parsec_tpu_torch import parallel as pp
+    from parsec_tpu_torch.comm.launch import free_port_base
     model = _model()
-    x = np.ones(8, np.float32)
-    with tpt.Context(nb_workers=1) as ctx:
-        for call in (lambda **kw: pp.all_reduce(x, **kw),
-                     lambda **kw: pp.reduce_scatter(x, **kw),
-                     lambda **kw: pp.all_gather(x, **kw),
-                     lambda **kw: pp.broadcast(x, **kw)):
-            with pytest.raises(NotImplementedError, match="mesh"):
-                call(ctx=ctx, mesh=object())
-            with pytest.raises(NotImplementedError, match="multi-rank"):
-                call(ctx=ctx)
-            with pytest.raises(NotImplementedError, match="multi-rank"):
-                call()
-        with pytest.raises(ValueError, match="2-rank ctx"):
-            InferenceEngine(ctx, model, tp=2)
-        srv = Server(ctx, [TenantConfig("t")])
-        assert srv.conformance
-        assert InferenceEngine(ctx, model, server=srv).conformance
-        srv.close()
+    x = np.arange(8, dtype=np.float32)
+    dist.init_process_group(
+        "gloo", init_method=f"tcp://127.0.0.1:{free_port_base(1)}",
+        world_size=1, rank=0)
+    try:
+        mesh, jmesh = pp.make_mesh(sp=1, device="cpu"), jpar.make_mesh(sp=1)
+        with tpt.Context(nb_workers=1) as ctx, \
+                jpt.Context(nb_workers=1) as jctx:
+            for name in ("all_reduce", "reduce_scatter", "all_gather",
+                         "broadcast"):
+                call, ref = getattr(pp, name), getattr(jpar, name)
+                np.testing.assert_array_equal(
+                    np.asarray(call(x[None], ctx=ctx, mesh=mesh)),
+                    np.asarray(ref(x[None], ctx=jctx, mesh=jmesh)))
+                np.testing.assert_array_equal(call(x, ctx=ctx),
+                                              ref(x, ctx=jctx))
+                np.testing.assert_array_equal(call(x), ref(x))
+            assert ctx.coll_stats()["ops"] == 0 == \
+                jctx.coll_stats()["ops"]
+            with pytest.raises(ValueError, match="2-rank ctx"):
+                InferenceEngine(ctx, model, tp=2)
+            srv = Server(ctx, [TenantConfig("t")])
+            assert srv.conformance
+            assert InferenceEngine(ctx, model, server=srv).conformance
+            srv.close()
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("heads", [1, 4])
