@@ -120,12 +120,23 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      bound; on phase 12's two ranks, gloo with CUDA tensors, the mesh
      libraries (ring and Ulysses attention, MoE, gpipe, the LM's forward
      at tp=2 and sp=2) against their one-rank calls (15d, mesh_rank)
+ 16. drive the repo's tools on the port (tools_path), each as python -m
+     parsec_tpu_torch.tools.<stem> and held to its exit status: phase
+     4's NORM and FATT pools traced at level 2 (both kernels launched,
+     O at 2e-5 of the plain versions) and read by ptt_info, ptt2tables,
+     ptt2dot, ptt_critpath and ptc_plan --trace (16a); ptc_verify,
+     plan_graphs and ptc_tune --check over every in-tree generator and
+     jdf2dot over examples/Ex01-Ex08 (16b); ptc_postmortem on phase
+     10f's journal (16c); the card probes probe_la_kernels (NB 512 and
+     1024), probe_launch_overhead, bench_dtd_gemm, bench_dataplane at 16
+     and 64 MiB over bytes and the transfer plane, and testbandwidth
+     --quick, whose document TransferEconomics.load reads (16d)
 Phases 1-10 run with fusion on, the default.  Then print the dense-LA
 line, the pipeline line, the DSL line, the runtime line, the observe
 line, the fuse line, the comm line, the multi line (with the chores'
-rows), the fleet line, the train line and the kernels line (JSON; the
-kernels' launches are those of phases 4, 7-11, 12, 14c (both ranks')
-and 15a) and, last, the device line (JSON).
+rows), the fleet line, the train line, the tools line and the kernels
+line (JSON; the kernels' launches are those of phases 4, 7-11, 12, 14c
+(both ranks'), 15a and 16a) and, last, the device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
@@ -6349,6 +6360,353 @@ def mesh_rank(rank: int, nodes: int, port: int, dev_t, dims) -> dict:
     return res
 
 
+# phase 16 sizes: 16a phase 4's NORM (rows, d, T) and FATT (heads, L, D);
+# 16d the dense-LA probe's tile sides (the reference's 512 and 1024), the
+# DTD GEMM's (N, NB), the data plane's rungs (MiB), the launch probe's
+# product side and the transfer-economics sweep's sizes (bytes)
+TOOLS = {"norm": (8 * 4096, 4096, 1024), "fatt": (32, 4096, 128),
+         "la_nb": (512, 1024), "dtd": (4096, 512), "dp_mb": (16, 64),
+         "big": 4096, "econ_sizes": (4096, 65536, 4 << 20)}
+# the examples jdf2dot enumerates, and the one whose enumeration both
+# packages refuse (its LOWER datatype is registered by its runner only)
+JDF_EXAMPLES = ("Ex01_HelloWorld", "Ex02_Chain", "Ex03_ChainDist",
+                "Ex04_ChainData", "Ex05_Broadcast", "Ex06_RAW",
+                "Ex07_RAW_CTL", "Ex08_Reshape")
+JDF_REFUSED = {"Ex08_Reshape": "names no registered datatype"}
+
+
+def run_tools(jobs: dict, parallel: int = 1) -> dict:
+    """Run `python -m parsec_tpu_torch.tools.<stem> args` for each
+    {label: (stem, args, want, env)}, at most `parallel` at once, from the
+    root of the checkout.  Returns {label: {"rc", "out", "err", "s"}};
+    raises when a tool exits other than `want`."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    todo, running, done = list(jobs.items()), {}, {}
+    while todo or running:
+        while todo and len(running) < parallel:
+            label, (stem, args, _, env) = todo.pop(0)
+            running[label] = (subprocess.Popen(
+                [sys.executable, "-m", f"parsec_tpu_torch.tools.{stem}",
+                 *map(str, args)], cwd=root, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True,
+                env=dict(os.environ, **(env or {}))), time.perf_counter())
+        label = next(iter(running))
+        p, t0 = running.pop(label)
+        out, err = p.communicate(timeout=900)
+        done[label] = {"rc": p.returncode, "out": out, "err": err,
+                       "s": time.perf_counter() - t0}
+    bad = {label: r for label, r in done.items()
+           if r["rc"] != jobs[label][2]}
+    for label, r in bad.items():
+        log(f"  {label}: exit {r['rc']}, expected {jobs[label][2]}\n"
+            f"{r['out'][-2000:]}\n{r['err'][-4000:]}")
+    if bad:
+        raise AssertionError(f"phase 16: {sorted(bad)} exited wrong")
+    return done
+
+
+def json_lines(text: str) -> list:
+    return [json.loads(ln) for ln in text.splitlines() if ln.startswith("{")]
+
+
+def tools_path(dev_t, rng, dims=None, out_dir=None, journal_dir=None,
+               phase8_dtd_ms=None) -> dict:
+    """Phase 16: the port's tools (parsec_tpu_torch.tools), each run as
+    python -m parsec_tpu_torch.tools.<stem> and held to its exit status.
+      16a phase 4's NORM and FATT pools (inputs drawn from `rng`) traced
+          at level 2 on a fresh CudaDevice each, the launches counted, O
+          at 2e-5 of the plain versions; ptt_info, ptt2tables, ptt2dot,
+          ptt_critpath and ptc_plan --trace on the two traces
+      16b ptc_verify all, plan_graphs and ptc_tune --check over every
+          in-tree generator (all clean), jdf2dot --simulate 2 over the
+          examples (Ex08 refused by both packages, checked by message),
+          ptc_tune gemm_dist's simulated makespan under 16d's economics
+          beside the default's
+      16c ptc_postmortem --json on `journal_dir` (phase 10f's journal)
+      16d the card probes one at a time: probe_la_kernels at the tile
+          sides (beside torch.linalg.cholesky at each side, CUDA
+          events), probe_launch_overhead, bench_dtd_gemm (beside phase 8's
+          DTD-GEMM), bench_dataplane at the rungs over bytes and the
+          transfer plane, testbandwidth --quick over its three paths at
+          4 KiB, 64 KiB and 4 MiB (the document loaded with
+          TransferEconomics.load, finite positive alpha and beta on
+          every path)
+    16d runs first, with nothing beside it; then 16b and 16c beside 16a,
+    whose pools are held for their results, not timed.  Returns
+    {"runs": {label: row}, "launches": 16a's kernel launches}."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.comm.economics import TransferEconomics
+    from parsec_tpu_torch.convert import to_collection, to_tensor
+    from parsec_tpu_torch.device import CudaDevice
+    from parsec_tpu_torch.profiling import take_trace
+    fa_mod = importlib.import_module("parsec_tpu_torch.ops.flash_attention")
+    rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
+    dims = dims or TOOLS
+    root = os.path.dirname(os.path.abspath(__file__))
+    out_dir = out_dir or os.path.join(root, "build", "phase16")
+    os.makedirs(out_dir, exist_ok=True)
+    journal_dir = journal_dir or os.path.join(root, "build", "phase10",
+                                              "journal")
+    on_card = dev_t.type == "cuda"
+    dev_arg = [] if on_card else ["--device", "cpu"]
+    out = {"runs": {}, "launches": {name: 0 for name in kernels.LAUNCHES}}
+    t_phase = time.perf_counter()
+
+    # ------------------------- 16d: the card probes, first and alone
+    econ_path = os.path.join(out_dir, "econ.json")
+    n, nb = dims["dtd"]
+    probes = {
+        "probe_la_kernels": ("probe_la_kernels", [
+            a for s in dims["la_nb"] for a in ("--nb", s)] + dev_arg, 0,
+            None),
+        "probe_launch_overhead": ("probe_launch_overhead",
+                                  ["--big", dims["big"]] + dev_arg, 0, None),
+        "bench_dtd_gemm": ("bench_dtd_gemm", ["--n", n, "--nb", nb]
+                           + dev_arg, 0, None),
+        # on the CPU the transfer rungs are error rows (no card to pull
+        # from), so the tool exits 1 there
+        "bench_dataplane": ("bench_dataplane", [
+            a for s in dims["dp_mb"] for a in ("--mb", s)] + dev_arg,
+            0 if on_card else 1, None),
+        # --quick's hops and reps, with a 4 MiB size beside its two: on
+        # the H100 the device path's ~2 ms fixed leg hides its per-byte
+        # leg below 64 KiB (a 4 KiB/64 KiB fit can slope below zero,
+        # which the loader clamps to 0 ns/B)
+        "testbandwidth": ("testbandwidth", [
+            "--quick", "--sizes", ",".join(map(str, dims["econ_sizes"])),
+            "--json", econ_path] + dev_arg, 0, None)}
+    res = run_tools(probes)
+    for label, r in res.items():
+        log(f"  16d {label}: exit {r['rc']} in {r['s']:.1f} s")
+    la = json_lines(res["probe_la_kernels"]["out"])
+    for row in la:
+        log(f"    {row['kernel']:9s} nb {row['nb']:5d} batch "
+            f"{row['batch']:3d}: {row['ms']} ms, {row['gflops']} GFLOP/s")
+    # the yardstick of `chol` (k_potrf, cholesky_ex on a one-lane stack):
+    # one torch.linalg.cholesky call on the probe's matrix, CUDA events
+    chol_lib = {}
+    for nb_ in dims["la_nb"]:
+        m = np.random.default_rng(0).standard_normal((nb_, nb_),
+                                                     dtype=np.float32)
+        spd = to_tensor(m @ m.T + nb_ * np.eye(nb_, dtype=np.float32),
+                        dev_t)
+        chol_lib[nb_] = time_ms(lambda: torch.linalg.cholesky(spd), 20) \
+            if on_card else None
+        log(f"    torch.linalg.cholesky nb {nb_}: {chol_lib[nb_]} ms")
+    lo = json_lines(res["probe_launch_overhead"]["out"])[0]
+    log(f"    launch overhead: {lo}")
+    dtd = json_lines(res["bench_dtd_gemm"]["out"])[0]
+    p8 = (f"; phase 8's DTD-GEMM (through its flush) "
+          f"{2.0 * n ** 3 / phase8_dtd_ms / 1e6:.1f} GFLOP/s"
+          if phase8_dtd_ms else "")
+    log(f"    DTD GEMM: {dtd}{p8}")
+    dp = json_lines(res["bench_dataplane"]["out"])
+    for row in dp:
+        log(f"    data plane: {row}")
+        if on_card and (row.get("error") or (
+                row["path"] == "transfer" and (
+                    row["path_taken"] != "transfer"
+                    or row["dp_xfer_bytes"] != row["tile_mb"] << 20
+                    or row["dp_errors"] != 0))):
+            raise AssertionError(f"16d data plane: {row}")
+    econ = TransferEconomics.load(econ_path)
+    legs = {p: (econ.alpha(p), econ.beta(p))
+            for p in ("eager", "rdv", "device")}
+    log(f"    the card's economics ({econ_path}): " + ", ".join(
+        f"{p} alpha {a * 1e6:.2f} us beta {b * 1e9:.4f} ns/B"
+        for p, (a, b) in legs.items()))
+    for p, (a, b) in legs.items():
+        # (a rehearsal's host device path can fit a negative intercept,
+        # which the loader clamps to 0)
+        if not (np.isfinite(a) and np.isfinite(b) and b > 0
+                and (a > 0 or not on_card and a == 0)):
+            raise AssertionError(f"16d economics: {p} alpha {a} beta {b}")
+    with open(econ_path) as f:
+        doc = json.load(f)
+    out["runs"]["16d"] = {
+        "la": la, "cholesky_lib_ms": chol_lib, "launch": lo,
+        "dtd_gemm": dtd,
+        "phase8_dtd_gflops": 2.0 * n ** 3 / phase8_dtd_ms / 1e6
+        if phase8_dtd_ms else None,
+        "dataplane": dp,
+        "econ": {p: {"alpha_us": a * 1e6, "beta_ns": b * 1e9}
+                 for p, (a, b) in legs.items()},
+        "econ_sizes": {p: doc["paths"][p]["sizes"]
+                       for p in ("eager", "rdv", "device")},
+        "tool_s": {k: r["s"] for k, r in res.items()}}
+
+    # 16b and 16c: the static tools and the postmortem, beside 16a
+    static = {"ptc_verify all": ("ptc_verify", ["all"], 0, None),
+              "plan_graphs": ("plan_graphs", [
+                  "--json", os.path.join(out_dir, "plan_graphs.json")], 0,
+                  None),
+              "ptc_tune --check": ("ptc_tune", ["--check"], 0, None),
+              "ptc_tune gemm_dist": ("ptc_tune", [
+                  "gemm_dist", "--json",
+                  os.path.join(out_dir, "tune_dflt.json")], 0, None),
+              "ptc_tune gemm_dist, the card's economics": ("ptc_tune", [
+                  "gemm_dist", "--json",
+                  os.path.join(out_dir, "tune_card.json")], 0,
+                  {"PTC_MCA_coll_econ_path": econ_path}),
+              "ptc_postmortem": ("ptc_postmortem", [journal_dir, "--json"],
+                                 0, None)}
+    for ex in JDF_EXAMPLES:
+        static[f"jdf2dot {ex}"] = (
+            "jdf2dot", [os.path.join(root, "examples", ex + ".jdf"),
+                        os.path.join(out_dir, ex + ".dot"), "--simulate",
+                        "2"], 1 if ex in JDF_REFUSED else 0, None)
+    static_res = {}
+    static_thread = threading.Thread(
+        target=lambda: static_res.update(
+            run_tools(static, parallel=max(2, (os.cpu_count() or 2) // 2))),
+        daemon=True)
+    static_thread.start()
+
+    # ------------------------------------------ 16a: traced NORM and FATT
+    rows, d, T = dims["norm"]
+    H, L, D = dims["fatt"]
+    xn = rng.standard_normal((rows, d), dtype=np.float32)
+    wn = rng.standard_normal((1, d), dtype=np.float32)
+    qn = rng.standard_normal((H * L, D), dtype=np.float32)
+    kn = rng.standard_normal((L, D), dtype=np.float32)
+    vn = rng.standard_normal((L, D), dtype=np.float32)
+    traces = {}
+    with pt.Context(nb_workers=4) as ctx:
+        X, W = to_collection(xn, T, d), to_collection(wn, 1, d)
+        O = to_collection(np.zeros_like(xn), T, d)
+        Q, K, V = (to_collection(qn, L, D), to_collection(kn, L, D),
+                   to_collection(vn, L, D))
+        OF = to_collection(np.zeros_like(qn), L, D)
+        pools = {"NORM": (lambda dev: rn_mod.build_rms_norm(
+                     ctx, X, W, O, EPS, dev=dev), rows // T, "rms_norm"),
+                 "FATT": (lambda dev: fa_mod.build_flash_attention(
+                     ctx, Q, K, V, OF, dev=dev), H, "flash_attention")}
+        for label, (build, ntasks, kname) in pools.items():
+            ctx.profile_take()
+            ctx.profile_enable(2)
+            dev = CudaDevice(ctx, device=dev_t)
+            kernels.reset_launches()
+            sync(dev_t)
+            t = time.perf_counter()
+            tp = build(dev)
+            tp.run()
+            tp.wait()
+            dev.flush()
+            sync(dev_t)
+            wall = (time.perf_counter() - t) * 1e3
+            got = dict(kernels.LAUNCHES)
+            dev.stop()
+            ctx.profile_enable(0)
+            for k, v in got.items():
+                out["launches"][k] += v
+            if dev.stats["tasks"] != ntasks:
+                raise AssertionError(f"16a {label}: {dev.stats['tasks']} "
+                                     f"device tasks, expected {ntasks}")
+            if on_card and got[kname] <= 0:
+                raise AssertionError(f"16a {label}: {kname} never ran")
+            tr = take_trace(ctx, class_names=[tc.name for tc in tp.classes],
+                            meta={"path": f"phase16 {label}"})
+            traces[label] = os.path.join(out_dir, f"phase16_{label}.ptt")
+            tr.save(traces[label])
+            log(f"  16a {label} traced at level 2: {wall:.1f} ms, "
+                f"{len(tr.events)} events {tr.counts()}, kernel launches "
+                f"{got} -> {traces[label]}")
+            out["runs"][f"16a {label}"] = {"wall_ms": wall,
+                                           "events": len(tr.events),
+                                           "launches": got}
+        check_close("16a NORM O vs plain", to_tensor(O.to_dense(), dev_t),
+                    rn_mod.rms_norm_plain(to_tensor(xn, dev_t),
+                                          to_tensor(wn[0], dev_t), EPS),
+                    2e-5, 2e-5)
+        kt, vt = to_tensor(kn, dev_t), to_tensor(vn, dev_t)
+        check_close("16a FATT O vs plain",
+                    to_tensor(OF.to_dense(), dev_t).reshape(H, L, D),
+                    fa_mod.attention_reference(
+                        to_tensor(qn, dev_t).reshape(H, L, D),
+                        kt.unsqueeze(0).expand(H, L, D),
+                        vt.unsqueeze(0).expand(H, L, D), False, D ** -0.5),
+                    2e-5, 2e-5)
+    del xn, wn, qn, kn, vn, X, W, O, Q, K, V, OF
+    readers = {}
+    gens = {"NORM": "ops_rms_norm", "FATT": "ops_flash_attention"}
+    for label, path in traces.items():
+        base = os.path.join(out_dir, f"phase16_{label}")
+        readers.update({
+            f"ptt_info {label}": ("ptt_info", [path], 0, None),
+            f"ptt2tables {label}": ("ptt2tables", [base + ".csv", path], 0,
+                                    None),
+            f"ptt2dot {label}": ("ptt2dot", [base + ".dot", path], 0, None),
+            f"ptt_critpath {label}": ("ptt_critpath", [
+                path, "--json", base + "_critpath.json"], 0, None),
+            f"ptc_plan --trace {label}": ("ptc_plan", [
+                gens[label], "--trace", path], 0, None)})
+    res = run_tools(readers, parallel=max(2, (os.cpu_count() or 2) // 2))
+    for label in traces:
+        info = res[f"ptt_info {label}"]["out"].splitlines()
+        log(f"  16a ptt_info {label}: " + "; ".join(
+            ln.strip() for ln in info if "n=" in ln))
+        log(f"  16a ptt2tables {label}: "
+            f"{res[f'ptt2tables {label}']['out'].strip()}; ptt2dot: "
+            f"{res[f'ptt2dot {label}']['out'].strip()}")
+        with open(os.path.join(out_dir,
+                               f"phase16_{label}_critpath.json")) as f:
+            rep = json.load(f)
+        cp = rep.get("critical_path") or {}
+        lt = rep.get("lost_time_totals")
+        log(f"  16a ptt_critpath {label}: critical path "
+            f"{len(cp.get('path', []))} task(s) "
+            f"{cp.get('total_ns', 0) / 1e6:.3f} ms; lost time totals {lt}")
+        plan_line = [ln.strip() for ln in
+                     res[f"ptc_plan --trace {label}"]["out"].splitlines()
+                     if ln.strip().startswith("critpath predicted")]
+        if not plan_line:
+            raise AssertionError(f"16a ptc_plan --trace {label}: no "
+                                 "critpath line")
+        log(f"  16a ptc_plan {gens[label]} --trace: {plan_line[0]}")
+        out["runs"][f"16a {label}"].update({
+            "critical_path": cp, "lost_time_totals": lt,
+            "plan_vs_trace": plan_line[0]})
+    out["runs"]["16a readers_s"] = {k: r["s"] for k, r in res.items()}
+
+    static_thread.join(timeout=900)
+    if set(static_res) != set(static):
+        raise AssertionError("phase 16b/16c: the static tools failed (see "
+                             "above)")
+    for label, r in static_res.items():
+        last = (r["out"].strip().splitlines() or [""])[-1]
+        log(f"  16b {label}: exit {r['rc']} in {r['s']:.1f} s"
+            + ("" if label == "ptc_postmortem" else f"; {last[:160]}"))
+    for ex, msg in JDF_REFUSED.items():
+        if msg not in static_res[f"jdf2dot {ex}"]["err"]:
+            raise AssertionError(f"16b jdf2dot {ex}: refused otherwise than "
+                                 f"the reference ({msg!r} expected)")
+    pm = json.loads(static_res["ptc_postmortem"]["out"])
+    log(f"  16c ptc_postmortem {journal_dir}: ranks {pm['ranks']}, dead "
+        f"{pm['dead_ranks']}, first cause {pm['first_cause']}, "
+        f"{len(pm['timeline'])} timeline records, {len(pm['anomalies'])} "
+        "anomalies")
+    if pm["schema"] != "ptc-postmortem-v1" or not pm["ranks"]:
+        raise AssertionError(f"16c: bad report {pm}")
+    out["runs"]["16b"] = {k: {"rc": r["rc"], "s": r["s"]}
+                          for k, r in static_res.items()}
+    out["runs"]["16c postmortem"] = {k: pm[k] for k in
+                                     ("ranks", "dead_ranks", "first_cause")}
+    mk = {}
+    for key, f in (("default", "tune_dflt.json"), ("card", "tune_card.json")):
+        with open(os.path.join(out_dir, f)) as fh:
+            mk[key] = json.load(fh)["gemm_dist"]["simulated_makespan_ns"]
+    log(f"  16d ptc_tune gemm_dist simulated makespan: {mk['default']} ns "
+        f"under the default economics (BENCH_comm.json), {mk['card']} ns "
+        "under the card's")
+    out["runs"]["16d"]["gemm_dist_makespan_ns"] = mk
+
+    out["runs"]["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -6684,6 +7042,22 @@ def main() -> int:
         f"15a: {tr['launches']}")
     if train_s > 120.0:
         raise AssertionError(f"phase 15 took {train_s:.1f} s (> 120 s)")
+    log("phase 16: the repo's tools on the port, each as python -m "
+        "parsec_tpu_torch.tools.<stem>: the trace readers on traced NORM "
+        "and FATT pools (16a), the static tools over every generator and "
+        "the examples (16b), the postmortem on phase 10f's journal (16c), "
+        "the card probes (16d)")
+    n8, nb8 = DSL["gemm"]
+    tl = tools_path(dev_t, np.random.default_rng(SEED + 16),
+                    phase8_dtd_ms=dsl["runs"][
+                        f"DTD-GEMM {n8}^2 f32, {nb8}^2 tiles"]["wall_ms"])
+    for name, n in tl["launches"].items():
+        launches[name] += n
+    tools_s = tl["runs"]["phase_s"]
+    log(f"  TOOLS phase {tools_s:.1f} s; hand-written kernel launches in "
+        f"16a: {tl['launches']}")
+    if tools_s > 180.0:
+        raise AssertionError(f"phase 16 took {tools_s:.1f} s (> 180 s)")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
@@ -6696,6 +7070,7 @@ def main() -> int:
                      default=str))
     print(json.dumps({"fleet": fl["runs"]}, default=str))
     print(json.dumps({"train": tr["runs"]}, default=str))
+    print(json.dumps({"tools": tl["runs"]}, default=str))
 
     rows_out = []
     for name, r, err, repl in (

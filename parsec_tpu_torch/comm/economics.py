@@ -32,10 +32,11 @@ Port of parsec_tpu/comm/economics.py.  `TransferEconomics.load()`
 reads coll.econ_path, else the repo's BENCH_comm.json, as the reference
 does: that report is the reference's own sweep (JAX CPU loopback on its
 host, `meta.platform` "cpu-loopback"), so its `device` path is no
-measurement of the card.  A fit of the card's h2d path (pinned staging
-on the h2d stream, chip_smoke.py phase 10, written under build/) is
-passed as `econ=` or through coll.econ_path where a device transfer is
-priced on the card.
+measurement of the card.  The card's own document comes from the port's
+harness, `python -m parsec_tpu_torch.tools.testbandwidth --json PATH`
+(its device path a CudaDevice on the card, `meta.platform` "cuda"):
+pass TransferEconomics.load(PATH) as `econ=`, or point coll.econ_path at
+PATH, where a transfer is priced on the card.
 """
 from __future__ import annotations
 

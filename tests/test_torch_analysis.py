@@ -1211,103 +1211,20 @@ def test_conformance_epochs_and_controller_feed_match_reference():
 
 
 # ------------------------------------------------ the port's own builders
-def _sq(P, ctx, name="A", nt=6, nb=8, dtype=np.float32):
-    A = P.BC(nt * nb, nt * nb, nb, nb, dtype=dtype)
-    A.register(ctx, name)
-    return A
+VG = {"ref": _load("tools/verify_graphs.py", "_ref_verify_graphs"),
+      "port": importlib.import_module("parsec_tpu_torch.tools.verify_graphs")}
+
+# the generator (tools/verify_graphs.py) behind each case id
+_GEN = {"geqrf": "qr", "getrf_nopiv": "lu", "getrf_panels": "lu_panels",
+        "rms_norm": "ops_rms_norm", "flash_attention": "ops_flash_attention"}
 
 
 def _intree(P, ctx, which):
     """The single-rank generators of tools/verify_graphs.py, built with
-    either package."""
-    al, BC = P.algos, P.BC
-    if which == "potrf":
-        return [al.potrf.build_potrf(ctx, _sq(P, ctx))]
-    if which == "potrf_textbook":
-        return [al.potrf.build_potrf(ctx, _sq(P, ctx),
-                                     trsm_via_inverse=False)]
-    if which in ("potrf_panels", "getrf_panels", "potrs_panels"):
-        A = BC(48, 48, 48, 8, dtype=np.float32)
-        A.register(ctx, "A")
-        if which == "potrf_panels":
-            return [al.potrf.build_potrf_panels(ctx, A)]
-        if which == "getrf_panels":
-            return [al.lu.build_getrf_panels(ctx, A)]
-        B = BC(48, 8, 48, 8, dtype=np.float32)
-        B.register(ctx, "B")
-        return [al.potrf.build_potrs_panels(ctx, A, B)]
-    if which == "gemm":
-        return [al.gemm.build_gemm(ctx, _sq(P, ctx, "A", 4),
-                                   _sq(P, ctx, "B", 4),
-                                   _sq(P, ctx, "C", 4))]
-    if which == "trsm":
-        L = _sq(P, ctx, "L")
-        B = BC(48, 16, 8, 8, dtype=np.float32)
-        B.register(ctx, "B")
-        return [al.trsm.build_trsm(ctx, L, B)]
-    if which == "geqrf":
-        return [al.qr.build_geqrf(ctx, _sq(P, ctx))]
-    if which == "getrf_nopiv":
-        return [al.lu.build_getrf_nopiv(ctx, _sq(P, ctx))]
-    if which == "inverse":
-        L, W, C = (_sq(P, ctx, n, 5) for n in "LWC")
-        return [al.inverse.build_trtri(ctx, L, W),
-                al.inverse.build_lauum(ctx, W, C, names=("W", "C"))]
-    if which == "matrix_ops":
-        A = _sq(P, ctx, "A", 5)
-        mo = al.matrix_ops
-
-        def op(coll, m, n, tile):
-            tile += 1
-
-        def rop(acc, tile):
-            return acc + tile
-        return [mo.build_apply(ctx, A, op, uplo=u)
-                for u in ("full", "lower", "upper")] + \
-            [mo.build_reduce_col(ctx, A, rop),
-             mo.build_reduce_row(ctx, A, rop)]
-    if which == "map_operator":
-        S, D = _sq(P, ctx, "S", 4), _sq(P, ctx, "D", 4)
-        return [al.matrix_ops.build_map_operator(
-            ctx, S, D, lambda s, d, m, n: s + d)]
-    if which == "reshape":
-        src = _sq(P, ctx, "RSsrc", 4)
-        dst = BC(32, 32, 8, 8, dtype=np.float64)
-        dst.register(ctx, "RSdst")
-        return [al.reshape.build_reshape_dtype(ctx, src, dst)]
-    if which == "rms_norm":
-        X = BC(32, 16, 8, 16, dtype=np.float32)
-        W = BC(1, 16, 1, 16, dtype=np.float32)
-        O = BC(32, 16, 8, 16, dtype=np.float32)
-        return [P.rms.build_rms_norm(ctx, X, W, O)]
-    if which == "flash_attention":
-        Q = BC(32, 16, 8, 16, dtype=np.float32)
-        K = BC(32, 16, 32, 16, dtype=np.float32)
-        V = BC(32, 16, 32, 16, dtype=np.float32)
-        O = BC(32, 16, 8, 16, dtype=np.float32)
-        return [P.flash.build_flash_attention(ctx, Q, K, V, O,
-                                              causal=True)]
-    assert which == "paged_attention"
-    pa = P.paged
-    pool = pa.PagePool(ctx, 16, 4, 8, name="KV")
-    _, _, _, _, names = pa.make_slot_collections(ctx, 4, 8, name="PA")
-    S = pa.SeqSpec
-    dec = pa.build_paged_decode(
-        ctx, pool, [S(0, [0, 1, 2], 1), S(1, [3], 0), S(2, [4, 5], 3)],
-        names)
-    PR = BC(32, 16, 4, 16, dtype=np.float32)
-    PR.register(ctx, "PR")
-    pre = pa.build_paged_prefill(ctx, pool, [S(0, [6, 7], 2),
-                                             S(1, [8], 4)],
-                                 names, "PR", [[0, 1], [2]])
-    warm = pa.build_paged_prefill(ctx, pool, [S(0, [9, 10], 3),
-                                              S(1, [11, 12], 4)],
-                                  names, "PR", [[3, 4], [5, 6]],
-                                  warm=[1, 2])
-    ver = pa.build_paged_verify(ctx, pool, [S(0, [13, 14], 2),
-                                            S(1, [13, 14, 15], 3),
-                                            S(2, [13], 4)], names)
-    return [dec, pre, warm, ver]
+    either package's GENERATORS table (the port's in
+    parsec_tpu_torch.tools.verify_graphs)."""
+    gen = VG[P.name].GENERATORS[_GEN.get(which, which)]
+    return [tp for _, tp in gen(ctx)]
 
 
 INTREE = ["potrf", "potrf_textbook", "potrf_panels", "potrs_panels",

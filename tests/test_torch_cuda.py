@@ -1296,3 +1296,66 @@ def test_flash_causal_gradient_through_autograd(card):
     torch.testing.assert_close(o, ref, rtol=2e-5, atol=2e-5)
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------- the card tools (slice 14)
+def _tool_lines(main, argv, capsys):
+    import json
+    rc = main(argv)
+    return rc, [json.loads(ln) for ln in capsys.readouterr().out.splitlines()
+                if ln.startswith("{")]
+
+
+def test_probe_la_kernels_on_the_card(card, capsys):
+    import torch
+
+    from parsec_tpu_torch.tools import probe_la_kernels
+    rc, rows = _tool_lines(probe_la_kernels.main,
+                           ["--nb", "128", "--batch", "4"], capsys)
+    assert rc == 0
+    assert [r["kernel"] for r in rows] == ["launch", "chol", "trsm", "trsm",
+                                           "trsm_inv", "syrk", "gemm"]
+    assert all(r["chip"] == torch.cuda.get_device_name(card) and r["ms"] > 0
+               for r in rows)
+
+
+def test_probe_launch_overhead_on_the_card(card, capsys):
+    from parsec_tpu_torch.tools import probe_launch_overhead
+    rc, (row,) = _tool_lines(probe_launch_overhead.main, ["--big", "512"],
+                             capsys)
+    assert rc == 0 and row["metric"] == "launch_overhead"
+    assert row["dep_us_per_call"] > 0 and row["indep_us_per_call"] > 0
+
+
+def test_bench_dtd_gemm_on_the_card(card, capsys):
+    """512 / 128: 64 device tasks, C within 1e-4 / 1e-3 of torch.matmul
+    (the tool exits 1 otherwise)."""
+    from parsec_tpu_torch.tools import bench_dtd_gemm
+    rc, (row,) = _tool_lines(bench_dtd_gemm.main,
+                             ["--n", "512", "--nb", "128"], capsys)
+    assert rc == 0 and row["config"]["tasks"] == 64 and row["gflops"] > 0
+
+
+def test_bench_dataplane_transfer_rung_on_the_card(card, capsys):
+    """4 MiB over two spawned ranks on this card: the transfer rung's
+    payload moves over the CUDA IPC plane, with no dp_error."""
+    from parsec_tpu_torch.tools import bench_dataplane
+    rc, rows = _tool_lines(bench_dataplane.main, ["--mb", "4", "--reps", "1"],
+                           capsys)
+    assert rc == 0, rows
+    by = {r["path"]: r for r in rows}
+    assert by["bytes"]["path_taken"] == "bytes"
+    assert by["transfer"]["path_taken"] == "transfer"
+    assert by["transfer"]["dp_xfer_bytes"] == 4 << 20
+    assert by["transfer"]["dp_errors"] == 0
+
+
+def test_testbandwidth_device_fit_on_the_card(card, tmp_path, capsys):
+    from parsec_tpu_torch.comm.economics import TransferEconomics
+    from parsec_tpu_torch.tools import testbandwidth
+    out = str(tmp_path / "econ.json")
+    # a 4 MiB size: below 64 KiB the fixed leg hides the per-byte leg
+    assert testbandwidth.main(["--quick", "--paths", "device", "--sizes",
+                               "4096,65536,4194304", "--json", out]) == 0
+    econ = TransferEconomics.load(out)
+    assert econ.alpha("device") > 0 and econ.beta("device") > 0

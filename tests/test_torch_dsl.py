@@ -10,6 +10,7 @@ kernels in interpret mode) and on CudaDevice(ctx, device="cpu") (the
 kernels' plain versions).  The JDF sources of the reference's own tests
 are read from its test files, unchanged, and so are the tutorial
 examples under examples/."""
+import importlib
 import importlib.util
 import os
 import random
@@ -1088,34 +1089,33 @@ def test_example_jdf_matches_reference(name):
 
 
 def test_ex10_crosscheck_on_the_port():
-    """Ex10 on the port's pools: its own builder, bound to the port's
-    package, run as PTG under its hwcounters PINS module (each class's
-    tasks sampled, as on the reference) and through DTD, against the
-    reference's numbers."""
-    ex10 = _load("examples/Ex10_CrossCheck.py", "_ex10_crosscheck")
+    """Ex10 on the port's pools: the builder of the port's example
+    (parsec_tpu_torch.examples.Ex10_CrossCheck) against the reference's
+    (examples/Ex10_CrossCheck.py), run as PTG under the hwcounters PINS
+    module (each class's tasks sampled, as on the reference) and through
+    DTD, against the reference's numbers."""
+    ex10 = {"ref": _load("examples/Ex10_CrossCheck.py", "_ex10_crosscheck"),
+            "port": importlib.import_module(
+                "parsec_tpu_torch.examples.Ex10_CrossCheck")}
 
     def run(P):
-        ex10.pt = P.pt
         pins = P.pt.profiling.pins
-        try:
-            with P.pt.Context(nb_workers=2) as ctx:
-                hw = pins.HwCounters()
-                pins.enable_pins(ctx, hw)
-                tp, arr = ex10.build(ctx, 12)
-                tp.run()
-                tp.wait()
-                ptg = arr.tobytes()
-                tasks = {cid: c[0] for cid, c in hw.counters.items()}
-                rep = [line.split(" utime")[0] for line in
-                       hw.report({0: "P", 1: "C"}).splitlines()]
-                assert tasks == {0: 12, 1: 12}
-                assert rep == ["P: tasks=12", "C: tasks=12"]
-            with P.pt.Context(nb_workers=2) as ctx:
-                tp, arr = ex10.build(ctx, 12)
-                stats = P.p2d.run_ptg_as_dtd(ctx, tp, {"A": None})
-                return ptg, arr.tobytes(), stats
-        finally:
-            ex10.pt = jpt
+        with P.pt.Context(nb_workers=2) as ctx:
+            hw = pins.HwCounters()
+            pins.enable_pins(ctx, hw)
+            tp, arr = ex10[P.name].build(ctx, 12)
+            tp.run()
+            tp.wait()
+            ptg = arr.tobytes()
+            tasks = {cid: c[0] for cid, c in hw.counters.items()}
+            rep = [line.split(" utime")[0] for line in
+                   hw.report({0: "P", 1: "C"}).splitlines()]
+            assert tasks == {0: 12, 1: 12}
+            assert rep == ["P: tasks=12", "C: tasks=12"]
+        with P.pt.Context(nb_workers=2) as ctx:
+            tp, arr = ex10[P.name].build(ctx, 12)
+            stats = P.p2d.run_ptg_as_dtd(ctx, tp, {"A": None})
+            return ptg, arr.tobytes(), stats
 
     ref, port = both(run)
     assert port == ref

@@ -3,8 +3,9 @@ sampler's comm/stream/topo rows on two ranks, the watchdog's
 stalled_pull check, the two-rank serve scope round trip of
 tests/serve/test_scope_dist.py, the SIGKILL postmortem of
 tests/profiling/test_blackbox_dist.py read from the survivors' journals
-(by the repo's tools/ptc_postmortem.py), and the fence-time metrics
-merge of tests/profiling/test_metrics.py.
+(by the repo's tools/ptc_postmortem.py and the port's
+parsec_tpu_torch.tools.ptc_postmortem, their reports equal), and the
+fence-time metrics merge of tests/profiling/test_metrics.py.
 
 Spawned ranks run tests/test_torch_comm_workers.py (numpy and the port
 only).  Where a program runs in this process, both packages run it and
@@ -168,11 +169,16 @@ def test_sigkill_postmortem_from_survivors_alone(tmp_path):
             os.remove(os.path.join(tmp_path, name))
             removed += 1
     assert removed >= 1
-    p = subprocess.run([sys.executable, POSTMORTEM, str(tmp_path), "--json"],
-                       env=dict(env, JAX_PLATFORMS="cpu"), cwd=REPO,
-                       timeout=120, capture_output=True, text=True)
-    assert p.returncode == 0, p.stderr
-    rep = json.loads(p.stdout)
+    reps = []
+    for cmd in ([POSTMORTEM], ["-m", "parsec_tpu_torch.tools.ptc_postmortem"]):
+        p = subprocess.run([sys.executable, *cmd, str(tmp_path), "--json"],
+                           env=dict(env, JAX_PLATFORMS="cpu"), cwd=REPO,
+                           timeout=120, capture_output=True, text=True)
+        assert p.returncode == 0, p.stderr
+        reps.append(json.loads(p.stdout))
+    # the port's postmortem reads the port's journal as the reference does
+    rep = reps[1]
+    assert rep == reps[0]
     assert rep["schema"] == "ptc-postmortem-v1"
     assert rep["dead_ranks"] == [victim]
     assert rep["first_cause"]["rank"] == victim
