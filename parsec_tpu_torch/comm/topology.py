@@ -46,17 +46,16 @@ from typing import Dict, List, Optional, Sequence, Tuple
 LINK_CLASSES = ("loopback", "host", "ici", "dcn")
 
 # The comm knobs that are no MCA parameters here, at the reference's
-# defaults: nothing in the port acts on them (the engine's rails, an
-# explicit topology spec, the relay's DCN penalty), but the analyses
-# price them.  Every other comm.* and coll.* knob is registered
-# (utils/config.py) and read only there; `comm_knob` answers for both.
-# A per-class override ("" = inherit the base knob) exists for the ici
-# and dcn classes only.
+# defaults: nothing in the port acts on them (the engine's rails, the
+# relay's DCN penalty), but the analyses price them.  Every other comm.*
+# and coll.* knob, the topology spec (comm.topology) included, is
+# registered (utils/config.py) and read only there; `comm_knob` answers
+# for both.  A per-class override ("" = inherit the base knob) exists
+# for the ici and dcn classes only.
 COMM_KNOBS: Dict[str, object] = {
     "comm.rails": 2,
     "comm.rails.ici": "",
     "comm.rails.dcn": "",
-    "comm.topology": "",
     "comm.dcn_nonleader_penalty": 4.0,
 }
 
@@ -213,13 +212,22 @@ class TopologyModel:
 
 
 # ---------------------------------------------------------------- lookup
+_cached: Dict[Tuple[str, int], TopologyModel] = {}
+
+
 def default_topology(nranks: int,
                      rtts_ns: Optional[Dict[int, int]] = None,
                      my_rank: int = 0) -> TopologyModel:
-    """The process-default TopologyModel for an `nranks` mesh: RTT
-    auto-detect when probe data is handed in, else flat (the reference
-    first takes an explicit PTC_MCA_comm_topology spec, which comes
-    here with the comm engine)."""
+    """The process-default TopologyModel for an `nranks` mesh: the
+    explicit comm.topology spec (PTC_MCA_comm_topology), else RTT
+    auto-detect when probe data is handed in, else flat.  Spec parses
+    are cached per (spec, nranks)."""
+    spec = str(comm_knob("comm.topology") or "").strip()
+    if spec:
+        key = (spec, int(nranks))
+        if key not in _cached:
+            _cached[key] = TopologyModel.parse(spec)
+        return _cached[key]
     if rtts_ns:
         return TopologyModel.from_rtts(rtts_ns, my_rank, nranks)
     return TopologyModel.flat(nranks)

@@ -302,5 +302,13 @@ class Taskpool:
             if self._destroyed:
                 return
             self._destroyed = True
+            if self.nb_errors > 0:
+                # an aborted pool completes while tasks it released
+                # before the abort may still sit on a worker or a device
+                # queue (a failed wave's other lanes among them), and
+                # each reaches the native pool when it runs: the pool
+                # stays allocated, and tracked so that its callbacks
+                # live, until the context ends
+                return
             self.ctx._untrack_taskpool_locked(self)
             N.lib.ptc_tp_destroy(self._ptr)

@@ -400,6 +400,13 @@ register("comm.inflight", 4, int,
          "chunked-pull window: how many ranged GETs a consumer keeps "
          "outstanding per pull.  Bounds in-flight memory to "
          "inflight * chunk_size per pull while keeping the pipe full")
+register("comm.topology", "", str,
+         "hosts-and-islands topology spec (';' separates islands, '|' "
+         "hosts, ',' ranks: \"0,1|2,3;4,5|6,7\"), or a path to a JSON "
+         "file {\"islands\": [[[ranks...],...],...]}.  Empty = flat "
+         "mesh (every non-self pair classes 'ici').  Drives link-class "
+         "pricing, hierarchical collective trees, plan.remap_ranks and "
+         "the per-class stats split (comm/topology.py)")
 register("comm.stream", True, bool,
          "progressive streaming serve (wire v4): a chunked pull of a "
          "device-resident payload streams d2h slices through "

@@ -1359,3 +1359,40 @@ def test_testbandwidth_device_fit_on_the_card(card, tmp_path, capsys):
                                "4096,65536,4194304", "--json", out]) == 0
     econ = TransferEconomics.load(out)
     assert econ.alpha("device") > 0 and econ.beta("device") > 0
+
+
+def _bench_line(argv):
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-m", "parsec_tpu_torch.bench",
+                        *argv], cwd=root, capture_output=True, text=True,
+                       timeout=900)
+    assert r.returncode == 0, r.stderr[-4000:]
+    lines = [ln for ln in r.stdout.splitlines() if ln.startswith("{")]
+    return json.loads(lines[-1])
+
+
+def test_bench_spotrf_child_on_the_card(card):
+    """--spotrf-child at N 4096, NB 512 on the card: the residual gate
+    held, vs_baseline against torch.linalg.cholesky in the same
+    process, the card's name and power limit in the line."""
+    import torch
+    line = _bench_line(["--spotrf-child", "--n", "4096", "--nb", "512"])
+    assert line["config"] == {"N": 4096, "NB": 512, "variant": "panel"}
+    assert line["value"] > 0 and 0 <= line["residual"] <= 1e-2
+    assert line["baseline"]["name"] == "torch.linalg.cholesky"
+    assert line["baseline"]["gflops"] > 0
+    assert line["chip_kind"] == torch.cuda.get_device_name(card)
+    assert line["power_limit_w"] and line["power_limit_w"] > 0
+
+
+def test_bench_ring_on_the_card(card):
+    import torch
+    line = _bench_line(["--ring", "--s", "2", "--t", "1024"])
+    assert line["config"] == {"S": 2, "T": 1024, "d": 128, "seq": 2048}
+    assert line["max_abs_err"] <= 5e-2
+    assert line["chip_kind"] == torch.cuda.get_device_name(card)
+    assert line["runtime_ms"] > 0 and line["gspmd_ms"] > 0
