@@ -143,11 +143,17 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      collective and topology suites (17d); tools/bench_check over the
      documents, every guarded path found and every `equal` row true but
      four timing verdicts, which are printed (17e)
+ 18. drive the native core's concurrency soak (soak_path): python -m
+     parsec_tpu_torch.tools.stress_tsan at STRESS_REPS=1, without TSAN,
+     held to exit 0 and "stress ok": its 15 jobs from many threads in one
+     process, wave_fuse_gemm (C within 2e-3 of float64) and
+     tp_decode_churn (tokens bit for bit the single-rank reference) with
+     a CudaDevice on the card and dp_errors 0; each job's wall printed
 Phases 1-10 run with fusion on, the default.  Then print the dense-LA
 line, the pipeline line, the DSL line, the runtime line, the observe
 line, the fuse line, the comm line, the multi line (with the chores'
-rows), the fleet line, the train line, the tools line, the bench line
-and the kernels line (JSON; the kernels' launches are those of phases 4, 7-11, 12, 14c
+rows), the fleet line, the train line, the tools line, the bench line,
+the soak line and the kernels line (JSON; the kernels' launches are those of phases 4, 7-11, 12, 14c
 (both ranks'), 15a and 16a) and, last, the device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
@@ -6959,6 +6965,51 @@ def bench_path(dev_t, dims=None, out_dir=None, dense=None) -> dict:
     return out
 
 
+# phase 18: the concurrency soak at one rep of main's sizes, its two
+# device jobs on the card; aimed at about 120 s of the run, failed above
+# SOAK_LIMIT_S
+SOAK_REPS = 1
+SOAK_LIMIT_S = 180.0
+
+
+def soak_path(dev_t, reps: int = SOAK_REPS) -> dict:
+    """Phase 18: python -m parsec_tpu_torch.tools.stress_tsan --device
+    <dev_t> with STRESS_REPS=reps in a subprocess, without TSAN: the 15
+    jobs of the native core's concurrency soak (tools/stress_tsan.py's
+    port), wave_fuse_gemm and tp_decode_churn with a CudaDevice on the
+    card.  Held to exit 0, "stress ok" as the last stdout line and one
+    wall a call of the soak's CALLS a rep (stderr's "job <name> <s> s");
+    each job asserts its own checks, the device jobs dp_errors 0 on every
+    rank.  Returns {"runs": {"rc", "s", "jobs": {name: [walls]}}}."""
+    from parsec_tpu_torch.tools.stress_tsan import CALLS
+    t_phase = time.perf_counter()
+    res = run_tools({"18 soak": ("stress_tsan", ["--device", str(dev_t)], 0,
+                                 {"STRESS_REPS": str(reps)})}, phase=18)
+    r = res["18 soak"]
+    if r["out"].splitlines()[-1:] != ["stress ok"]:
+        raise AssertionError(f"phase 18: no 'stress ok' line\n"
+                             f"{r['out'][-2000:]}\n{r['err'][-4000:]}")
+    jobs: dict = {}
+    for ln in r["err"].splitlines():
+        m = re.fullmatch(r"job (\w+) ([0-9.]+) s", ln.strip())
+        if m:
+            jobs.setdefault(m.group(1), []).append(float(m.group(2)))
+    want = {}
+    for name, _, _ in CALLS:
+        want[name] = want.get(name, 0) + reps
+    got = {name: len(w) for name, w in jobs.items()}
+    if got != want:
+        raise AssertionError(f"phase 18: job lines {got}, expected {want}")
+    for name, walls in jobs.items():
+        log(f"  18 {name}: {len(walls)} call(s), "
+            + ", ".join(f"{w:.3f}" for w in walls) + " s")
+    out = {"rc": r["rc"], "s": r["s"], "jobs": jobs,
+           "phase_s": time.perf_counter() - t_phase}
+    log(f"  18 soak: exit {r['rc']}, stress ok, {sum(got.values())} job "
+        f"calls in {r['s']:.1f} s")
+    return {"runs": out}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7320,6 +7371,16 @@ def main() -> int:
     log(f"  BENCH phase {bench_s:.1f} s; documents in build/torch_bench/")
     if bench_s > 300.0:
         raise AssertionError(f"phase 17 took {bench_s:.1f} s (> 300 s)")
+    log("phase 18: the native core's concurrency soak, python -m "
+        "parsec_tpu_torch.tools.stress_tsan at STRESS_REPS=1 without "
+        "TSAN, its device jobs (wave_fuse_gemm, tp_decode_churn) on the "
+        "card")
+    sk = soak_path(dev_t)
+    soak_s = sk["runs"]["phase_s"]
+    log(f"  SOAK phase {soak_s:.1f} s")
+    if soak_s > SOAK_LIMIT_S:
+        raise AssertionError(f"phase 18 took {soak_s:.1f} s "
+                             f"(> {SOAK_LIMIT_S:.0f} s)")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
@@ -7334,6 +7395,7 @@ def main() -> int:
     print(json.dumps({"train": tr["runs"]}, default=str))
     print(json.dumps({"tools": tl["runs"]}, default=str))
     print(json.dumps({"bench": bn["runs"]}, default=str))
+    print(json.dumps({"soak": sk["runs"]}))
 
     rows_out = []
     for name, r, err, repl in (

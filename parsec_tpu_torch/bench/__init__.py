@@ -19,7 +19,10 @@ take free ports from comm.launch.free_port_base.
 
 The reference's functions keep their names and are re-exported here,
 each module imported on first use (a spawned host rank that imports
-this package loads no torch).
+this package loads no torch).  `python -m
+parsec_tpu_torch.bench.lane_load` repeats the device suite many copies
+at once and counts the prefetch lane's hit waves (the port's own; see
+its docstring).
 """
 from __future__ import annotations
 

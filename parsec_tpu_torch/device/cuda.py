@@ -2023,6 +2023,12 @@ class CudaDevice:
                             self._run_lanes(body, [t])
                     else:
                         self._dispatch_group(body, ts)
+                if self._pf_lane is not None and \
+                        self.ctx.device_queue_depth(self.qid) > 0:
+                    # the wave consumed its staged tiles and the queue's
+                    # head moved: the lane stages the next waves now, on
+                    # the interpreter this thread yields (device/prefetch)
+                    self._pf_lane.handoff()
 
     def register_dtd_task(self, task_ptr, kernel: Callable,
                           reads: Sequence[int], writes: Sequence[int],

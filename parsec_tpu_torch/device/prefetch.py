@@ -36,9 +36,24 @@ Safety model:
     demand at dispatch.
 
 Staging slots: the lane stages at most `slots` waves (of batch_max tasks
-each) beyond the one executing.  A slot is a set of staged uids; it
-recycles when every uid has been consumed (pf flag cleared by the first
-stage-in) or has left the cache.
+each) beyond the one executing, counted past the tasks a slot in flight
+staged already.  A slot is a set of staged uids; it recycles when every
+uid has been consumed (pf flag cleared by the first stage-in) or has
+left the cache.
+
+Handoff: the lane and the manager are Python threads under one
+interpreter lock, and the lane's sweep releases it at every native call,
+torch copy and lock (some five times a tile).  While the manager is busy,
+a thread waiting for the lock gets it back only at the interpreter's
+forced switch (sys.getswitchinterval(), 5 ms), so under load a sweep
+could outlast a whole run of millisecond waves on the CPU: the lane
+staged nothing before the manager had popped every wave.  So
+after each wave it runs while tasks stay queued, the manager calls
+handoff(): it wakes the lane and waits, off the interpreter, until the
+lane has staged one more wave or found nothing to stage (at most
+HANDOFF_S).  The wave has consumed its staged tiles by then (a slot may
+have recycled) and the queue's head has moved, so the lane stages the
+next waves.
 
 Each stage is traced as a DEVICE_H2D span (class -1, l0 = bytes, l1 =
 the device's queue, aux 1: the lane), bracketing the host's copy into
@@ -64,6 +79,9 @@ from .. import _native as N
 
 
 class _PrefetchLane:
+    # the longest the manager yields to the lane after a wave (handoff)
+    HANDOFF_S = 0.002
+
     def __init__(self, dev, depth: int = 64, slots: int = 2):
         self.dev = dev
         self.depth = max(1, depth)
@@ -71,6 +89,9 @@ class _PrefetchLane:
         self._buf = N.peek_buffer(self.depth)
         self._slots: list = []  # each: set of staged uids
         self._stop = threading.Event()
+        # set when a pass of the loop ends or has staged a wave: a
+        # handoff waits on it
+        self._passed = threading.Event()
         self._thread: Optional[threading.Thread] = None
         # the last exception of a sweep: the lane is advisory and goes
         # on, but a caller that must know reads it (dev.prefetch_error)
@@ -89,19 +110,32 @@ class _PrefetchLane:
             self._thread.join(timeout=30)
             self._thread = None
 
+    def handoff(self) -> None:
+        """The manager's call after a wave while tasks stay queued: wake
+        the lane and yield the interpreter to it until it has staged one
+        more wave or ended its pass, at most HANDOFF_S (see the module's
+        docstring)."""
+        if self._thread is None or self._stop.is_set():
+            return
+        self._passed.clear()
+        self.dev._pf_wake.set()
+        self._passed.wait(self.HANDOFF_S)
+
     # ------------------------------------------------------------ loop
     def _loop(self):
         """Sweep whenever there is lookahead to stage.  Idle waits ride
         the device's wake event, so a setter (a remote delivery from the
-        comm engine's data plane, a chain hint) gets a sweep now rather
-        than at the end of the poll interval.  Sweeps that find nothing to stage back off,
-        0.5 ms doubling to 8 ms: a sweep parses the whole lookahead in
-        Python, and on a host-bound path whose tiles are all resident (a
-        decode loop) back-to-back sweeps would take the interpreter from
-        the manager for nothing."""
+        comm engine's data plane, a chain hint, the manager's handoff)
+        gets a sweep now rather than at the end of the poll interval.
+        Sweeps that find nothing to stage back off, 0.5 ms doubling to
+        8 ms (a handoff ends the wait): a sweep parses the whole
+        lookahead in Python, and on a host-bound path whose tiles are all
+        resident (a decode loop) back-to-back sweeps would take the
+        interpreter from the manager for nothing."""
         dev = self.dev
 
         def wait(timeout: float) -> None:
+            self._passed.set()
             if dev._pf_wake.wait(timeout):
                 dev._stats_add("prefetch_wakeups", 1)
             dev._pf_wake.clear()
@@ -124,6 +158,7 @@ class _PrefetchLane:
                             wait(0.0005)
                     elif self._sweep() or hinted:
                         idle = 0
+                        self._passed.set()
                     else:
                         wait(0.0005 * (1 << idle))
                         idle = min(idle + 1, 4)
@@ -234,12 +269,22 @@ class _PrefetchLane:
             with dev._lock:
                 dev._pf_pin = pin
             # stage up to `free` waves' worth of tasks (batch_max each)
-            budget_tasks = free * max(1, dev.batch_max)
+            # BEYOND those a slot in flight staged already: a staged wave
+            # still at the head of the queue (popped next) must not hide
+            # the waves after it, or two slots keep one wave ahead
+            wave = max(1, dev.batch_max)
+            taken = 0
             slot_uids = set()
             inflight = set().union(*self._slots) if self._slots else set()
-            for _, recs in tasks[:budget_tasks]:
-                if self._stop.is_set():
+            for _, recs in tasks:
+                if taken >= free * wave or self._stop.is_set():
                     break
+                if all(uid_of[cptr] in inflight for cptr, *_ in recs):
+                    continue
+                if taken == wave:
+                    # the next wave is staged: a handoff waits no longer
+                    self._passed.set()
+                taken += 1
                 for cptr, dptr, size, ver in recs:
                     uid = uid_of[cptr]
                     if uid in slot_uids or uid in inflight:

@@ -11,8 +11,11 @@ Static tools (verify_graphs, ptc_verify, jdf2dot, plan_graphs, ptc_plan,
 ptc_tune), the trace readers (ptt_info, ptt2tables, ptt2dot,
 ptt_critpath) and ptc_postmortem touch no device.  The card probes
 (probe_la_kernels, probe_launch_overhead, bench_dtd_gemm,
-bench_dataplane, testbandwidth) take `--device` (default "cuda": the
-card, raising without one; "cpu" runs the plain versions on the host).
+bench_dataplane, testbandwidth) and stress_tsan, the native core's
+concurrency soak (run under ThreadSanitizer or UBSan with `--device cpu`,
+its suppressions in tsan.supp beside it), take `--device` (default
+"cuda": the card, raising without one; "cpu" runs the plain versions on
+the host).
 
 This module holds what several tools share: the throwaway compile of a
 .jdf target, the device choice, the timing of a call on its device and

@@ -366,20 +366,20 @@ def test_device_suite_schema(runs):
     run_keys = {"waves", "wall_s", "wave_p50_us", "stall_per_wave_us",
                 "stall_total_ms", "prefetch_hit_waves", "staged_waves",
                 "device_stats"}
-    assert run_keys <= set(wp["staged"])
-    assert run_keys <= set(wp["prefetched"])
-    assert wp["staged"]["stall_total_ms"] > 0
-    assert wp["prefetched"]["prefetch_hit_waves"] > 0
-    assert wp["hit_wave_stall_reduction"] is not None
+    assert run_keys <= set(wp["staged"]), wp
+    assert run_keys <= set(wp["prefetched"]), wp
+    assert wp["staged"]["stall_total_ms"] > 0, wp
+    assert wp["prefetched"]["prefetch_hit_waves"] > 0, wp
+    assert wp["hit_wave_stall_reduction"] is not None, wp
     assert wp["hit_wave_stall_reduction"] >= 0.8, wp
     g = doc["out_of_core_gemm"]
     assert {"m", "n", "k", "mb", "tile_set_bytes", "budget_bytes",
             "budget_ratio", "wall_s", "correct", "spills", "spill_bytes",
-            "reserve_fails", "end_residency_bytes"} <= set(g)
-    assert g["correct"] is True
-    assert g["budget_ratio"] >= 2.0
-    assert g["spills"] > 0 and g["spill_bytes"] > 0
-    assert doc["wave_fuse"]["bit_identical"] is True
+            "reserve_fails", "end_residency_bytes"} <= set(g), g
+    assert g["correct"] is True, g
+    assert g["budget_ratio"] >= 2.0, g
+    assert g["spills"] > 0 and g["spill_bytes"] > 0, g
+    assert doc["wave_fuse"]["bit_identical"] is True, doc["wave_fuse"]
     assert doc["oversubscribed"] == \
         (doc["pipeline_threads"] > doc["host"]["cpu_count"])
     if doc["oversubscribed"]:

@@ -1396,3 +1396,19 @@ def test_bench_ring_on_the_card(card):
     assert line["max_abs_err"] <= 5e-2
     assert line["chip_kind"] == torch.cuda.get_device_name(card)
     assert line["runtime_ms"] > 0 and line["gspmd_ms"] > 0
+
+
+def test_soak_device_jobs_on_the_card(card):
+    """The concurrency soak's two device jobs with a CudaDevice on the
+    card, each with its own checks: wave_fuse_gemm's C tiles within
+    2e-3 of float64; tp_decode_churn's tokens and pre-logits bit for bit
+    the single-rank reference on both ranks, fused_waves > 0 and
+    coll_pools > 0; dp_errors 0 on every rank of both."""
+    from parsec_tpu_torch.tools import stress_tsan as S
+    calls = {n: (kw, env) for n, kw, env in S.CALLS if n in S.DEVICE_JOBS}
+    tiles = S.run_call("wave_fuse_gemm", *calls["wave_fuse_gemm"],
+                       device=card)
+    assert len(tiles) == 16
+    tokens = S.run_call("tp_decode_churn", *calls["tp_decode_churn"],
+                        device=card)
+    assert tokens[0] == tokens[1] and len(tokens[0]) == 3

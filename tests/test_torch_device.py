@@ -4,6 +4,8 @@ each kernel's plain PyTorch version, and the reference runs the same
 builders under TpuDevice on the JAX CPU backend (its Pallas kernels in
 interpret mode where the tile shapes reach them).  Inputs are made from
 a numpy seed and carried across by parsec_tpu_torch.convert."""
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -290,3 +292,102 @@ def test_device_state_under_many_workers():
     np.testing.assert_allclose(out, ref, rtol=1e-3, atol=1e-3)
     assert st["tasks"] == 8 ** 3
     assert 0 <= used <= cap
+
+
+# ------------------------------------------------ the prefetch lane's pace
+def _wave_dag(ctx, dev, tiles, elems):
+    """y = 2x + y over `tiles` independent tasks, each reading tile k of
+    T and O; every task is ready at run()."""
+    tb = elems * 4
+    src = _normal(7, (tiles, elems))
+    dst = np.zeros_like(src)
+    ctx.register_linear_collection("T", src, elem_size=tb)
+    ctx.register_linear_collection("O", dst, elem_size=tb)
+    ctx.register_arena("t", tb)
+    tp = tpt.Taskpool(ctx, globals={"NT": tiles - 1})
+    k = tpt.L("k")
+    tc = tp.task_class("Wave")
+    tc.param("k", 0, tpt.G("NT"))
+    tc.flow("X", "R", tpt.In(tpt.Mem("T", k)), arena="t")
+    tc.flow("Y", "RW", tpt.In(tpt.Mem("O", k)), tpt.Out(tpt.Mem("O", k)),
+            arena="t")
+    dev.attach(tc, tp, kernel=lambda x, y: x * 2.0 + y, reads=["X", "Y"],
+               writes=["Y"], shapes={"X": (elems,), "Y": (elems,)},
+               dtype=np.float32)
+    tp.run()
+    deadline = time.monotonic() + 20.0
+    while ctx.device_queue_depth(dev.qid) < tiles:
+        assert time.monotonic() < deadline
+        time.sleep(0.01)
+    return tp, src, dst
+
+
+def test_prefetch_lane_stages_past_a_staged_head():
+    """Two staging slots keep two waves staged beyond the one running.
+    Once the manager has run the first staged wave, one sweep stages the
+    wave after the next, while the next (staged, not yet popped) still
+    heads the queue.  A lane that counted its budget from the head staged
+    nothing there, and under load the manager popped waves it had not
+    staged."""
+    from parsec_tpu_torch.device.prefetch import _PrefetchLane
+    with tpt.Context(nb_workers=1) as ctx:
+        dev = CudaDevice(ctx, device="cpu", autostart=False, prefetch=True)
+        dev.batch_max = 4
+        tp, src, dst = _wave_dag(ctx, dev, 16, 1024)
+        lane = _PrefetchLane(dev, depth=64, slots=2)
+        assert lane._sweep()  # waves 1 and 2
+        assert dev.stats["prefetch_staged"] == 16
+        # the manager's part for wave 1: pop it and run it, its stage-in
+        # consuming the first slot's tiles
+        wave = [ctx.device_pop(dev.qid, timeout_ms=0) for _ in range(4)]
+        dev._dispatch_group(dev._body_for(wave[0]), wave)
+        assert dev.stats["prefetch_hits"] == 8
+        assert lane._free_slots() == 1
+        assert lane._sweep()  # wave 3, past wave 2 at the head
+        assert dev.stats["prefetch_staged"] == 24
+        assert lane._free_slots() == 0
+        dev.start()
+        tp.wait()
+        dev.flush()
+        # waves 1-3 hit as staged here (the started lane may stage 4)
+        assert dev.stats["prefetch_hits"] >= 24
+        dev.stop()
+    np.testing.assert_array_equal(dst, src * 2.0)
+
+
+def test_manager_hands_off_to_the_lane_after_a_wave_while_tasks_stay_queued(
+        monkeypatch):
+    """After each wave it runs while tasks stay queued, the manager hands
+    the interpreter to the lane (handoff: wake it, wait for its pass):
+    the lane, a Python thread, otherwise gets the interpreter lock back
+    only at the 5 ms forced switch while the manager is busy, longer than
+    a run of 1 ms waves on the CPU.  Four waves queued before the start:
+    three handoffs, none after the last."""
+    from parsec_tpu_torch.device import cuda as cuda_mod
+    handoffs = []
+
+    class IdleLane:  # a lane that never sweeps: only the manager's calls
+        def __init__(self, dev, **kw):
+            self.dev = dev
+
+        def start(self):
+            pass
+
+        def stop(self):
+            pass
+
+        def handoff(self):
+            handoffs.append(self.dev.ctx.device_queue_depth(self.dev.qid))
+
+    monkeypatch.setattr(cuda_mod, "_PrefetchLane", IdleLane)
+    with tpt.Context(nb_workers=1) as ctx:
+        dev = CudaDevice(ctx, device="cpu", autostart=False, prefetch=True)
+        dev.batch_max = 4
+        tp, src, dst = _wave_dag(ctx, dev, 16, 1024)
+        dev.start()
+        tp.wait()
+        dev.flush()
+        assert dev.stats["batches"] == 4
+        dev.stop()
+    assert handoffs == [12, 8, 4]  # the queue's depth at each
+    np.testing.assert_array_equal(dst, src * 2.0)

@@ -512,7 +512,7 @@ def test_tools_import_neither_jax_nor_the_jax_package():
                                                            "examples")
             for f in sorted(os.listdir(os.path.join(pkg, sub)))
             if f.endswith(".py") and f != "__init__.py"]
-    assert len(mods) == 16 + 3
+    assert len(mods) == 17 + 3  # stress_tsan the 17th tool
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -532,6 +532,19 @@ def test_tools_import_neither_jax_nor_the_jax_package():
 
 
 # -------------------------------------------------------------- examples
+def _example_output(main):
+    """(what main() returned, the RuntimeError an aborted pool raised or
+    None, stdout)."""
+    buf = io.StringIO()
+    rc, err = None, None
+    with contextlib.redirect_stdout(buf):
+        try:
+            rc = main()
+        except RuntimeError as e:  # a body's assertion failed
+            err = e
+    return rc, err, buf.getvalue()
+
+
 def _run_ref_example(name, monkeypatch):
     """examples/run_example.py's main (it reads sys.argv)."""
     import importlib.util
@@ -540,23 +553,29 @@ def _run_ref_example(name, monkeypatch):
     ref = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(ref)
     monkeypatch.setattr(sys, "argv", ["run_example.py", name])
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        ref.main()
-    return buf.getvalue()
+    return _example_output(ref.main)
 
 
-# Ex06's pool aborts on both packages or not, by a race in the shared
-# native core (ROADMAP); tests/test_torch_dsl.py holds the two equal
-@pytest.mark.parametrize("ex", [e for e in EXAMPLES if e != "Ex06_RAW.jdf"])
+@pytest.mark.parametrize("ex", EXAMPLES)
 def test_run_example_matches_reference(ex, monkeypatch):
     from parsec_tpu_torch.examples import run_example
-    rc, out = call(run_example.main, [ex])
-    assert rc == 0
+    aborts = ex == "Ex06_RAW.jdf"
+    if aborts:
+        # on more workers whether Ex06's pool aborts is a race in the
+        # shared native core; on one, the RW Update runs before the READ
+        # readers on both packages and every reader's assertion fails
+        monkeypatch.setenv("PTC_MCA_runtime_nb_workers", "1")
+    rc, err, out = _example_output(lambda: run_example.main([ex]))
+    _, ref_err, ref_out = _run_ref_example(ex, monkeypatch)
+    assert (err is not None) == (ref_err is not None) == aborts, \
+        (err, ref_err)
     # the bodies print from several workers: the lines, in any order
-    assert sorted(out.splitlines()) == \
-        sorted(_run_ref_example(ex, monkeypatch).splitlines())
-    assert out.splitlines()[-1].startswith("done; ")
+    assert sorted(out.splitlines()) == sorted(ref_out.splitlines())
+    if aborts:
+        assert out.splitlines() == ["updated to 107"]
+    else:
+        assert rc == 0
+        assert out.splitlines()[-1].startswith("done; ")
 
 
 def test_ex09_and_ex10_on_the_port():
