@@ -149,12 +149,19 @@ Phases (any failure exits non-zero; no phase swallows an exception):
      process, wave_fuse_gemm (C within 2e-3 of float64) and
      tp_decode_churn (tokens bit for bit the single-rank reference) with
      a CudaDevice on the card and dp_errors 0; each job's wall printed
+ 19. drive the debug streams (debug_path): phase 4's NORM path at 4
+     tiles of (1024, 4096) f32 in a child process with
+     PTC_MCA_debug_runtime=1 and PTC_MCA_debug_device=1, O held to the
+     plain RMSNorm at 2e-5; its stderr must hold the device's 'device
+     up: cuda:0 ...' and 'flush: 4 dirty mirrors' lines and the
+     runtime's two taskpool lines, and no comm line; its wall printed
 Phases 1-10 run with fusion on, the default.  Then print the dense-LA
 line, the pipeline line, the DSL line, the runtime line, the observe
 line, the fuse line, the comm line, the multi line (with the chores'
 rows), the fleet line, the train line, the tools line, the bench line,
-the soak line and the kernels line (JSON; the kernels' launches are those of phases 4, 7-11, 12, 14c
-(both ranks'), 15a and 16a) and, last, the device line (JSON).
+the soak line, the debug line and the kernels line (JSON; the kernels'
+launches are those of phases 4, 7-11, 12, 14c (both ranks'), 15a, 16a
+and 19 (its child's)) and, last, the device line (JSON).
 Exits non-zero, printing no result, when there is no CUDA card.
 """
 from __future__ import annotations
@@ -7010,6 +7017,114 @@ def soak_path(dev_t, reps: int = SOAK_REPS) -> dict:
     return {"runs": out}
 
 
+# phase 19: the debug streams on the card: phase 4's NORM path at 4
+# tiles of (1024, 4096) f32 in a child process with debug.runtime and
+# debug.device at 1
+DEBUG = {"norm": (4 * 1024, 4096, 1024)}
+DEBUG_LIMIT_S = 120.0
+
+
+def debug_child(dev_s: str, rows: int, d: int, T: int) -> None:
+    """Phase 19's child: phase 4's NORM pool (X, O rows x d tiled (T, d),
+    W one (1, d) tile) through Context -> Taskpool -> CudaDevice(dev_s),
+    run, waited and flushed under the launch counts, O held to the plain
+    RMSNorm at phase 4's 2e-5.  Prints one JSON line {"tasks",
+    "launches", "max_abs_err", "wall_ms"} last on stdout; the streams
+    write to stderr."""
+    import torch
+
+    import parsec_tpu_torch as pt
+    from parsec_tpu_torch import kernels
+    from parsec_tpu_torch.convert import to_collection, to_tensor
+    from parsec_tpu_torch.device import CudaDevice
+    rn_mod = importlib.import_module("parsec_tpu_torch.ops.rms_norm")
+    dev_t = torch.device(dev_s)
+    rng = np.random.default_rng(SEED + 19)
+    xn = rng.standard_normal((rows, d), dtype=np.float32)
+    wn = rng.standard_normal((1, d), dtype=np.float32)
+    with pt.Context(nb_workers=4) as ctx:
+        Xc, Wc = to_collection(xn, T, d), to_collection(wn, 1, d)
+        Oc = to_collection(np.zeros_like(xn), T, d)
+        dev = CudaDevice(ctx, device=dev_s)
+        tp = rn_mod.build_rms_norm(ctx, Xc, Wc, Oc, EPS, dev=dev)
+        kernels.reset_launches()
+        sync(dev_t)
+        t = time.perf_counter()
+        tp.run()
+        tp.wait()
+        dev.flush()
+        sync(dev_t)
+        wall = time.perf_counter() - t
+        got = dict(kernels.LAUNCHES)
+        err = check_close("19 NORM O vs plain", to_tensor(Oc.to_dense(),
+                                                          dev_t),
+                          rn_mod.rms_norm_plain(to_tensor(xn, dev_t),
+                                                to_tensor(wn[0], dev_t),
+                                                EPS), 2e-5, 2e-5)
+        tasks = dev.stats["tasks"]
+        dev.stop()
+    print(json.dumps({"tasks": tasks, "launches": got, "max_abs_err": err,
+                      "wall_ms": wall * 1e3}))
+
+
+def debug_path(dev_t, dims=None) -> dict:
+    """Phase 19: debug_child in a subprocess from the root of the
+    checkout with PTC_MCA_debug_runtime=1 and PTC_MCA_debug_device=1
+    (every other PTC_MCA_debug_* removed).  Holds its stderr to the
+    streams' lines: the device's 'device up: <dev_t> ...', the runtime's
+    'taskpool 0: <tasks> local tasks across 1 classes' and 'taskpool 0
+    complete (0 errors)', the flush's '<tasks> dirty mirrors' (one O tile
+    a task), and no comm line; on the card the rms_norm kernel must have
+    run.  Returns {"runs": {...}, "launches": the child's counts}."""
+    rows, d, T = (dims or DEBUG)["norm"]
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("PTC_MCA_debug_")}
+    env.update(PTC_MCA_debug_runtime="1", PTC_MCA_debug_device="1")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", "import chip_smoke; chip_smoke.debug_child("
+         f"{str(dev_t)!r}, {rows}, {d}, {T})"], cwd=root, env=env,
+        capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"phase 19: the child exited {r.returncode}\n"
+                             f"{r.stdout[-2000:]}\n{r.stderr[-4000:]}")
+    res = json.loads(r.stdout.splitlines()[-1])
+    n = rows // T
+    want = {
+        "device up": rf"ptc \[device\]: device up: {re.escape(str(dev_t))} "
+                     r"queue=\d+ cache=\d+MiB batch<= \d+",
+        "taskpool start": rf"ptc \[runtime\]: taskpool 0: {n} local tasks "
+                          r"across 1 classes .*",
+        "taskpool end": r"ptc \[runtime\]: taskpool 0 complete \(0 errors\)",
+        "flush": rf"ptc \[device\]: flush: {n} dirty mirrors"}
+    lines = [ln.strip() for ln in r.stderr.splitlines()
+             if ln.startswith("ptc [")]
+    found = {k: [ln for ln in lines if re.fullmatch(rx, ln)]
+             for k, rx in want.items()}
+    missing = [k for k, got in found.items() if len(got) != 1]
+    if missing or any(ln.startswith("ptc [comm]:") for ln in lines):
+        raise AssertionError(f"phase 19: stream lines {missing} not found "
+                             f"once, or a comm line, in\n"
+                             + "\n".join(lines) + f"\n{r.stderr[-4000:]}")
+    if res["tasks"] != n:
+        raise AssertionError(f"phase 19: {res['tasks']} tasks, not {n}")
+    if str(dev_t).startswith("cuda") and res["launches"]["rms_norm"] <= 0:
+        raise AssertionError("phase 19: the rms_norm kernel never ran")
+    for ln in lines:
+        log(f"  19 {ln}")
+    log(f"  19 NORM {rows}x{d} f32, T={T} with debug.runtime=1 and "
+        f"debug.device=1: {res['wall_ms']:.1f} ms path wall, "
+        f"max_abs_err {res['max_abs_err']:.3e}, launches "
+        f"{res['launches']}; the child process {wall:.1f} s")
+    return {"runs": {"wall_ms": res["wall_ms"],
+                     "max_abs_err": res["max_abs_err"],
+                     "tasks": res["tasks"], "lines": lines,
+                     "phase_s": wall},
+            "launches": res["launches"]}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -7381,6 +7496,18 @@ def main() -> int:
     if soak_s > SOAK_LIMIT_S:
         raise AssertionError(f"phase 18 took {soak_s:.1f} s "
                              f"(> {SOAK_LIMIT_S:.0f} s)")
+    log("phase 19: the debug streams on the card: phase 4's NORM path "
+        "at 4 tiles in a child process with PTC_MCA_debug_runtime=1 and "
+        "PTC_MCA_debug_device=1")
+    dbg = debug_path(dev_t)
+    for name, n in dbg["launches"].items():
+        launches[name] += n
+    debug_s = dbg["runs"]["phase_s"]
+    log(f"  DEBUG phase {debug_s:.1f} s; hand-written kernel launches in "
+        f"it: {dbg['launches']}")
+    if debug_s > DEBUG_LIMIT_S:
+        raise AssertionError(f"phase 19 took {debug_s:.1f} s "
+                             f"(> {DEBUG_LIMIT_S:.0f} s)")
     log(smi.stdout.strip().splitlines()[0])
     print(json.dumps({"dense_la": dense}))
     print(json.dumps({"pipeline": pipe["runs"]}))
@@ -7396,6 +7523,7 @@ def main() -> int:
     print(json.dumps({"tools": tl["runs"]}, default=str))
     print(json.dumps({"bench": bn["runs"]}, default=str))
     print(json.dumps({"soak": sk["runs"]}))
+    print(json.dumps({"debug": dbg["runs"]}))
 
     rows_out = []
     for name, r, err, repl in (

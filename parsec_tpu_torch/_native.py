@@ -4,8 +4,9 @@ The C++ runtime under native/ is shared build source: this binding builds
 it with the repo's Makefile (`make -s`) when the library is missing or
 older than its sources, exactly as the JAX package's binding does, and
 loads the same library.  Keep the constants and signatures in step with
-native/parsec_core.h.  Only the entry points this package calls are
-declared.
+native/parsec_core.h.  Every entry point that parsec_tpu/_native.py
+declares is declared here with the same signature
+(tests/test_torch_parity.py holds the two tables to that).
 """
 from __future__ import annotations
 
@@ -38,6 +39,12 @@ FLOW_CTL = 4
 # must mirror PTC_MAX_LOCALS / PTC_MAX_FLOWS (native/parsec_core.h:30-31)
 MAX_LOCALS = 20
 MAX_FLOWS = 20
+
+# debug-stream subsystem ids (must mirror PTC_DBG_* in parsec_core.h)
+DBG_RUNTIME = 0
+DBG_COMM = 1
+DBG_DEVICE = 2
+DBG_SUBSYSTEMS = ("runtime", "comm", "device")  # index == id
 
 # element kinds of a cast datatype (native ptc_register_datatype_cast)
 ELEM_KINDS = {"float32": 0, "float64": 1, "int32": 2, "int64": 3, "uint8": 4}
@@ -147,6 +154,7 @@ _sigs = {
     "ptc_context_set_scheduler": (C.c_int32, [C.c_void_p, C.c_char_p]),
     "ptc_context_get_scheduler": (C.c_char_p, [C.c_void_p]),
     "ptc_context_set_sched_bypass": (None, [C.c_void_p, C.c_int32]),
+    "ptc_context_get_sched_bypass": (C.c_int32, [C.c_void_p]),
     "ptc_sched_stats": (C.c_int64, [C.c_void_p, C.POINTER(C.c_int64),
                                     C.c_int64]),
     "ptc_tp_set_qos": (None, [C.c_void_p, C.c_int32, C.c_int64]),
@@ -156,6 +164,8 @@ _sigs = {
     "ptc_context_get_qos_preempt": (C.c_int32, [C.c_void_p]),
     "ptc_context_set_binding": (None, [C.c_void_p, C.c_int32]),
     "ptc_worker_binding": (C.c_int32, [C.c_void_p, C.c_int32]),
+    "ptc_context_set_verbose": (None, [C.c_void_p, C.c_int32, C.c_int32]),
+    "ptc_context_verbose": (C.c_int32, [C.c_void_p, C.c_int32]),
     "ptc_register_expr_cb": (C.c_int32, [C.c_void_p, EXPR_CB_T, C.c_void_p]),
     "ptc_register_body": (C.c_int32, [C.c_void_p, BODY_CB_T, C.c_void_p]),
     "ptc_register_collection": (C.c_int32, [C.c_void_p, C.c_uint32, C.c_uint32,
@@ -209,6 +219,7 @@ _sigs = {
     "ptc_data_new": (C.c_void_p, [C.c_int64, C.c_void_p, C.c_int64]),
     "ptc_data_destroy": (None, [C.c_void_p]),
     "ptc_data_host_copy": (C.c_void_p, [C.c_void_p]),
+    "ptc_copy_ptr": (C.c_void_p, [C.c_void_p]),
     "ptc_copy_size": (C.c_int64, [C.c_void_p]),
     "ptc_copy_handle": (C.c_int64, [C.c_void_p]),
     "ptc_copy_set_handle": (None, [C.c_void_p, C.c_int64]),

@@ -1,4 +1,4 @@
-from .gemm import build_gemm, k_gemm_nn
+from .gemm import build_gemm, build_gemm_dist, k_gemm_nn, run_gemm
 from .inverse import (build_lauum, build_trtri, lauum_flops, run_potri,
                       trtri_flops)
 from .lu import (build_getrf_nopiv, build_getrf_panels, getrf_flops,
@@ -15,7 +15,7 @@ from .ring_attention import (build_ring_attention, dense_reference,
                              make_collections, run_ring_attention)
 from .trsm import build_trsm
 
-__all__ = ["build_gemm", "k_gemm_nn",
+__all__ = ["build_gemm", "build_gemm_dist", "run_gemm", "k_gemm_nn",
            "build_getrf_nopiv", "build_getrf_panels", "getrf_flops",
            "getrf_nopiv_reference",
            "build_potrf", "build_potrf_panels", "build_potrs_panels",

@@ -173,6 +173,11 @@ class Context:
             self.set_vpmap(_mca.get("runtime.vpmap"))
         N.lib.ptc_device_set_affinity_skew(
             self._ptr, _mca.get("device.affinity_skew"))
+        # per-subsystem debug streams (parsec/utils/debug.c analog)
+        for i, name in enumerate(N.DBG_SUBSYSTEMS):
+            lvl = _mca.get(f"debug.{name}")
+            if lvl:
+                N.lib.ptc_context_set_verbose(self._ptr, i, lvl)
         # keep-alives: ctypes callbacks must outlive the native context
         self._expr_cbs: List = []
         self._body_cbs: List = []

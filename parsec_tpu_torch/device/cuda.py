@@ -987,6 +987,8 @@ class CudaDevice:
         self._wb_q: "queue.Queue" = queue.Queue()
         self._thread: Optional[threading.Thread] = None
         self._wb_thread: Optional[threading.Thread] = None
+        self._dbg(f"device up: {self.device} queue={self.qid} "
+                  f"cache={cache_bytes >> 20}MiB batch<= {self.batch_max}")
         if autostart:
             self.start()
 
@@ -1559,6 +1561,12 @@ class CudaDevice:
                 "refused": {}},
         }
 
+    def _dbg(self, msg: str):
+        """Device-subsystem debug stream (PTC_MCA_debug_device >= 1;
+        reference: the per-subsystem output streams, parsec/utils/debug.c)."""
+        if N.lib.ptc_context_verbose(self.ctx._ptr, N.DBG_DEVICE) >= 1:
+            print(f"ptc [device]: {msg}", file=sys.stderr)
+
     def flush(self):
         """Write every dirty device mirror back to its host copy: same-
         size mirrors move as stacked d2h copies on the d2h stream, into
@@ -1571,6 +1579,8 @@ class CudaDevice:
             # buffers can be freed concurrently by the last consumer
             dirty = [e for e in self._cache.values()
                      if e.dirty and e.persistent]
+        if dirty:
+            self._dbg(f"flush: {len(dirty)} dirty mirrors")
         self._write_back(dirty)
 
     # ------------------------------------------------------------ attach

@@ -6,7 +6,8 @@ priority
 Environment spelling: PTC_MCA_<name with '.' -> '_'>.  The config file is
 ./ptc.conf ("name = value" lines, '#' comments).  Registered: runtime.*,
 sched.*, serve.* (the reference's, read by nothing yet there either),
-the control.spec_* knobs of the serving engine, device.cache_bytes,
+the debug streams' debug.runtime, debug.comm and debug.device, the
+control.spec_* knobs of the serving engine, device.cache_bytes,
 device.affinity_skew and the device pipeline's knobs (device.prefetch,
 prefetch_depth, staging_slots, out_of_core, overcommit), the wave
 compiler's device.wave_fuse and wave_fuse_depth, the pre-run
@@ -146,6 +147,15 @@ dump_help = params.dump_help
 
 register("runtime.sched", "lws", str,
          "scheduler module (reference: --mca sched <m>)")
+register("debug.runtime", 0, int,
+         "runtime-subsystem verbosity: >=1 prints taskpool lifecycle "
+         "diagnostics (reference: the per-subsystem debug output "
+         "streams, parsec/utils/debug.c)")
+register("debug.comm", 0, int,
+         "comm-subsystem verbosity: >=1 prints mesh/fence diagnostics")
+register("debug.device", 0, int,
+         "device-subsystem verbosity: >=1 prints stage/flush "
+         "diagnostics")
 register("runtime.vpmap", "flat", str,
          "virtual-process map: 'flat' (one vp) or an explicit "
          "comma-separated vp id per worker ('0,0,1,1')")
@@ -381,6 +391,9 @@ register("comm.base_port", 29650, int, "TCP rendezvous base port")
 register("comm.bcast_topo", "star", str,
          "activation broadcast topology: star|chain|binomial "
          "(reference: runtime_comm_coll_bcast)")
+register("comm.engine", "tcp", str,
+         "comm-engine transport module (reference: the parsec_comm_engine "
+         "vtable seam, parsec_comm_engine.h:14-21)")
 register("comm.eager_limit", 64 * 1024, int,
          "payloads <= this ride inline in ACTIVATE; larger ones are pulled "
          "via GET rendezvous (reference: runtime_comm_short_limit, "
@@ -389,6 +402,14 @@ register("comm.eager_limit", 64 * 1024, int,
          "to derive the threshold at comm init from the measured "
          "per-peer round trip and host memcpy rate (Context.comm_tuning() "
          "reports the threshold in force)")
+register("comm.eager_adaptive", False, bool,
+         "derive the eager/rendezvous threshold at comm init instead of "
+         "using the fixed comm.eager_limit: PING/PONG probes measure the "
+         "per-peer RTT, a memcpy calibration measures the per-byte copy "
+         "cost, and the threshold lands where the payload's copy time is "
+         "4x the round trip a rendezvous adds (<=25% RTT overhead at the "
+         "crossover; clamped to [16 KiB, 16 MiB]).  The derived value is "
+         "reported by Context.comm_tuning()")
 register("comm.chunk_size", 1 << 20, int,
          "rendezvous payloads above this stream as pipelined ranged "
          "chunks (GET[offset,len] -> PUT_CHUNK) instead of one frame: "

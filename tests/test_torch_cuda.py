@@ -1412,3 +1412,33 @@ def test_soak_device_jobs_on_the_card(card):
     tokens = S.run_call("tp_decode_churn", *calls["tp_decode_churn"],
                         device=card)
     assert tokens[0] == tokens[1] and len(tokens[0]) == 3
+
+
+def test_device_debug_stream_on_the_card(card, capsys):
+    """debug.device at 1 on a context: CudaDevice on the card prints
+    'device up: cuda:0 ...' when created and, after a NORM pool of 2
+    tiles, 'flush: 2 dirty mirrors'; O within 2e-5 of the plain RMSNorm."""
+    import torch
+
+    from parsec_tpu_torch import _native as N
+    from parsec_tpu_torch.ops import build_rms_norm
+    rng = np.random.default_rng(19)
+    x = rng.standard_normal((2 * 128, 256)).astype(np.float32)
+    w = rng.standard_normal((1, 256)).astype(np.float32)
+    with pt.Context(nb_workers=2) as ctx:
+        N.lib.ptc_context_set_verbose(ctx._ptr, N.DBG_DEVICE, 1)
+        Xc, Wc = to_collection(x, 128, 256), to_collection(w, 1, 256)
+        Oc = to_collection(np.zeros_like(x), 128, 256)
+        dev = CudaDevice(ctx, device=card)
+        tp = build_rms_norm(ctx, Xc, Wc, Oc, dev=dev)
+        tp.run()
+        tp.wait()
+        dev.flush()
+        dev.stop()
+        o = torch.from_numpy(Oc.to_dense())
+    err = capsys.readouterr().err
+    assert f"ptc [device]: device up: {card} queue=" in err, err
+    assert "ptc [device]: flush: 2 dirty mirrors" in err, err
+    torch.testing.assert_close(
+        o, rms_norm_plain(torch.from_numpy(x), torch.from_numpy(w[0]),
+                          1e-6), rtol=2e-5, atol=2e-5)
