@@ -1543,22 +1543,25 @@ def trace_summary(tr, kernel_launches=None) -> dict:
     """The device's own spans in one pool's trace: the window from the
     first event to the last, the host time in RELEASE_DEPS spans (a
     device task's release runs on the manager thread) and in the lane's
-    DEVICE_H2D spans, dispatch begins and ends, lanes, DEVICE_H2D bytes
-    (dispatch lane 0 and off-path lane 1) and the ends' stall aux; per
+    DEVICE_H2D_AHEAD spans, dispatch begins and ends, lanes, staging bytes
+    (DEVICE_H2D and, off the path, DEVICE_H2D_AHEAD) and the ends' stall
+    aux; per
     task class (DTD bodies: class -1) its dispatch spans, their summed
     host time and stall; the pool's critical path and lost time."""
     from parsec_tpu_torch.profiling import (KEY_DEVICE, KEY_H2D,
-                                            KEY_RELEASE, critical_path,
-                                            lost_time)
+                                            KEY_H2D_AHEAD, KEY_RELEASE,
+                                            critical_path, lost_time)
     ev = tr.events
     beg = ev[:, 1] == 0
-    d, h = ev[:, 0] == KEY_DEVICE, ev[:, 0] == KEY_H2D
+    d = ev[:, 0] == KEY_DEVICE
+    lane = ev[:, 0] == KEY_H2D_AHEAD
+    h = (ev[:, 0] == KEY_H2D) | lane
     per = {}
     busy = {"release_ms": 0.0, "lane_h2d_ms": 0.0}
     for (_, _, key, cid, l0, _, aux, t0, t1) in tr.spans():
         if key == KEY_RELEASE:
             busy["release_ms"] += (t1 - t0) / 1e6
-        elif key == KEY_H2D and aux == 1:
+        elif key == KEY_H2D_AHEAD:
             busy["lane_h2d_ms"] += (t1 - t0) / 1e6
         if key != KEY_DEVICE:
             continue
@@ -1585,7 +1588,7 @@ def trace_summary(tr, kernel_launches=None) -> dict:
             "dispatch_ends": int((d & ~beg).sum()),
             "lanes": int(ev[d & beg, 3].sum()),
             "h2d_bytes": int(ev[h & beg, 3].sum()),
-            "h2d_lane_bytes": int(ev[h & beg & (ev[:, 6] == 1), 3].sum()),
+            "h2d_lane_bytes": int(ev[lane & beg, 3].sum()),
             "stall_ns": int(ev[d & ~beg, 6].sum()),
             "per_class": per,
             "critical_path": cp,

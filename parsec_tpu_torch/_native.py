@@ -364,6 +364,16 @@ for _name, (_res, _args) in _sigs.items():
     fn.restype = _res
     fn.argtypes = _args
 
+# ptc_prof_event called WITHOUT releasing the interpreter lock: a span
+# that must open or close at the instant its counter reads the clock (the
+# device manager's time partition, device/cuda.py) cannot lose the lock
+# to another thread between the two.  The native call only appends to a
+# trace buffer and fans out to PINS (whose callbacks re-enter this thread
+# as the lock's holder).
+prof_event_held = C.PYFUNCTYPE(
+    None, C.c_void_p, C.c_int64, C.c_int64, C.c_int64, C.c_int64,
+    C.c_int64, C.c_int64)(("ptc_prof_event", lib))
+
 
 def peek_buffer(max_tasks: int):
     """A span buffer that holds ptc_peek_ready's records for max_tasks

@@ -12,14 +12,14 @@ import numpy as np
 
 import parsec_tpu_torch as pt
 from parsec_tpu_torch.device import CudaDevice
-from parsec_tpu_torch.profiling.trace import KEY_DEVICE, KEY_H2D
+from parsec_tpu_torch.profiling.trace import KEY_DEVICE, KEY_H2D_AHEAD
 
 from .common import host_provenance, torch_device
 
 
 def _pair_spans(ev, key, aux_filter=None):
     """(t0, t1, l0, end_aux, begin_aux) tuples from consecutive
-    begin/end events of one trace key.  DEVICE and H2D spans are
+    begin/end events of one trace key.  DEVICE and H2D_AHEAD spans are
     emitted by single threads (manager / prefetch lane), so time-ordered
     pairing is exact.  DEVICE begin aux carries the fused mark (0 plain,
     n >= 1 a certified wave of a chain of n waves)."""
@@ -100,7 +100,7 @@ def _device_wave_run(prefetch, tiles, elems, batch, workers=2,
         stats = ctx.device_stats()
         dev.stop()
     waves = _pair_spans(ev, KEY_DEVICE)
-    h2d_pf = _pair_spans(ev, KEY_H2D, aux_filter=1)
+    h2d_pf = _pair_spans(ev, KEY_H2D_AHEAD)
     stats.pop("devices", None)
     stats["trace_overlap_fraction"] = _overlap_fraction(h2d_pf, waves)
     return waves, stats, wall

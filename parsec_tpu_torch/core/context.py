@@ -118,8 +118,14 @@ class Context:
         self._fence_epoch = 0
         if scheduler != "lfq":
             N.lib.ptc_context_set_scheduler(self._ptr, scheduler.encode())
+        # whether the device layer's spans have a reader (the trace or a
+        # PINS chain; see _refresh_listening), and the wall clock's anchor
+        # of the trace to come (profiling/trace.py take_trace)
+        self._pins_on = False
+        self._listening = False
+        self._wall_anchor = None
         if _mca.get("runtime.profile"):
-            N.lib.ptc_profile_enable(self._ptr, 2)
+            self.profile_enable(2)
         if _mca.get("runtime.trace_ring"):
             N.lib.ptc_profile_set_ring(self._ptr,
                                        _mca.get("runtime.trace_ring"))
@@ -993,6 +999,20 @@ class Context:
         profiling.critical_path)."""
         level = 2 if enable is True else int(enable)
         N.lib.ptc_profile_enable(self._ptr, level)
+        if level > 0:
+            # the wall clock against the trace clock, as tracing starts
+            # (take_trace stamps it beside its own: Trace.to_wall)
+            from ..profiling.trace import clock_anchor
+            self._wall_anchor = clock_anchor()
+        self._refresh_listening()
+
+    def _refresh_listening(self) -> None:
+        """Whether anything reads the spans the device layer emits: the
+        trace (a level above 0) or a PINS chain.  While nothing does, the
+        device skips their native calls; its counters do not depend on
+        it."""
+        self._listening = self._pins_on or \
+            N.lib.ptc_profile_level(self._ptr) > 0
 
     def profile_level(self) -> int:
         """Current trace level (0 off, 1 spans, 2 +edges)."""

@@ -62,28 +62,59 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
 A failing kernel fails its tasks (ctx.task_fail) and so the pool: there
 is no silent fallback to another path.
 
+The manager thread's time, always counted: every instant of its loop
+lies in one of four buckets, each a stats counter (ns), written by that
+thread alone at the boundaries between them (one clock read each):
+  - mgr_wait_ns      inside ctx.device_pop with no device task ready
+                     (the blocking pops, the batch-wait polling): the
+                     scheduler's, the builders' and the releases' time
+  - mgr_plan_ns      grouping a popped batch (its draining pops too),
+                     the wave compiler's certification and chain
+                     planning before a launch opens its span, the
+                     prefetch lane's handoff
+  - mgr_dispatch_ns  inside DEVICE_DISPATCH spans, chains included
+                     (h2d_stall_ns is a part of it)
+  - mgr_complete_ns  ctx.task_complete on this thread (the native
+                     release of the tasks' dependencies), and tasks
+                     completed from a parked chain or epilogue result
+They add up to the loop's wall time (info()["stats"]["mgr_wall_ns"]),
+but for the stretch under way when they are read: a wait is credited at
+each of its 50 ms polls, and every other stretch lasts a launch or
+less.  The writeback and prefetch lanes run on threads of their own,
+outside the partition.
+Python's collector pauses every thread: gc_pause_ns and gc_full_passes
+(process totals, while any CudaDevice runs) overlap whichever bucket a
+pause interrupts; they are not a fifth bucket.
+
 Trace spans (profiling/trace.py; recorded when ctx.profile_enable is on,
-from the manager and lane threads, as worker -1):
-  - DEVICE_DISPATCH around each launch (_run_lanes) and each chain:
-    class = the task class id (-1 for a DTD body), l0 = lanes (a chain's:
-    its producer wave's), l1 = the device's queue; the BEGIN's aux = the
-    fused mark (0 plain, n >= 1 a certified wave of a chain of n waves);
-    the END's aux = the dispatch-time h2d stall in ns since the last
-    END, the same nanoseconds stats["h2d_stall_ns"] counts for it
+and handed to PINS, from the manager and lane threads, as worker -1;
+while neither listens no span call is made):
+  - DEVICE_WAIT, DEVICE_PLAN, DEVICE_DISPATCH, DEVICE_COMPLETE: one span
+    per stretch of each bucket above, l1 = the device's queue; their
+    durations add up to the counters.  DEVICE_DISPATCH: class = the
+    task class id (-1 for a DTD body), l0 = lanes (a chain's: its
+    producer wave's); the BEGIN's aux = the fused mark (0 plain, n >= 1
+    a certified wave of a chain of n waves); the END's aux = the
+    dispatch-time h2d stall in ns since the last END, the same
+    nanoseconds stats["h2d_stall_ns"] counts for it.  DEVICE_COMPLETE:
+    class = the task class (-1: a DTD body or none), l0 = tasks, aux =
+    1 for parked or speculative results
+  - GC_PAUSE around each collection (l0 = the generation), on the thread
+    that triggered it
   - DEVICE_H2D around each dispatch-time staging (_h2d): l0 = bytes,
     l1 = the queue, class = the dispatching task's request scope or -1,
-    aux 0; and around each stage off the dispatch path (the prefetch
-    lane; _h2d_ahead: stage_collection, the panel DAGs' index segments):
-    class -1, aux 1.  Every byte stats["h2d_bytes"] counts is in one
-    of these spans.
+    aux 0; DEVICE_H2D_AHEAD around each stage off the dispatch path (the
+    prefetch lane; _h2d_ahead: stage_collection, the panel DAGs' index
+    segments): class -1, aux 1.  Every byte stats["h2d_bytes"] counts
+    is in one of these spans.
   - STREAM around each progressive serve (_stream_serve, on the
     writeback lane): l0 = bytes, l1 = the queue; it brackets the slices'
     d2h copies and their pushes to the wire.
-The first two bracket what the HOST does, as the reference's spans do:
-from the start of the copy into pinned staging (or of the launch's
+The DEVICE_* spans bracket what the HOST does, as the reference's spans
+do: from the start of the copy into pinned staging (or of the launch's
 staging) to the asynchronous enqueue.  The copies and kernels
 themselves run on the card's streams after the span ends;
-torch.profiler times those.
+torch.profiler times those (Trace.to_wall puts the two on one clock).
 
 `CudaDevice(ctx)` runs on the card and raises where there is none;
 `CudaDevice(ctx, device="cpu")` runs the same module with torch CPU
@@ -94,7 +125,9 @@ from __future__ import annotations
 
 import contextlib
 import ctypes as C
+import gc
 import json
+import operator
 import os
 import queue
 import socket
@@ -103,6 +136,7 @@ import threading
 import time
 import traceback
 from collections import OrderedDict, deque
+from functools import partial
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -114,7 +148,9 @@ from ..core.context import Context
 from ..core.taskclass import Mem, TaskClass, TaskView, register_copy_pull
 from ..core.taskpool import Taskpool
 from ..dsl.dtd import DtdView
-from ..profiling.trace import KEY_DEVICE, KEY_H2D, KEY_STREAM
+from ..profiling.trace import (KEY_DEVICE, KEY_DEVICE_COMPLETE,
+                               KEY_DEVICE_PLAN, KEY_DEVICE_WAIT, KEY_GC_PAUSE,
+                               KEY_H2D, KEY_H2D_AHEAD, KEY_STREAM)
 from ..utils import params as _knobs
 from .fuse import WaveFuser
 from .prefetch import _PrefetchLane
@@ -130,6 +166,77 @@ _NP_TO_TORCH = {
 # (one on the copy engine, one landing in its host buffers), so this
 # bounds the pinned staging and the device gather stack a write-back holds
 _D2H_CHUNK = 256 << 20
+
+# the manager thread's time partition: its buckets, their stats counters
+# and their trace keys (see the module's docstring)
+_WAIT, _PLAN, _DISPATCH, _COMPLETE = range(4)
+_MGR_STATS = ("mgr_wait_ns", "mgr_plan_ns", "mgr_dispatch_ns",
+              "mgr_complete_ns")
+_MGR_KEYS = (KEY_DEVICE_WAIT, KEY_DEVICE_PLAN, KEY_DEVICE,
+             KEY_DEVICE_COMPLETE)
+
+
+def _in_one_step(calls: list) -> tuple:
+    """Call each of `calls` in turn, with no bytecode between them: the
+    interpreter switches threads only between bytecodes, so a clock read
+    among span calls that keep the interpreter lock (N.prof_event_held)
+    cannot drift from their stamps by another thread's turn."""
+    return tuple(map(operator.call, calls))
+
+
+class _GcClock:
+    """The pauses of Python's cyclic collector, process-wide: one
+    gc.callbacks hook, installed while any CudaDevice runs (counted by
+    attach/detach, from start() and stop()).  It sums every pass's pause
+    and counts the full (generation 2) passes, and opens a GC_PAUSE span
+    on each listening context of a running device.  A collection stops
+    every thread, so its time is not the manager's alone."""
+
+    def __init__(self):
+        self.pause_ns = 0
+        self.full_passes = 0
+        self._t0: Optional[int] = None  # the pass under way's start
+        self._devs: tuple = ()  # the running devices
+        self._lock = threading.Lock()
+
+    def attach(self, dev) -> None:
+        with self._lock:
+            self._devs += (dev,)
+            if len(self._devs) == 1:
+                gc.callbacks.append(self._hook)
+
+    def detach(self, dev) -> None:
+        with self._lock:
+            if dev not in self._devs:
+                return
+            self._devs = tuple(d for d in self._devs if d is not dev)
+            if not self._devs:
+                gc.callbacks.remove(self._hook)
+
+    def _hook(self, phase: str, info: dict) -> None:
+        gen = info["generation"]
+        begin = phase == "start"
+        ctxs = {id(d.ctx): d.ctx for d in self._devs if d.ctx._listening}
+        if ctxs:
+            # the clock and every listening context's span in one step
+            now = _in_one_step([time.perf_counter_ns] + [
+                partial(N.prof_event_held, c._ptr, KEY_GC_PAUSE,
+                        0 if begin else 1, -1, gen, 0, 0)
+                for c in ctxs.values()])[0]
+        else:
+            now = time.perf_counter_ns()
+        if begin:
+            self._t0 = now
+            return
+        if self._t0 is None:
+            return  # installed during this pass: its start went unseen
+        self.pause_ns += now - self._t0
+        self._t0 = None
+        if gen == 2:
+            self.full_passes += 1
+
+
+_GC = _GcClock()
 
 
 class _DeviceBody:
@@ -885,6 +992,14 @@ class CudaDevice:
         # (manager thread only): read and reset at each end, so a chain's
         # staging before its span opens lands in that span's end aux
         self._disp_stall_ns = 0
+        # the manager's time partition (manager thread only, _mgr_to):
+        # the bucket under way, when it began (perf_counter ns), its
+        # span's (class, l0, begin aux), and the loop's start and end
+        self._mgr_bucket = _PLAN
+        self._mgr_t = 0
+        self._mgr_span = (-1, 0, 0)
+        self._mgr_traced = False  # whether that span's BEGIN was emitted
+        self._mgr_t0 = self._mgr_t1 = 0
         # every key pre-populated: the dict never resizes after init, so a
         # concurrent info() copy cannot hit a changed-size error.  Names
         # follow the reference device module's stats.
@@ -924,7 +1039,11 @@ class CudaDevice:
                       # progressive serve (writeback lane slicing)
                       "stream_serves": 0, "stream_slices": 0,
                       "stream_d2h_ns": 0, "stream_copy_ns": 0,
-                      "stream_bytes": 0}
+                      "stream_bytes": 0,
+                      # the manager thread's time partition (written by
+                      # that thread alone, unlocked: see _mgr_to)
+                      "mgr_wait_ns": 0, "mgr_plan_ns": 0,
+                      "mgr_dispatch_ns": 0, "mgr_complete_ns": 0}
         # chore name -> [launches, lanes]: one launch per kernel call of
         # the manager (epilogues included), written under self._lock
         self.launches: Dict[str, List[int]] = {}
@@ -1057,11 +1176,14 @@ class CudaDevice:
 
     def _prof_h2d(self, phase: int, nbytes: int, scope: int,
                   lane: int) -> None:
-        """One DEVICE_H2D event: l0 = bytes, l1 = this device's queue,
-        class = the request scope (-1: none), aux = the lane (0: a
-        dispatch-time stall, 1: staged off the dispatch path)."""
-        N.lib.ptc_prof_event(self.ctx._ptr, KEY_H2D, phase, scope, nbytes,
-                             self.qid, lane)
+        """One h2d staging event, l0 = bytes, l1 = this device's queue,
+        class = the request scope (-1: none), aux = the lane: DEVICE_H2D
+        (0: a dispatch-time stall) or DEVICE_H2D_AHEAD (1: staged off the
+        dispatch path).  No call while nothing listens."""
+        if self.ctx._listening:
+            N.prof_event_held(self.ctx._ptr,
+                              KEY_H2D_AHEAD if lane else KEY_H2D, phase,
+                              scope, nbytes, self.qid, lane)
 
     def _h2d(self, host: np.ndarray, scope: int = -1):
         """Dispatch-time h2d of one host array, for the exec stream: the
@@ -1091,7 +1213,7 @@ class CudaDevice:
         """h2d of one host array off the dispatch path (the caller's
         thread: stage_collection, the panel DAGs' index segments, a check's
         read of a tile with no mirror), for the exec stream.  Counted in
-        h2d_bytes and traced as a lane-1 DEVICE_H2D span, not as a
+        h2d_bytes and traced as a DEVICE_H2D_AHEAD span, not as a
         launch's stall.  Returns (device tensor, event)."""
         self._prof_h2d(0, host.nbytes, -1, 1)
         out, ev = self._h2d_async(torch.from_numpy(host))
@@ -1539,6 +1661,13 @@ class CudaDevice:
             cache_b = self._cache_used
             stats = dict(self.stats)
             attached = len(self.bodies)
+        # the manager loop's wall time so far (the four mgr_* buckets'
+        # whole), and the collector's process totals
+        t0, t1 = self._mgr_t0, self._mgr_t1
+        stats["mgr_wall_ns"] = (t1 or time.perf_counter_ns()) - t0 \
+            if t0 else 0
+        stats["gc_pause_ns"] = _GC.pause_ns
+        stats["gc_full_passes"] = _GC.full_passes
         on_card = self.device.type == "cuda"
         fz = self._fuser
         return {
@@ -1699,13 +1828,16 @@ class CudaDevice:
                                            daemon=True,
                                            name="ptc-cuda-writeback")
         # the writeback lane first: a manager draining it (_wb_barrier)
-        # before it runs would find it not alive and not wait
+        # before it runs would find it not alive and not wait; and the
+        # prefetch lane too, so that the manager hands off to it
+        # (handoff) from its first wave on
         self._wb_thread.start()
-        self._thread.start()
         if self._pf_enabled:
             self._pf_lane = _PrefetchLane(self, depth=self._pf_depth,
                                           slots=self._pf_slots_max)
             self._pf_lane.start()
+        _GC.attach(self)
+        self._thread.start()
 
     def _wb_loop(self):
         """Writeback lane: make the queued mirrors host-coherent, then
@@ -1874,8 +2006,9 @@ class CudaDevice:
                 return off, b, (began, self._record(self._d2h_stream,
                                                     timing=True))
 
-        N.lib.ptc_prof_event(self.ctx._ptr, KEY_STREAM, 0, -1, total,
-                             self.qid, 0)
+        if self.ctx._listening:
+            N.prof_event_held(self.ctx._ptr, KEY_STREAM, 0, -1, total,
+                              self.qid, 0)
         t0 = time.perf_counter_ns()
         nslices = (total + step - 1) // step
         slices = sent = copy_ns = 0
@@ -1903,8 +2036,9 @@ class CudaDevice:
                     return  # absorbed, and the session completed with it
         finally:
             dt = time.perf_counter_ns() - t0
-            N.lib.ptc_prof_event(self.ctx._ptr, KEY_STREAM, 1, -1, total,
-                                 self.qid, 0)
+            if self.ctx._listening:
+                N.prof_event_held(self.ctx._ptr, KEY_STREAM, 1, -1, total,
+                                  self.qid, 0)
             with self._lock:
                 self.stats["stream_serves"] += 1
                 self.stats["stream_slices"] += slices
@@ -1960,6 +2094,7 @@ class CudaDevice:
             self._wb_thread.join(timeout=30)
         if self in _ALL_DEVICES:
             _ALL_DEVICES.remove(self)
+        _GC.detach(self)
         with self._lock:
             for k in self._cache:
                 N.lib.ptc_device_clear_data_owner(self.ctx._ptr, k,
@@ -1972,73 +2107,176 @@ class CudaDevice:
         if self._fuser is not None:
             self._fuser.clear()
 
+    def _mgr_to(self, bucket: Optional[int], cid: int = -1, l0: int = 0,
+                aux: int = 0) -> None:
+        """Manager thread only: close the stretch of its time partition
+        under way and open one of `bucket` (None: close only, at the
+        loop's end).  One clock read: the stretch's time joins its
+        counter, and while something listens its span ends and the new
+        one begins there, with class `cid`, l0 `l0`, the device's queue
+        and `aux`.  Leaving DEVICE_DISPATCH ends its span with the h2d
+        stall as aux and resets the stall and the fused mark.  A move
+        to the bucket and span under way is no boundary."""
+        old, span = self._mgr_bucket, (cid, l0, aux)
+        if bucket == old and span == self._mgr_span:
+            return
+        ocid, ol0, end_aux = self._mgr_span
+        if old == _DISPATCH:
+            end_aux, self._disp_stall_ns, self._disp_fused = \
+                self._disp_stall_ns, 0, 0
+        listening = self.ctx._listening
+        if listening:
+            ptr, q = self.ctx._ptr, self.qid
+            # an END only for a span that began
+            seq = [partial(N.prof_event_held, ptr, _MGR_KEYS[old], 1, ocid,
+                           ol0, q, end_aux)] if self._mgr_traced else []
+            at = len(seq)
+            seq.append(time.perf_counter_ns)
+            if bucket is not None:
+                seq.append(partial(N.prof_event_held, ptr, _MGR_KEYS[bucket],
+                                   0, cid, l0, q, aux))
+            now = _in_one_step(seq)[at]
+        else:
+            now = time.perf_counter_ns()
+        self.stats[_MGR_STATS[old]] += now - self._mgr_t
+        if bucket is not None:
+            self._mgr_bucket, self._mgr_t, self._mgr_span = \
+                bucket, now, span
+            self._mgr_traced = listening
+
+    def _mgr_tick(self) -> None:
+        """Manager thread, inside a long stretch (at each empty poll of a
+        wait): credit the stretch so far to its counter without ending
+        it, so that counters read at any time miss at most one poll of
+        it; and where tracing came on during the stretch, begin its span
+        now."""
+        seq = [time.perf_counter_ns]
+        reopen = self.ctx._listening and not self._mgr_traced
+        if reopen:
+            c, n, a = self._mgr_span
+            seq.append(partial(N.prof_event_held, self.ctx._ptr,
+                               _MGR_KEYS[self._mgr_bucket], 0, c, n,
+                               self.qid, a))
+        now = _in_one_step(seq)[0]
+        self.stats[_MGR_STATS[self._mgr_bucket]] += now - self._mgr_t
+        self._mgr_t = now
+        self._mgr_traced = self._mgr_traced or reopen
+
+    def _disp_open(self, body: _DeviceBody, lanes: int) -> None:
+        """Open a DEVICE_DISPATCH stretch: class = the task class id
+        (-1 for a DTD body), l0 = lanes, l1 = this device's queue (so
+        same-class spans of sibling devices pair apart), the BEGIN's aux
+        = the fused mark (0 plain, n >= 1 a certified wave of a chain of
+        n waves: device/fuse.py).  The next stretch ends it (_mgr_to)."""
+        self._mgr_to(_DISPATCH, body.tc.id if body.tc is not None else -1,
+                     lanes, self._disp_fused)
+
+    def _disp_close(self, body: _DeviceBody, complete: int) -> None:
+        """End a DEVICE_DISPATCH stretch before its tasks complete (a
+        caller that takes the trace after tp.wait() finds the span
+        closed): into the completion of `complete` tasks, or (0: they
+        complete on the writeback lane, or failed) back to planning."""
+        if complete:
+            self._mgr_to(_COMPLETE,
+                         body.tc.id if body.tc is not None else -1,
+                         complete)
+        else:
+            self._mgr_to(_PLAN)
+
     def _manager(self):
         """Dispatch loop: drain every ready task, group by class (pop
-        order kept), and run each group as one launch."""
-        with self._on_stream(), torch.no_grad():
-            while not self._stop.is_set():
-                task = self.ctx.device_pop(self.qid, timeout_ms=50)
+        order kept), and run each group as one launch.  Its time is
+        partitioned as the module's docstring says (_mgr_to)."""
+        seq = [time.perf_counter_ns]
+        self._mgr_traced = self.ctx._listening
+        if self._mgr_traced:
+            seq.append(partial(N.prof_event_held, self.ctx._ptr,
+                               KEY_DEVICE_PLAN, 0, -1, 0, self.qid, 0))
+        self._mgr_t0 = self._mgr_t = _in_one_step(seq)[0]
+        try:
+            with self._on_stream(), torch.no_grad():
+                self._manage()
+        finally:
+            self._mgr_to(None)
+            self._mgr_t1 = time.perf_counter_ns()
+
+    def _manage(self):
+        while not self._stop.is_set():
+            self._mgr_to(_PLAN)
+            task = self.ctx.device_pop(self.qid, timeout_ms=0)
+            if not task:
+                # one DEVICE_WAIT stretch until a pop returns a task
+                self._mgr_to(_WAIT)
+                while not task and not self._stop.is_set():
+                    task = self.ctx.device_pop(self.qid, timeout_ms=50)
+                    if not task:
+                        self._mgr_tick()
+                self._mgr_to(_PLAN)
                 if not task:
-                    continue
-                if self._ooc and self._cache_used > \
-                        self._cache_bytes * self._overcommit:
-                    # out-of-core hard cap: spills ride the writeback
-                    # lane, so usage may overshoot the budget for a
-                    # while; past overcommit * budget the manager drains
-                    # the lane between waves (an unlocked read: an
-                    # approximate trigger will do, the barrier is exact)
-                    self._stats_add("ooc_waits")
-                    self._wb_barrier()
-                batch = [task]
-                while len(batch) < self.batch_max:
-                    t2 = self.ctx.device_pop(self.qid, timeout_ms=0)
-                    if not t2:
-                        break
-                    batch.append(t2)
-                if (len(batch) > 1 and self.batch_wait_ms > 0
-                        and len(batch) < self.batch_max):
-                    deadline = time.monotonic() + self.batch_wait_ms / 1e3
-                    while (len(batch) < self.batch_max
-                           and time.monotonic() < deadline):
-                        t2 = self.ctx.device_pop(self.qid, timeout_ms=1)
-                        if t2:
-                            batch.append(t2)
-                fz = self._fuser
-                groups: List[Tuple[Optional[_DeviceBody], List]] = []
-                index: Dict[int, int] = {}
-                for t in batch:
-                    body = self._body_for(t)
-                    gi = index.get(id(body))
-                    if gi is None or body is None or not body.batch:
-                        if gi is not None and body is not None \
-                                and fz is not None:
-                            # >= 2 ready tasks of an unbatchable class: the
-                            # wave exists but cannot fuse (counted)
-                            fz._refuse("unbatchable-body")
-                        index[id(body)] = len(groups)
-                        groups.append((body, [t]))
-                    else:
-                        groups[gi][1].append(t)
-                if fz is not None and len(
-                        {id(b) for b, _ in groups if b is not None}) > 1:
-                    # the front as popped was not ONE wave (counted as
-                    # certify()'s heterogeneous refusals are)
-                    fz._refuse("heterogeneous-front")
-                for body, ts in groups:
-                    if body is None:
-                        for t in ts:
-                            self.ctx.task_complete(t)
-                    elif len(ts) == 1 or not body.batch:
-                        for t in ts:
-                            self._run_lanes(body, [t])
-                    else:
-                        self._dispatch_group(body, ts)
-                if self._pf_lane is not None and \
-                        self.ctx.device_queue_depth(self.qid) > 0:
-                    # the wave consumed its staged tiles and the queue's
-                    # head moved: the lane stages the next waves now, on
-                    # the interpreter this thread yields (device/prefetch)
-                    self._pf_lane.handoff()
+                    return
+            if self._ooc and self._cache_used > \
+                    self._cache_bytes * self._overcommit:
+                # out-of-core hard cap: spills ride the writeback
+                # lane, so usage may overshoot the budget for a
+                # while; past overcommit * budget the manager drains
+                # the lane between waves (an unlocked read: an
+                # approximate trigger will do, the barrier is exact)
+                self._stats_add("ooc_waits")
+                self._wb_barrier()
+            batch = [task]
+            while len(batch) < self.batch_max:
+                t2 = self.ctx.device_pop(self.qid, timeout_ms=0)
+                if not t2:
+                    break
+                batch.append(t2)
+            if (len(batch) > 1 and self.batch_wait_ms > 0
+                    and len(batch) < self.batch_max):
+                self._mgr_to(_WAIT)
+                deadline = time.monotonic() + self.batch_wait_ms / 1e3
+                while (len(batch) < self.batch_max
+                       and time.monotonic() < deadline):
+                    t2 = self.ctx.device_pop(self.qid, timeout_ms=1)
+                    if t2:
+                        batch.append(t2)
+                self._mgr_to(_PLAN)
+            fz = self._fuser
+            groups: List[Tuple[Optional[_DeviceBody], List]] = []
+            index: Dict[int, int] = {}
+            for t in batch:
+                body = self._body_for(t)
+                gi = index.get(id(body))
+                if gi is None or body is None or not body.batch:
+                    if gi is not None and body is not None \
+                            and fz is not None:
+                        # >= 2 ready tasks of an unbatchable class: the
+                        # wave exists but cannot fuse (counted)
+                        fz._refuse("unbatchable-body")
+                    index[id(body)] = len(groups)
+                    groups.append((body, [t]))
+                else:
+                    groups[gi][1].append(t)
+            if fz is not None and len(
+                    {id(b) for b, _ in groups if b is not None}) > 1:
+                # the front as popped was not ONE wave (counted as
+                # certify()'s heterogeneous refusals are)
+                fz._refuse("heterogeneous-front")
+            for body, ts in groups:
+                if body is None:
+                    self._mgr_to(_COMPLETE, -1, len(ts))
+                    for t in ts:
+                        self.ctx.task_complete(t)
+                elif len(ts) == 1 or not body.batch:
+                    for t in ts:
+                        self._run_lanes(body, [t])
+                else:
+                    self._dispatch_group(body, ts)
+            if self._pf_lane is not None and \
+                    self.ctx.device_queue_depth(self.qid) > 0:
+                # the wave consumed its staged tiles and the queue's
+                # head moved: the lane stages the next waves now, on
+                # the interpreter this thread yields (device/prefetch)
+                self._mgr_to(_PLAN)
+                self._pf_lane.handoff()
 
     def register_dtd_task(self, task_ptr, kernel: Callable,
                           reads: Sequence[int], writes: Sequence[int],
@@ -2342,50 +2580,39 @@ class CudaDevice:
         for i in range(0, len(tasks), chunk):
             self._run_lanes(body, tasks[i:i + chunk])
 
-    def _prof(self, phase: int, body: _DeviceBody, lanes: int) -> None:
-        """A DEVICE_DISPATCH event: class = the task class id (-1 for a
-        DTD body), l0 = lanes, l1 = this device's queue (so same-class
-        spans of sibling devices pair apart).  The BEGIN's aux is the
-        fused mark (0 plain, n >= 1 a certified wave of a chain of n
-        waves: device/fuse.py); the END's aux is the dispatch-time h2d
-        stall in ns since the last END (0: every input was resident or
-        prefetched), and resets it and the mark."""
-        cid = body.tc.id if body.tc is not None else -1
-        if phase == 0:
-            aux = self._disp_fused
-        else:
-            aux, self._disp_stall_ns, self._disp_fused = \
-                self._disp_stall_ns, 0, 0
-        N.lib.ptc_prof_event(self.ctx._ptr, KEY_DEVICE, phase, cid, lanes,
-                             self.qid, aux)
-
     def _run_lanes(self, body: _DeviceBody, tasks: List):
         """Every launch, of one task or a group, comes here: tasks with a
         parked chain result (device/fuse.py) or an epilogue's parked
-        result complete from it first (no launch, no span); a group of
-        the rest goes to the wave compiler, which runs it, with its
-        certified chain, or hands it back; what is left launches once
-        inside a DEVICE_DISPATCH span."""
+        result complete from it first (no launch, no DEVICE_DISPATCH
+        span: a DEVICE_COMPLETE one with aux 1); a group of the rest goes
+        to the wave compiler, which runs it, with its certified chain, or
+        hands it back; what is left launches once inside a
+        DEVICE_DISPATCH span."""
         fz = self._fuser
-        if fz is not None:
+        cid = body.tc.id if body.tc is not None else -1
+        if fz is not None and fz.has_parked(body):
+            self._mgr_to(_COMPLETE, cid, len(tasks), 1)
             tasks = fz.consume_group(body, tasks)
             if not tasks:
                 return
         if body.spec_src is not None:
+            if self._spec:
+                # a lookup that may complete (none can while nothing is
+                # parked: it is then part of the planning)
+                self._mgr_to(_COMPLETE, cid, len(tasks), 1)
             tasks = [t for t in tasks if not self._try_spec(body, t)]
             if not tasks:
                 return
+        self._mgr_to(_PLAN)
         if fz is not None and len(tasks) > 1 \
                 and fz.dispatch_group(body, tasks):
             return
-        self._prof(0, body, len(tasks))
+        self._disp_open(body, len(tasks))
         wb_stacks = None
         try:
             wb_stacks = self._launch(body, tasks)
         finally:
-            # the span ends before the tasks complete: a caller that
-            # takes the trace after tp.wait() finds every span closed
-            self._prof(1, body, len(tasks))
+            self._disp_close(body, len(tasks) if wb_stacks == [] else 0)
         if wb_stacks is None:
             return  # failed: _launch failed the tasks
         if wb_stacks:

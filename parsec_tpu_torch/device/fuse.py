@@ -185,12 +185,16 @@ class WaveFuser:
                      for s in slots)
 
     # ------------------------------------------------- parked consumption
+    def has_parked(self, body) -> bool:
+        """Whether a chain result of `body`'s class is parked: only then
+        can a popped task of it complete from one."""
+        return bool(self._parked) and body.tc is not None and \
+            (id(body.tp), body.tc.id) in self._parked_classes
+
     def consume_group(self, body, tasks: List) -> List:
         """Complete every task with a matching parked chain result;
         return the rest for a real dispatch."""
-        if not self._parked or body.tc is None:
-            return tasks
-        if (id(body.tp), body.tc.id) not in self._parked_classes:
+        if not self.has_parked(body):
             return tasks
         return [t for t in tasks if not self.consume(body, t)]
 
@@ -514,7 +518,9 @@ class WaveFuser:
         batched dispatch with nothing written (its staging stall lands in
         the next span's end).  A kernel error before any write falls back
         too.  Once the effects below have started, an error fails the
-        tasks (a dispatch again would write lanes twice)."""
+        tasks (a dispatch again would write lanes twice).  The popped
+        wave's tasks complete once the span has ended, as after a batched
+        launch (CudaDevice._disp_close)."""
         dev = self.dev
         tp_id = id(body.tp)
         try:
@@ -528,7 +534,8 @@ class WaveFuser:
         plans, structs, mem_checks = got
 
         dev._disp_fused = 1 + len(levels)
-        dev._prof(0, body, len(tasks))
+        dev._disp_open(body, len(tasks))
+        complete = 0  # the tasks completing here once the span has ended
         try:
             try:
                 pkey = (body.kernel, tuple(body.reads), len(tasks), structs)
@@ -644,8 +651,7 @@ class WaveFuser:
                 if wb_stacks:
                     dev._wb_q.put(("stack", list(tasks), wb_stacks))
                 else:
-                    for t in tasks:
-                        dev.ctx.task_complete(t)
+                    complete = len(tasks)
             except Exception:
                 # effects already started: failing the tasks is the only
                 # sound exit (a dispatch again would write twice)
@@ -653,7 +659,9 @@ class WaveFuser:
                 for t in tasks:
                     dev.ctx.task_fail(t)
         finally:
-            dev._prof(1, body, len(tasks))
+            dev._disp_close(body, complete)
+        for t in tasks[:complete]:
+            dev.ctx.task_complete(t)
         return True
 
     def _publish_hints(self, st, levels) -> None:

@@ -55,9 +55,11 @@ HANDOFF_S).  The wave has consumed its staged tiles by then (a slot may
 have recycled) and the queue's head has moved, so the lane stages the
 next waves.
 
-Each stage is traced as a DEVICE_H2D span (class -1, l0 = bytes, l1 =
-the device's queue, aux 1: the lane), bracketing the host's copy into
-pinned staging and the enqueue, as the reference's lane span does.
+Each stage is traced as a DEVICE_H2D_AHEAD span (class -1, l0 = bytes,
+l1 = the device's queue, aux 1: the lane), bracketing the host's copy
+into pinned staging and the enqueue, as the reference's lane-1
+DEVICE_H2D span does: a key of its own, so that a lane span never pairs
+with a dispatch's DEVICE_H2D span of the same bytes and queue.
 
 Chain hints: the wave compiler (device/fuse.py) publishes, at each chain
 it runs, the collection tiles the NEXT chain segment will read
@@ -313,7 +315,7 @@ class _PrefetchLane:
                         raise
                     # the bytes crossed whether or not the stage is
                     # installed: h2d_bytes counts a refused (wasted) stage
-                    # too, as its DEVICE_H2D span does
+                    # too, as its DEVICE_H2D_AHEAD span does
                     dev._stats_add("h2d_bytes", size)
                     if dev._cache_put_prefetch(uid, ver, arr, size, ev,
                                                epoch):

@@ -5,12 +5,15 @@ exporter and the watchdog (metrics.py), the live sampler (live.py),
 request scopes with plan conformance and the request timeline
 (scope.py), and the crash-durable journal and fleet view (blackbox.py).
 
-Port of parsec_tpu/profiling; it exports the same names.
+Port of parsec_tpu/profiling; it exports the same names, and the keys
+and the wall-clock anchor of the device manager's own spans.
 """
 from .trace import (KEY_EXEC, KEY_RELEASE, KEY_EDGE,
                     KEY_COMM_SEND, KEY_COMM_RECV, KEY_DEVICE, KEY_H2D,
                     KEY_STREAM, KEY_COLL, KEY_SCOPE, KEY_INFLIGHT,
-                    Dictionary, Trace, take_trace, to_dot)
+                    KEY_DEVICE_WAIT, KEY_DEVICE_PLAN, KEY_DEVICE_COMPLETE,
+                    KEY_GC_PAUSE, KEY_H2D_AHEAD,
+                    Dictionary, Trace, clock_anchor, take_trace, to_dot)
 from .critpath import critical_path, lost_time
 from .pins import (PinsModule, PinsChain, TaskCounter, TaskProfiler,
                    CommVolume, DeviceActivity, StragglerLog, REGISTRY,
@@ -23,8 +26,10 @@ from .blackbox import Journal, FleetView
 __all__ = ["KEY_EXEC", "KEY_RELEASE", "KEY_EDGE",
            "KEY_COMM_SEND", "KEY_COMM_RECV", "KEY_DEVICE", "KEY_H2D",
            "KEY_STREAM", "KEY_COLL", "KEY_SCOPE", "KEY_INFLIGHT",
+           "KEY_DEVICE_WAIT", "KEY_DEVICE_PLAN", "KEY_DEVICE_COMPLETE",
+           "KEY_GC_PAUSE", "KEY_H2D_AHEAD",
            "Dictionary", "Trace",
-           "take_trace", "to_dot",
+           "clock_anchor", "take_trace", "to_dot",
            "critical_path", "lost_time",
            "PinsModule", "PinsChain", "TaskCounter", "TaskProfiler",
            "CommVolume", "DeviceActivity", "StragglerLog", "REGISTRY",

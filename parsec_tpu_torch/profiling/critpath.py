@@ -24,16 +24,24 @@ emitted on the producing rank, EXEC on the executing one) resolve.
 
 Port of parsec_tpu/profiling/critpath.py.  The device's spans come from
 its manager and lane threads, which are not workers (worker -1): they
-are left out of lost_time's per-worker rows, as in the reference, and
-read from the trace's DEVICE_DISPATCH / DEVICE_H2D spans instead."""
+are left out of lost_time's per-worker rows, as in the reference.  The
+manager's own time partition (DEVICE_WAIT / PLAN / DISPATCH / COMPLETE,
+device/cuda.py) gets a row of its own, "manager", and, given the card's
+timeline, the blame for the card's idle time."""
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from .trace import (KEY_COLL, KEY_COMM_RECV, KEY_EXEC, KEY_H2D,
-                    KEY_RELEASE, KEY_STREAM, Trace)
+from .trace import (KEY_COLL, KEY_COMM_RECV, KEY_DEVICE,
+                    KEY_DEVICE_COMPLETE, KEY_DEVICE_PLAN, KEY_DEVICE_WAIT,
+                    KEY_EXEC, KEY_GC_PAUSE, KEY_H2D, KEY_RELEASE,
+                    KEY_STREAM, Trace)
+
+# the manager row's buckets, by trace key
+_MANAGER = ((KEY_DEVICE_WAIT, "wait"), (KEY_DEVICE_PLAN, "plan"),
+            (KEY_DEVICE, "dispatch"), (KEY_DEVICE_COMPLETE, "complete"))
 
 Node = Tuple[int, int, int]  # (class_id, l0, l1) — the EDGE identity
 
@@ -140,7 +148,71 @@ def _union_ns(iv: List[Tuple[int, int]]) -> int:
     return tot + (cur_e - cur_b)
 
 
-def lost_time(trace: Trace, comm_wait_window_ns: int = 50_000) -> dict:
+def _manager_rows(t: np.ndarray, win: Dict[int, Tuple[int, int]],
+                  device_ops: Optional[Sequence], rank: int,
+                  window: Optional[Tuple[int, int]]) -> dict:
+    """The device manager's row per rank that has its spans, over the
+    rank's trace window or `window`: the union of each bucket's spans
+    (wait, plan, dispatch, complete) and of the GC pauses (gc,
+    overlapping the others), and with `device_ops` the card's idle time
+    on `rank`: each gap of the ops' union inside the window, labelled by
+    the manager span that covers its midpoint ("none" where no span does;
+    "gc" counts, overlapping, the gaps whose midpoint lies in a GC
+    pause)."""
+    out: Dict[Tuple[int, int], Dict] = {}
+    mgr = t[(t[:, 1] == -1) & np.isin(t[:, 2], [k for k, _ in _MANAGER])]
+    for r in sorted({int(x) for x in mgr[:, 0]}):
+        w0, w1 = window or win[r]
+        rows = t[(t[:, 0] == r) & (t[:, 1] == -1)]
+
+        def spans_of(key):
+            return [(max(int(b), w0), min(int(e), w1)) for b, e in
+                    rows[rows[:, 2] == key][:, 7:9] if e > w0 and b < w1]
+
+        row: Dict = {name: _union_ns(spans_of(key))
+                     for key, name in _MANAGER}
+        gcs = spans_of(KEY_GC_PAUSE)
+        row["gc"] = _union_ns(list(gcs))
+        row["window_ns"] = w1 - w0
+        if device_ops is not None and r == rank:
+            spans = sorted((b, e, name) for key, name in _MANAGER
+                           for b, e in spans_of(key))
+            starts = np.array([b for b, _, _ in spans], dtype=np.int64)
+            gcs.sort()
+            gstarts = np.array([b for b, _ in gcs], dtype=np.int64)
+            blame = {name: 0 for _, name in _MANAGER}
+            blame.update(none=0, gc=0)
+            for a, b in _gaps(device_ops, w0, w1):
+                mid = (a + b) // 2
+                i = int(np.searchsorted(starts, mid, side="right")) - 1
+                name = spans[i][2] if i >= 0 and spans[i][1] >= mid \
+                    else "none"
+                blame[name] += b - a
+                j = int(np.searchsorted(gstarts, mid, side="right")) - 1
+                if j >= 0 and gcs[j][1] >= mid:
+                    blame["gc"] += b - a
+            row["device_idle"] = blame
+        out[(r, -1)] = row
+    return out
+
+
+def _gaps(ops: Sequence, w0: int, w1: int) -> List[Tuple[int, int]]:
+    """The stretches of [w0, w1] that no op (name, start, end) covers."""
+    iv = sorted((max(int(a), w0), min(int(b), w1)) for _, a, b in ops
+                if b > w0 and a < w1)
+    out, cursor = [], w0
+    for a, b in iv:
+        if a > cursor:
+            out.append((cursor, a))
+        cursor = max(cursor, b)
+    if w1 > cursor:
+        out.append((cursor, w1))
+    return out
+
+
+def lost_time(trace: Trace, comm_wait_window_ns: int = 50_000,
+              device_ops: Optional[Sequence] = None,
+              window: Optional[Tuple[int, int]] = None) -> dict:
     """Per-(rank, worker) wall-clock breakdown over the trace window.
 
     Buckets (ns):
@@ -161,7 +233,22 @@ def lost_time(trace: Trace, comm_wait_window_ns: int = 50_000) -> dict:
                    idle) is visible on its own line
       idle       — the rest of the gap time
     Returns {"workers": {(rank, worker): {...}}, "totals": {...}} where
-    every bucket also exists summed in "totals"."""
+    every bucket also exists summed in "totals".
+
+    A trace with the device manager's spans (worker -1) adds "manager":
+    {(rank, -1): {...}} with its buckets, the union of each key's spans:
+      wait       — DEVICE_WAIT: no device task ready
+      plan       — DEVICE_PLAN: grouping, the wave compiler's planning
+      dispatch   — DEVICE_DISPATCH: staging and the asynchronous enqueue
+      complete   — DEVICE_COMPLETE: completions and their release
+      gc         — GC_PAUSE, overlapping the four
+      window_ns  — the rank's trace window, or `window` (start_ns,
+                   end_ns) where given: the row counts inside it only
+    and, with `device_ops` ((name, start_ns, end_ns) on the trace's clock:
+    torch.profiler's device ops against Trace.to_wall()), "device_idle"
+    on the trace's own rank: the card's idle ns in the window by the
+    manager span open at each idle gap's midpoint (wait, plan, dispatch,
+    complete, none; gc overlapping)."""
     t = trace._spans_table()
     ev, rk = trace.events, trace.ranks
     buckets = ("compute", "release", "h2d_stall", "comm_wait",
@@ -253,4 +340,8 @@ def lost_time(trace: Trace, comm_wait_window_ns: int = 50_000) -> dict:
             "window_ns": w1 - w0,
         }
     totals = {b: sum(w[b] for w in workers.values()) for b in buckets}
-    return {"workers": workers, "totals": totals}
+    out = {"workers": workers, "totals": totals}
+    manager = _manager_rows(t, win, device_ops, int(trace.rank), window)
+    if manager:
+        out["manager"] = manager
+    return out

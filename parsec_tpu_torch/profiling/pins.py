@@ -15,7 +15,8 @@ Selection mirrors the reference: the MCA param `runtime.pins` (env
 at Context init, or modules are attached explicitly with enable_pins().
 
 Port of parsec_tpu/profiling/pins.py.  The CUDA device's manager and
-lane threads push their DEVICE_DISPATCH and DEVICE_H2D events through
+lane threads push their DEVICE_DISPATCH, DEVICE_H2D and DEVICE_H2D_AHEAD
+events (and the manager's DEVICE_WAIT/PLAN/COMPLETE, GC_PAUSE) through
 the same sink, so a module's callback also runs on those threads (and
 takes the interpreter lock there).  Device tasks emit no EXEC span, as
 in the reference: TaskCounter, TaskProfiler and StragglerLog see only
@@ -30,7 +31,7 @@ from typing import Dict, List, Optional, Type
 
 from .. import _native as N
 from .trace import (KEY_COMM_RECV, KEY_COMM_SEND, KEY_DEVICE, KEY_EXEC,
-                    KEY_H2D, KEY_RELEASE, KEY_STREAM)
+                    KEY_H2D, KEY_H2D_AHEAD, KEY_RELEASE, KEY_STREAM)
 
 PINS_CB_T = N.PINS_CB_T
 
@@ -40,8 +41,9 @@ class PinsModule:
     keys to receive) and `on_event`.  on_event runs synchronously on
     worker/comm threads — keep it tiny and non-blocking.  Every native
     trace key is subscribable, including the device-pipeline keys
-    (KEY_DEVICE dispatch waves, KEY_H2D staging with aux = lane,
-    KEY_STREAM progressive-serve d2h slices) — the device manager pushes
+    (KEY_DEVICE dispatch waves, KEY_H2D dispatch-time staging,
+    KEY_H2D_AHEAD staging off the dispatch path, KEY_STREAM
+    progressive-serve d2h slices) — the device manager pushes
     them through the same ptc_prof_event sink the worker events use."""
 
     name = "module"
@@ -219,7 +221,8 @@ class DeviceActivity(PinsModule):
     aggregates, but streamed per event — usable without tracing on."""
 
     name = "device_activity"
-    mask = (1 << KEY_DEVICE) | (1 << KEY_H2D) | (1 << KEY_STREAM)
+    mask = (1 << KEY_DEVICE) | (1 << KEY_H2D) | (1 << KEY_H2D_AHEAD) | \
+        (1 << KEY_STREAM)
 
     def __init__(self):
         self.waves = 0
@@ -237,9 +240,9 @@ class DeviceActivity(PinsModule):
                     self.waves += 1
                     self.lanes += l0
                     self.stall_ns += aux
-            elif key == KEY_H2D:
+            elif key == KEY_H2D or key == KEY_H2D_AHEAD:
                 if phase == 1:
-                    self.h2d_bytes[1 if aux else 0] += l0
+                    self.h2d_bytes[1 if key == KEY_H2D_AHEAD else 0] += l0
             elif key == KEY_STREAM:
                 if phase == 1:
                     self.stream_slices += 1
@@ -334,6 +337,8 @@ class PinsChain:
             ctx._pins_keepalive = []
         ctx._pins_keepalive.append(self._cb)
         N.lib.ptc_set_pins_cb(ctx._ptr, self._cb, None, mask)
+        ctx._pins_on = True
+        ctx._refresh_listening()
 
     def uninstall(self):
         # idempotent: a second call (explicit uninstall then Context
@@ -343,6 +348,8 @@ class PinsChain:
         self._uninstalled = True
         N.lib.ptc_set_pins_cb(self._ctx._ptr, C.cast(None, PINS_CB_T),
                               None, 0)
+        self._ctx._pins_on = False
+        self._ctx._refresh_listening()
         for m in self.modules:
             hook = getattr(m, "on_uninstall", None)
             if hook is not None:

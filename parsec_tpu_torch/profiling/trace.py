@@ -28,7 +28,8 @@ Trace.merge lines up the ranks of a multi-rank run.
 """
 import json
 import struct
-from typing import Dict, List, Optional
+import time
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 
@@ -79,6 +80,32 @@ KEY_INFLIGHT = 10  # crash-dump synthetic (ptc-blackbox): one instant
                    # aux = scope_id, begin = the body's open timestamp.
                    # Never emitted on the normal path; ptc_postmortem
                    # reads these to name what a dead rank was executing.
+# The device manager's own time (device/cuda.py), worker -1, l1 = the
+# device's queue.  Its thread's time is partitioned: every instant of its
+# loop lies in exactly one DEVICE_WAIT, DEVICE_PLAN, DEVICE_DISPATCH or
+# DEVICE_COMPLETE span, each the span of one stats["mgr_*_ns"] counter.
+KEY_DEVICE_WAIT = 11      # blocked on the device queue, no device task
+                          # ready: from the first empty pop to the pop
+                          # that returns a task, or one batch-wait poll
+KEY_DEVICE_PLAN = 12      # grouping a popped batch, the wave compiler's
+                          # planning and certification before a launch,
+                          # the prefetch lane's handoff
+KEY_DEVICE_COMPLETE = 13  # completing device tasks on the manager thread
+                          # (the native release of their dependencies):
+                          # class = the task class (-1: a DTD body or
+                          # none), l0 = tasks, aux = 1 where they complete
+                          # from parked chain or epilogue results (l0 is
+                          # then the tasks looked up; a stale result goes
+                          # on to a launch, counted in chain/spec_misses)
+KEY_GC_PAUSE = 14         # one pass of Python's cyclic collector while a
+                          # CudaDevice runs, on the thread that triggered
+                          # it: l0 = the generation.  It overlaps the
+                          # manager span it interrupts (no fifth bucket)
+KEY_H2D_AHEAD = 15        # h2d staged off the dispatch path (the prefetch
+                          # lane, stage_collection, a check's read): as
+                          # DEVICE_H2D, class -1, aux 1.  A key of its own
+                          # so that its spans never pair with a
+                          # dispatch's of the same bytes and queue
 
 _MAGIC = b"#PTCPROF"
 _VERSION = 2
@@ -96,7 +123,30 @@ _DEFAULT_KEYS = {
     KEY_COLL: ("COLL_RECV", "#00ffcc"),
     KEY_SCOPE: ("SCOPE", "#ff00aa"),
     KEY_INFLIGHT: ("INFLIGHT", "#ff4444"),
+    KEY_DEVICE_WAIT: ("DEVICE_WAIT", "#dddddd"),
+    KEY_DEVICE_PLAN: ("DEVICE_PLAN", "#ffdd00"),
+    KEY_DEVICE_COMPLETE: ("DEVICE_COMPLETE", "#0066ff"),
+    KEY_GC_PAUSE: ("GC_PAUSE", "#ff0000"),
+    KEY_H2D_AHEAD: ("DEVICE_H2D_AHEAD", "#66ccff"),
 }
+
+# a device op on the wall clock, as torch.profiler's CUDA events carry it
+DeviceOp = Tuple[str, int, int]  # (name, start_ns, end_ns)
+
+
+def clock_anchor(samples: int = 5) -> Tuple[int, int]:
+    """One (trace clock, wall clock) pair in ns: ptc_clock_ns read
+    between two time.time_ns() reads, against their midpoint, from the
+    tightest of `samples` brackets."""
+    from .. import _native as N
+    best = None
+    for _ in range(samples):
+        w0 = time.time_ns()
+        c = N.lib.ptc_clock_ns()
+        w1 = time.time_ns()
+        if best is None or w1 - w0 < best[0]:
+            best = (w1 - w0, c, (w0 + w1) // 2)
+    return best[1], best[2]
 
 
 class Dictionary:
@@ -119,7 +169,12 @@ class Dictionary:
 
     @classmethod
     def from_json(cls, d):
+        """The dictionary a file's header carries, as written (so a
+        trace loads with the keys it was saved with); an empty one (the
+        native flight dump's) gets the default keys."""
         out = cls()
+        if d:
+            out.keys = {}
         for k, v in d.items():
             out.keys[int(k)] = dict(v)
         return out
@@ -225,11 +280,17 @@ class Trace:
                 e[:, 7] += off
             offsets[int(t.rank)] = off
             evs.append(e)
+        meta = {"merged_ranks": [t.rank for t in traces],
+                "clock_offsets_ns": offsets}
+        if traces and traces[0].meta.get("wall_anchors"):
+            # every rank is on the first trace's clock now: its anchors,
+            # shifted as its events were, map the merged timeline
+            off0 = offsets[int(traces[0].rank)]
+            meta["wall_anchors"] = [[c + off0, w] for c, w in
+                                    traces[0].meta["wall_anchors"]]
         out = cls(np.concatenate(evs) if evs else
                   np.empty((0, 8), dtype=np.int64),
-                  dictionary, traces[0].rank if traces else 0,
-                  {"merged_ranks": [t.rank for t in traces],
-                   "clock_offsets_ns": offsets},
+                  dictionary, traces[0].rank if traces else 0, meta,
                   class_names)
         out.ranks = np.concatenate([t.ranks for t in traces]) if traces \
             else out.ranks
@@ -278,6 +339,40 @@ class Trace:
         if shifts:
             self.meta["causal_shift_ns"] = shifts
         self.meta["clamped_recvs"] = clamped
+
+    # ------------------------------------------------------ wall clock
+    def to_wall(self) -> "Trace":
+        """A copy whose timestamps are on the wall clock (time.time_ns,
+        the base torch.profiler's CUDA events carry), mapped linearly
+        through meta["wall_anchors"]: the (trace clock, wall clock) pairs
+        take_trace stamps when profiling was enabled and when the buffers
+        were drained.  The line through the first and last anchor
+        corrects the trace clock's drift against the wall clock between
+        them (one anchor: an offset alone); the anchors map exactly.
+        Trace.merge's cross-rank offsets, already in the timestamps,
+        stay as they are.  Raises ValueError without anchors."""
+        anchors = self.meta.get("wall_anchors")
+        if not anchors:
+            raise ValueError("the trace has no wall_anchors in its meta "
+                             "(take_trace stamps them)")
+        (c0, w0), (c1, w1) = anchors[0], anchors[-1]
+        rate = (w1 - w0) / (c1 - c0) if c1 != c0 else 1.0
+        ev = self.events.copy()
+        ev[:, 7] = w0 + np.rint((ev[:, 7] - c0) * rate).astype(np.int64)
+        out = Trace(ev, self.dict, self.rank, dict(self.meta, wall=True),
+                    self.class_names)
+        out.ranks = self.ranks.copy()
+        return out
+
+    def wall_drift_ns(self) -> int:
+        """How far the trace clock drifted from the wall clock between
+        the first and the last anchor (wall minus trace clock, ns; 0 with
+        fewer than two anchors)."""
+        anchors = self.meta.get("wall_anchors") or []
+        if len(anchors) < 2:
+            return 0
+        (c0, w0), (c1, w1) = anchors[0], anchors[-1]
+        return int((w1 - w0) - (c1 - c0))
 
     # ----------------------------------------------------- trace tables
     def _spans_table(self) -> np.ndarray:
@@ -538,7 +633,8 @@ class Trace:
         from .critpath import lost_time
         return lost_time(self, **kw)
 
-    def to_perfetto(self, path: Optional[str] = None):
+    def to_perfetto(self, path: Optional[str] = None,
+                    device_ops: Optional[List[DeviceOp]] = None):
         """Standard-tool sink: Chrome/Perfetto trace-event JSON (the
         reference ships an OTF2 writer, parsec/profiling_otf2.c, for
         Vampir/Score-P interop; Perfetto's trace-event format is the
@@ -547,9 +643,19 @@ class Trace:
         Spans become "X" complete events with pid=rank / tid=worker;
         COMM instant spans (begin==end) become "i" instant events, and
         matched send/recv pairs additionally emit "s"/"f" FLOW events so
-        the UI draws arrows between ranks.  Returns the JSON object;
+        the UI draws arrows between ranks.  `device_ops`, (name, start_ns,
+        end_ns) on the trace's clock (the wall clock: map the trace with
+        to_wall() first), become one more track of the rank, "device"
+        (tid -2), beside the host spans.  Returns the JSON object;
         writes it to `path` when given."""
         out = []
+        if device_ops:
+            out.append({"ph": "M", "name": "thread_name", "pid": self.rank,
+                        "tid": -2, "args": {"name": "device"}})
+            for name, t0, t1 in device_ops:
+                out.append({"name": name, "cat": "device", "ph": "X",
+                            "pid": self.rank, "tid": -2, "ts": t0 / 1e3,
+                            "dur": (t1 - t0) / 1e3})
         for (rank, worker, key, cid, l0, l1, aux, t0, t1) in self.spans():
             name = (self._cname(cid) if key == KEY_EXEC and cid >= 0
                     else self.dict.name(key))
@@ -598,8 +704,9 @@ def take_trace(ctx, rank: Optional[int] = None,
     """Drain a Context's native profiling buffers into a Trace.  The
     header meta is stamped with the rank's clock-sync estimate
     (Context.comm_clock, once measured: a later Trace.merge aligns the
-    ranks with it), the flight recorder's drop count and ring size, and
-    the request-scope legend when a ScopeRegistry is attached.  `rank`
+    ranks with it), the flight recorder's drop count and ring size, the
+    wall clock's anchors (`wall_anchors`, see Trace.to_wall) and the
+    request-scope legend when a ScopeRegistry is attached.  `rank`
     defaults to the context's rank."""
     m = dict(meta or {})
     if rank is None:
@@ -610,6 +717,13 @@ def take_trace(ctx, rank: Optional[int] = None,
         m.setdefault("clock_err_ns", ck["err_ns"])
     m.setdefault("dropped_events", ctx.profile_dropped())
     m.setdefault("ring_bytes", ctx.profile_ring())
+    # the wall clock's anchors: profiling's enable (or the last drain)
+    # and this drain; the drain's anchors the next trace
+    taken = clock_anchor()
+    first = getattr(ctx, "_wall_anchor", None)
+    m.setdefault("wall_anchors", [list(a) for a in (first, taken)
+                                  if a is not None])
+    ctx._wall_anchor = taken
     # request-scope legend (header stays v2: meta is free-form JSON) —
     # a trace names the requests its spans belong to
     reg = getattr(ctx, "_scope_registry", None)
