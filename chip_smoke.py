@@ -1214,12 +1214,13 @@ def dsl_path(dev_t, rng, dims=None, ptg_norm_o=None) -> dict:
                 device's bytes
     Before each DTD run, phase 4's PTG pool of the same path runs on the
     same data (PTG-GEMM, PTG-NORM, PTG-FATT), held as phase 4 holds it:
-    the per-task DTD dispatch against PTG's lane groups, both warm (phase
-    4's runs are each path's first in the process).  Each run's wall is
-    from its first insert (PTG and JDF: building the pool and run())
-    through wait(), dev.flush() and a synchronize, printed with the task
-    count and the hand-written kernels' launches in the run; on a card
-    the DTD runs must launch their kernel once a task.  Returns {"runs":
+    the DTD dispatch (vmapped lanes where the kernel allows) against
+    PTG's lane groups, both warm (phase 4's runs are each path's first in
+    the process).  Each run's wall is from its first insert (PTG and JDF:
+    building the pool and run()) through wait(), dev.flush() and a
+    synchronize, printed with the task count and the hand-written
+    kernels' launches in the run; on a card the DTD runs must launch
+    their kernel once a task (the ops' wrappers refuse vmap).  Returns {"runs":
     {label: row}, "launches": the kernels' launches summed}."""
     import torch
 

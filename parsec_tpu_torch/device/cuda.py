@@ -11,6 +11,14 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
     as a [lanes, *tile] tensor, and a flow that every lane reads
     identically is passed once, as a lane-stride-0 view.  This replaces
     the reference's jit(vmap(kernel)) executables
+  - DTD device tasks (dsl/dtd.py insert_cuda_task) of one signature (pool,
+    kernel, access modes, tile shapes, dtype) share one body, so a drain
+    groups them too: a group of independent tasks (no member writes a
+    copy another reads or writes; a group that is not is split in pop
+    order) is ONE launch of torch.func.vmap(kernel) over the lane stacks,
+    the kernel keeping its single-tile contract.  A kernel vmap refuses
+    (.item(), a branch on a value) runs one task per launch from then on,
+    as does a task whose flows declare no shape
   - device-resident dataflow: results stay on the card as dirty mirrors
     in a uid-keyed, versioned LRU; successors consume them from device
     memory.  The host copy is written (a) by the writeback lane for
@@ -167,6 +175,10 @@ _NP_TO_TORCH = {
 # bounds the pinned staging and the device gather stack a write-back holds
 _D2H_CHUNK = 256 << 20
 
+# _launch's answer for a DTD group whose kernel vmap refused: nothing was
+# launched or installed, and the tasks are to launch one by one
+_UNBATCHED = object()
+
 # the manager thread's time partition: its buckets, their stats counters
 # and their trace keys (see the module's docstring)
 _WAIT, _PLAN, _DISPATCH, _COMPLETE = range(4)
@@ -174,6 +186,49 @@ _MGR_STATS = ("mgr_wait_ns", "mgr_plan_ns", "mgr_dispatch_ns",
               "mgr_complete_ns")
 _MGR_KEYS = (KEY_DEVICE_WAIT, KEY_DEVICE_PLAN, KEY_DEVICE,
              KEY_DEVICE_COMPLETE)
+
+
+def _dtd_signature(tp, kernel, reads, writes, shapes, dtype,
+                   nb_flows) -> Optional[tuple]:
+    """What DTD device tasks share when one launch can run them as lanes:
+    their pool, kernel object, access modes, tile shapes, dtype and
+    arity.  None where a read or write flow declares no shape, or where
+    the task reads nothing (vmap batches over the reads)."""
+    flows = set(reads) | set(writes)
+    if not reads or any(shapes.get(f) is None for f in flows):
+        return None
+    return (tp, kernel, tuple(reads), tuple(writes),
+            tuple((f, tuple(shapes[f])) for f in sorted(flows)),
+            np.dtype(dtype), nb_flows)
+
+
+def _independent_runs(lanes: Sequence[tuple]) -> List[int]:
+    """The lengths of the runs, in order, into which the lanes `lanes`
+    ((read copies, written copies) each) split so that no lane of a run
+    writes a copy that another lane of it reads or writes: the lanes of
+    one launch run in no order."""
+    runs, n, rd, wr = [], 0, set(), set()
+    for r, w in lanes:
+        if n and (w & (rd | wr) or r & wr):
+            runs.append(n)
+            n, rd, wr = 0, set(), set()
+        n += 1
+        rd |= r
+        wr |= w
+    runs.append(n)
+    return runs
+
+
+def _vmapped(kernel: Callable, ins: Sequence[torch.Tensor]):
+    """`kernel`, which takes single tiles, called once over the lanes of
+    the [lanes, *tile] stacks `ins` by torch.func.vmap.  A flow every lane
+    reads identically (a lane-stride-0 view, _lanes_of) goes in once,
+    unbatched, but one flow is always batched."""
+    dims = [None if t.stride(0) == 0 else 0 for t in ins]
+    if 0 not in dims:
+        dims[0] = 0
+    args = [t if d == 0 else t[0] for t, d in zip(ins, dims)]
+    return torch.func.vmap(kernel, in_dims=tuple(dims))(*args)
 
 
 def _in_one_step(calls: list) -> tuple:
@@ -241,10 +296,11 @@ _GC = _GcClock()
 
 class _DeviceBody:
     """A device chore: the kernel and its flows.  A PTG class body (`tc`
-    set) is keyed by (pool, class) and its flows are named; a DTD task's
-    body (`tc` None) is keyed by the task's tag, its flows are argument
-    indices (`nb_flows` of them), its kernel takes and returns single
-    tiles, and it runs one task per launch."""
+    set) is keyed by (pool, class) and its flows are named; a DTD body
+    (`tc` None) is shared by the tasks of one signature and found by each
+    task's tag, its flows are argument indices (`nb_flows` of them), and
+    its kernel takes and returns single tiles: a group of its tasks
+    launches as torch.func.vmap(kernel) (CudaDevice.register_dtd_task)."""
 
     def __init__(self, kernel: Callable, reads: Sequence,
                  writes: Sequence, shapes: Dict, dtypes: Dict,
@@ -258,7 +314,9 @@ class _DeviceBody:
         self.tc = tc
         self.tp = tp
         self.nb_flows = nb_flows
-        self.batch = batch  # kernel is elementwise over lanes
+        # a group launches as one: the kernel is elementwise over lanes
+        # (a DTD body: vmap takes its kernel, until a launch finds not)
+        self.batch = batch
         # speculative epilogue: this class is its source (epilogue) or
         # its destination (spec_src); see CudaDevice.attach_epilogue
         self.epilogue: Optional["_Epilogue"] = None
@@ -938,8 +996,11 @@ class CudaDevice:
             os.environ.get("PTC_DEVICE_BATCH_BYTES", str(2 << 30)))
         self.bodies: Dict[Tuple[int, int], _DeviceBody] = {}
         # DTD device tasks' bodies by task tag (register_dtd_task); each
-        # is popped at its task's dispatch
+        # is popped at its task's dispatch.  The bodies by signature
+        # (_dtd_signature), one per pool and signature, dropped with the
+        # pool's leftovers at its wait()
         self._dtd_bodies: Dict[int, _DeviceBody] = {}
+        self._dtd_sigs: Dict[tuple, _DeviceBody] = {}
         self._tp_by_ptr: Dict[int, Taskpool] = {}
         # device-copy LRU keyed by uid (stamped into the native copy handle,
         # so freed/reused ptc_copy addresses can't alias — ABA guard)
@@ -1011,6 +1072,12 @@ class CudaDevice:
                       "h2d_stall_ns": 0, "cache_peak_bytes": 0,
                       "d2d_bytes": 0,
                       "spec_store": 0, "spec_hits": 0, "spec_misses": 0,
+                      # DTD lane batching: launches of more than one DTD
+                      # task and their tasks, signatures vmap refused
+                      # (then one launch a task), cuts of a group whose
+                      # members touch a copy another writes
+                      "dtd_batches": 0, "dtd_batched_tasks": 0,
+                      "dtd_unbatchable": 0, "dtd_splits": 0,
                       # device pipeline (prefetch lane + residency planner)
                       "prefetch_staged": 0, "prefetch_bytes": 0,
                       "prefetch_hits": 0, "prefetch_misses": 0,
@@ -2103,6 +2170,7 @@ class CudaDevice:
             self._stacks.clear()
             self._spec.clear()
             self._dtd_bodies.clear()
+            self._dtd_sigs.clear()
             self._cache_used = 0
         if self._fuser is not None:
             self._fuser.clear()
@@ -2184,9 +2252,10 @@ class CudaDevice:
             self._mgr_to(_PLAN)
 
     def _manager(self):
-        """Dispatch loop: drain every ready task, group by class (pop
-        order kept), and run each group as one launch.  Its time is
-        partitioned as the module's docstring says (_mgr_to)."""
+        """Dispatch loop: drain every ready task, group by body (a class,
+        or a DTD signature; pop order kept), and run each group as one
+        launch.  Its time is partitioned as the module's docstring says
+        (_mgr_to)."""
         seq = [time.perf_counter_ns]
         self._mgr_traced = self.ctx._listening
         if self._mgr_traced:
@@ -2247,7 +2316,7 @@ class CudaDevice:
                 gi = index.get(id(body))
                 if gi is None or body is None or not body.batch:
                     if gi is not None and body is not None \
-                            and fz is not None:
+                            and body.tc is not None and fz is not None:
                         # >= 2 ready tasks of an unbatchable class: the
                         # wave exists but cannot fuse (counted)
                         fz._refuse("unbatchable-body")
@@ -2255,10 +2324,12 @@ class CudaDevice:
                     groups.append((body, [t]))
                 else:
                     groups[gi][1].append(t)
-            if fz is not None and len(
-                    {id(b) for b, _ in groups if b is not None}) > 1:
-                # the front as popped was not ONE wave (counted as
-                # certify()'s heterogeneous refusals are)
+            if fz is not None and len({id(b) for b, _ in groups
+                                       if b is not None
+                                       and b.tc is not None}) > 1:
+                # the front as popped was not ONE wave of classes
+                # (counted as certify()'s heterogeneous refusals are;
+                # DTD bodies are no class's wave)
                 fz._refuse("heterogeneous-front")
             for body, ts in groups:
                 if body is None:
@@ -2286,11 +2357,24 @@ class CudaDevice:
         consumed at its dispatch.  Keyed by a process-unique tag stamped
         on the task, never by its heap address, which a later task can
         reuse (the ABA hazard the copy cache's uids guard too).  Returns
-        the tag."""
-        dtypes = {i: np.dtype(dtype) for i in range(nb_flows)}
-        body = _DeviceBody(kernel, reads, writes, shapes, dtypes, None, tp,
-                           nb_flows, batch=False)
+        the tag.
+
+        Tasks of one signature (_dtd_signature) share one batchable body,
+        so that a drain groups them into one vmapped launch (_launch).  A
+        task with a read or write flow of no declared shape (the whole
+        datum, whose size may differ from task to task) or with no read
+        gets a body of its own and runs one task per launch."""
+        sig = _dtd_signature(tp, kernel, reads, writes, shapes, dtype,
+                             nb_flows)
         with self._lock:
+            body = self._dtd_sigs.get(sig) if sig is not None else None
+            if body is None:
+                dtypes = {i: np.dtype(dtype) for i in range(nb_flows)}
+                body = _DeviceBody(kernel, reads, writes, dict(shapes),
+                                   dtypes, None, tp, nb_flows,
+                                   batch=sig is not None)
+                if sig is not None:
+                    self._dtd_sigs[sig] = body
             tag = _next_uid()
             N.lib.ptc_task_set_tag(task_ptr, tag)
             self._dtd_bodies[tag] = body
@@ -2300,13 +2384,15 @@ class CudaDevice:
         """Forget DTD bodies that will never dispatch: the one of `tag`
         (an insertion the pool refused), or every one of the pool `tp`
         still held (its wait() returned: they are tasks an abort
-        dropped)."""
+        dropped), and the pool's bodies by signature."""
         with self._lock:
             if tag is not None:
                 self._dtd_bodies.pop(tag, None)
                 return
             for t in [t for t, b in self._dtd_bodies.items() if b.tp is tp]:
                 del self._dtd_bodies[t]
+            for sig in [s for s, b in self._dtd_sigs.items() if b.tp is tp]:
+                del self._dtd_sigs[sig]
 
     def _body_for(self, task) -> Optional[_DeviceBody]:
         """A DTD task's body by its tag (popped: a tag dispatches once),
@@ -2566,8 +2652,10 @@ class CudaDevice:
         self._spec_put((epi.dst_bkey, key), eouts, src)
 
     def _dispatch_group(self, body: _DeviceBody, tasks: List):
-        """One launch for a group of ready tasks of one class, split so
-        that one launch's lane stacks stay under PTC_DEVICE_BATCH_BYTES."""
+        """One launch for a group of ready tasks of one body, split so
+        that one launch's lane stacks stay under PTC_DEVICE_BATCH_BYTES;
+        a DTD group is first split into runs of independent tasks
+        (_dtd_runs)."""
         per_task = 0
         for f in list(body.reads) + list(body.writes):
             shp = body.shapes.get(f)
@@ -2577,8 +2665,29 @@ class CudaDevice:
         chunk = len(tasks)
         if per_task > 0 and chunk * per_task > self.batch_max_bytes:
             chunk = max(1, self.batch_max_bytes // per_task)
-        for i in range(0, len(tasks), chunk):
-            self._run_lanes(body, tasks[i:i + chunk])
+        runs = [tasks] if body.tc is not None else self._dtd_runs(body, tasks)
+        for run in runs:
+            for i in range(0, len(run), chunk):
+                self._run_lanes(body, run[i:i + chunk])
+
+    def _dtd_runs(self, body: _DeviceBody, tasks: List) -> List[List]:
+        """A DTD group split, in pop order, into runs whose tasks may
+        share a launch (_independent_runs over the flows' copies, told
+        apart by address as the wave compiler's check does: every copy
+        of a popped task is live, so an address names one copy); each
+        cut counts in stats["dtd_splits"].  The engine's accessor chains
+        order every writer of a tile after its readers and writers, so a
+        front never needs a cut: this makes it sure."""
+        copy = N.lib.ptc_task_copy
+        lanes = [({copy(t, f) for f in body.reads},
+                  {copy(t, f) for f in body.writes}) for t in tasks]
+        runs, i = [], 0
+        for n in _independent_runs(lanes):
+            runs.append(tasks[i:i + n])
+            i += n
+        if len(runs) > 1:
+            self._stats_add("dtd_splits", len(runs) - 1)
+        return runs
 
     def _run_lanes(self, body: _DeviceBody, tasks: List):
         """Every launch, of one task or a group, comes here: tasks with a
@@ -2587,7 +2696,12 @@ class CudaDevice:
         span: a DEVICE_COMPLETE one with aux 1); a group of the rest goes
         to the wave compiler, which runs it, with its certified chain, or
         hands it back; what is left launches once inside a
-        DEVICE_DISPATCH span."""
+        DEVICE_DISPATCH span.  A DTD body that vmap refused runs one task
+        per launch."""
+        if len(tasks) > 1 and not body.batch:
+            for t in tasks:
+                self._run_lanes(body, [t])
+            return
         fz = self._fuser
         cid = body.tc.id if body.tc is not None else -1
         if fz is not None and fz.has_parked(body):
@@ -2615,6 +2729,9 @@ class CudaDevice:
             self._disp_close(body, len(tasks) if wb_stacks == [] else 0)
         if wb_stacks is None:
             return  # failed: _launch failed the tasks
+        if wb_stacks is _UNBATCHED:
+            self._run_lanes(body, tasks)  # now one launch a task
+            return
         if wb_stacks:
             self._wb_q.put(("stack", list(tasks), wb_stacks))
             return
@@ -2622,10 +2739,12 @@ class CudaDevice:
             self.ctx.task_complete(t)
 
     def _outputs(self, body: _DeviceBody, out, lanes: int,
-                 ins: Sequence[torch.Tensor] = ()) -> tuple:
+                 ins: Sequence[torch.Tensor] = (),
+                 tiles: bool = False) -> tuple:
         """A kernel's return value as one [lanes, *tile] stack per write
-        flow on this device (a DTD kernel's single tiles get their lane
-        axis); raises on a count, width or device that does not fit.
+        flow on this device (`tiles`: single tiles, a one-task DTD
+        launch's, which get their lane axis); raises on a count, width
+        or device that does not fit.
 
         An output that shares storage with one of the launch's input
         stacks `ins` (a chore passing a flow through, as ring
@@ -2638,7 +2757,7 @@ class CudaDevice:
             raise ValueError(
                 f"{body.name}: kernel returned {len(outs)} "
                 f"output(s) for {len(body.writes)} write flow(s)")
-        if body.tc is None:
+        if tiles:
             outs = tuple(o.unsqueeze(0) for o in outs)
         for f, ostack in zip(body.writes, outs):
             if ostack.shape[0] != lanes or ostack.device != self.device:
@@ -2657,19 +2776,38 @@ class CudaDevice:
         for sync-mem-out flows, from the writeback lane, after the
         launch's output stack has landed on the host); any failure fails
         every task of the launch and returns None — no fallback.  An
-        epilogue's source lane runs the epilogue inside the launch."""
+        epilogue's source lane runs the epilogue inside the launch.
+
+        A DTD kernel takes one task's tiles: a group of its tasks calls
+        it once under torch.func.vmap (_vmapped).  Where that raises,
+        nothing is installed, the body is marked unbatchable and counted,
+        and _UNBATCHED is returned: the caller launches the tasks one by
+        one, where an error of the kernel's own fails its task."""
         views = [body.make_view(t) for t in tasks]
         try:
             ins = [self._lanes_in(views, body, f) for f in body.reads]
-            if body.tc is None:
-                # a DTD kernel takes one task's tiles, not lane stacks
+            dtd_tiles = body.tc is None and len(tasks) == 1
+            if body.tc is not None:
+                out = body.kernel(*ins)
+            elif dtd_tiles:
                 out = body.kernel(*(t[0] for t in ins))
             else:
-                out = body.kernel(*ins)
+                try:
+                    out = _vmapped(body.kernel, ins)
+                except Exception as e:
+                    # vmap refused the kernel (.item(), a branch on a
+                    # value, an op with no batching rule), or the kernel
+                    # raised: it is tried once, and its lanes run alone
+                    body.batch = False
+                    self._stats_add("dtd_unbatchable")
+                    self._dbg(f"{body.name}: vmap refused the kernel "
+                              f"({type(e).__name__}: {e}); one launch a "
+                              "task from now on")
+                    return _UNBATCHED
             self._count_launch(body.kernel, len(tasks))
             # the outputs' clones (if any) are enqueued before the event
             # that their mirrors' readers on other streams wait on
-            outs = self._outputs(body, out, len(tasks), ins)
+            outs = self._outputs(body, out, len(tasks), ins, dtd_tiles)
             ev = self._record()
             epi, epi_lane, epi_key = body.epilogue, None, None
             if epi is not None:
@@ -2694,6 +2832,9 @@ class CudaDevice:
             if len(tasks) > 1:
                 self._stats_add("batches")
                 self._stats_add("batched_tasks", len(tasks))
+                if body.tc is None:
+                    self._stats_add("dtd_batches")
+                    self._stats_add("dtd_batched_tasks", len(tasks))
         except Exception:
             # a failed kernel must NOT complete its tasks: successors would
             # consume garbage and the pool would "succeed"

@@ -286,7 +286,8 @@ class WaveFuser:
         DEVICE_DISPATCH begin's fused mark set when the wave certified."""
         dev = self.dev
         if body.tc is None:
-            self._refuse("dtd-body")
+            # a DTD group: no class, so no wave to certify; the device
+            # launches it as lanes (not a refusal: the counters stay PTG's)
             return False
         if not body.batch:
             self._refuse("unbatchable-body")

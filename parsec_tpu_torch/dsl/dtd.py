@@ -11,8 +11,12 @@ parsec_dtd_insert_task / parsec_dtd_taskpool_wait, window throttling at
 insert_function.c:69,472-509.
 
 Port of parsec_tpu/dsl/dtd.py.  A device task is inserted with
-insert_cuda_task and runs its kernel on a CudaDevice (device/cuda.py),
-one task per launch.
+insert_cuda_task and runs its kernel on a CudaDevice (device/cuda.py).
+The kernel takes one task's tiles; ready tasks of one kernel, access
+modes, tile shapes and dtype that the device finds together run as one
+launch of torch.func.vmap(kernel), one lane a task (a kernel vmap
+refuses, or a task with an argument of no declared shape, runs one task
+per launch).
 """
 from __future__ import annotations
 
@@ -248,14 +252,24 @@ class DtdTaskpool:
 
     def insert_cuda_task(self, dev, kernel: Callable, *args,
                          shapes=None, dtype=np.float32, priority: int = 0):
-        """Insert a device task, run by `dev` (a CudaDevice) as one kernel
-        launch: kernel(*reads) -> writes, where the reads are the
-        arguments whose mode reads (INPUT, INOUT) as tensors on the
-        device, in argument order, and the kernel returns one tensor per
-        argument whose mode writes (OUTPUT, INOUT), in argument order.
-        `shapes` maps an argument index to its tile shape (default: the
-        whole datum as a vector); every argument has type `dtype`.  A
-        failing kernel fails the pool; there is no host fallback."""
+        """Insert a device task, run by `dev` (a CudaDevice):
+        kernel(*reads) -> writes, where the reads are the arguments whose
+        mode reads (INPUT, INOUT) as tensors on the device, in argument
+        order, and the kernel returns one tensor per argument whose mode
+        writes (OUTPUT, INOUT), in argument order.  `shapes` maps an
+        argument index to its tile shape (default: the whole datum as a
+        vector); every argument has type `dtype`.
+
+        The kernel sees one task's tiles.  Ready tasks of this pool with
+        the same kernel object, modes, `shapes` and `dtype` that the
+        device pops together, and that touch no copy another of them
+        writes, run as ONE launch of torch.func.vmap(kernel) over their
+        stacked tiles, so the kernel must be a function of its tiles
+        alone.  A kernel vmap cannot take (.item(), a branch on a
+        value) runs one task per launch after its first refusal, as does
+        every task whose read or written argument has no entry in
+        `shapes`, or that reads nothing.  A failing kernel fails the
+        pool; there is no host fallback."""
         if self._closed:
             raise RuntimeError("taskpool already closed")
         modes = [_MODES[mode.upper()] if isinstance(mode, str)

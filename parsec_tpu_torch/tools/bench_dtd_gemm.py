@@ -2,8 +2,9 @@
 
 Runtime-discovered DAG: every (m, n, k) product C[m, n] += A[m, k] @
 B[k, n] inserted through the DTD accessor chain as one insert_cuda_task
-(one kernel launch a task) on a CudaDevice, host tiles staged h2d on
-first touch, then wait_device_tiles -- the honest DTD number.  One
+on a CudaDevice (the ready tasks it pops together run as one vmapped
+launch), host tiles staged h2d on first touch, then wait_device_tiles --
+the honest DTD number.  One
 untimed run first (the insert path, the cuBLAS handles), then the best
 of two; C of the last run is held to torch.matmul at 1e-4 / 1e-3.
 

@@ -1,6 +1,7 @@
 """The program's trace and the card's timeline on one clock, on the card.
 
-A DTD GEMM (N 2048, NB 512: one launch a task) runs under
+A DTD GEMM (N 2048, NB 512; PTC_DEVICE_BATCH=1, so that the device pops
+one task a drain and every launch is one task's) runs under
 ctx.profile_enable(1) and torch.profiler; with the trace mapped by
 Trace.to_wall(), the launches' DEVICE_DISPATCH spans and their kernels on
 the device's exec stream are paired in order, and no kernel may start
@@ -90,9 +91,12 @@ def dtd_gemm(card, n, nb, traced):
     return tr, sorted(kernels)
 
 
-def test_dispatch_spans_precede_their_kernels(card):
+def test_dispatch_spans_precede_their_kernels(card, monkeypatch):
     from parsec_tpu_torch.profiling import KEY_DEVICE
     n, nb = 2048, 512
+    # one task a launch: every launch runs the same kernels, so the
+    # exec stream's kernels pair with the spans in order
+    monkeypatch.setenv("PTC_DEVICE_BATCH", "1")
     dtd_gemm(card, n, nb, traced=False)  # cuBLAS, the allocator, warm
     tr, kernels = dtd_gemm(card, n, nb, traced=True)
     wall = tr.to_wall()
