@@ -118,6 +118,16 @@ while neither listens no span call is made):
   - STREAM around each progressive serve (_stream_serve, on the
     writeback lane): l0 = bytes, l1 = the queue; it brackets the slices'
     d2h copies and their pushes to the wire.
+  - DEVICE_DP_SERVE around each pull the data plane serves from this
+    device (the dp_serve callback, on the comm thread): the d2h into
+    pinned memory, or the token, and the handoff to the engine; l0 =
+    the payload's bytes, l1 = the queue, aux = the pulling rank.  Their
+    durations add up to stats["dp_serve_ns"].
+  - DEVICE_DP_RECV around each remote payload landed in a mirror of this
+    device (the dp_deliver callback): the copy into pinned staging and
+    the enqueue of the h2d, or the on-card clone or pull of a token;
+    l0 = bytes, l1 = the queue, aux -1.  Their durations add up to
+    stats["dp_recv_ns"].
 The DEVICE_* spans bracket what the HOST does, as the reference's spans
 do: from the start of the copy into pinned staging (or of the launch's
 staging) to the asynchronous enqueue.  The copies and kernels
@@ -157,6 +167,7 @@ from ..core.taskclass import Mem, TaskClass, TaskView, register_copy_pull
 from ..core.taskpool import Taskpool
 from ..dsl.dtd import DtdView
 from ..profiling.trace import (KEY_DEVICE, KEY_DEVICE_COMPLETE,
+                               KEY_DEVICE_DP_RECV, KEY_DEVICE_DP_SERVE,
                                KEY_DEVICE_PLAN, KEY_DEVICE_WAIT, KEY_GC_PAUSE,
                                KEY_H2D, KEY_H2D_AHEAD, KEY_STREAM)
 from ..utils import params as _knobs
@@ -739,14 +750,15 @@ def _make_dp_callbacks(ctx):
         pinned memory, waited on by its event only), or, for a colocated
         consumer, a by-reference token, or, for a consumer in another
         process on this card that can pull (device.dp_transfer), a CUDA
-        IPC token."""
-        dev = None
+        IPC token.  Timed as a DEVICE_DP_SERVE span."""
+        dev = span = None
         try:
             with _DP_LOCK:
                 rec = _DP_REG.get(tag)
             if rec is None:
                 return -1
             arr, dev, ev = rec[0], rec[4], rec[5]
+            span = dev._dp_open(KEY_DEVICE_DP_SERVE, arr.nbytes, from_rank)
             if from_rank in ctx._colocated:
                 # one handoff slot per PULL: a fan-out to several
                 # colocated consumers serves several tokens
@@ -779,6 +791,9 @@ def _make_dp_callbacks(ctx):
         except Exception:
             _dp_error(ctx, "serve", dev)
             return -1
+        finally:
+            if span is not None:
+                dev._dp_close(span, "dp_serve_ns")
 
     def dp_serve_stream(user, tag, from_rank, xfer_ok, stream_id,
                         total) -> int:
@@ -833,8 +848,9 @@ def _make_dp_callbacks(ctx):
     def dp_deliver(user, ptr, size, tag) -> int:
         """A payload (or a by-ref token) arrived for a device-plane dep:
         place it on this context's least-loaded device and return the
-        cache uid stamped on the new host copy."""
-        dev = None
+        cache uid stamped on the new host copy.  Timed as a DEVICE_DP_RECV
+        span."""
+        dev = span = None
         try:
             # a running device: a stopped one stays in ctx._devices (its
             # stats still count) but has no manager to consume from it
@@ -842,6 +858,7 @@ def _make_dp_callbacks(ctx):
             if not devs or size <= 0:
                 return 0
             dev = min(devs, key=lambda d: ctx.device_queue_depth(d.qid))
+            span = dev._dp_open(KEY_DEVICE_DP_RECV, size, -1)
             src = (C.c_uint8 * size).from_address(ptr)
             if size == 16 and bytes(src[:8]) == _DP_REF_MAGIC:
                 pull_id = int.from_bytes(bytes(src[8:]), "little")
@@ -891,6 +908,9 @@ def _make_dp_callbacks(ctx):
         except Exception:
             _dp_error(ctx, "deliver", dev)
             return 0
+        finally:
+            if span is not None:
+                dev._dp_close(span, "dp_recv_ns")
 
     def dp_bound(user, uid, ptr, size, host_valid) -> None:
         """The consumer-side host copy now exists: bind it as the mirror's
@@ -1097,6 +1117,10 @@ class CudaDevice:
                       "dp_sends": 0, "dp_recv_bytes": 0, "dp_d2d_bytes": 0,
                       "dp_serve_bytes": 0, "dp_serve_d2h_ns": 0,
                       "dp_serve_copy_ns": 0, "dp_errors": 0,
+                      # the host's time in the serve and deliver
+                      # callbacks: the DEVICE_DP_SERVE and DEVICE_DP_RECV
+                      # spans' sums
+                      "dp_serve_ns": 0, "dp_recv_ns": 0,
                       # the transfer plane (device.dp_transfer): tokens
                       # served, bytes pulled card to card and the pulls'
                       # host ns (the first pull of a peer opens its
@@ -1111,6 +1135,10 @@ class CudaDevice:
                       # that thread alone, unlocked: see _mgr_to)
                       "mgr_wait_ns": 0, "mgr_plan_ns": 0,
                       "mgr_dispatch_ns": 0, "mgr_complete_ns": 0}
+        # the comm engine's counters as info() last read them
+        self._comm_seen = dict.fromkeys(
+            ("comm_msgs_sent", "comm_msgs_recv", "comm_bytes_sent",
+             "comm_bytes_recv", "comm_rdv_gets"), 0)
         # chore name -> [launches, lanes]: one launch per kernel call of
         # the manager (epilogues included), written under self._lock
         self.launches: Dict[str, List[int]] = {}
@@ -1229,12 +1257,17 @@ class CudaDevice:
         view over native memory could read it after the copy died at its
         last consumer's completion.  The device tensor is allocated on the
         h2d stream and record_stream()ed for the exec stream, its reader.
+        The staging is pinned with this device's card current (the h2d
+        stream's context makes it so), whatever card the calling thread
+        has: the data plane delivers on the comm thread, whose card is
+        the process's first, and pinning there would open a context on
+        a card this device does not use.
         On the CPU: (an owned clone, None)."""
         if self._stream is None:
             return src.clone(), None
-        stage = self._pinned(src.shape, src.dtype)
-        stage.copy_(src)
         with torch.cuda.stream(self._h2d_stream):
+            stage = self._pinned(src.shape, src.dtype)
+            stage.copy_(src)
             out = torch.empty(src.shape, dtype=src.dtype, device=self.device)
             out.copy_(stage, non_blocking=True)
             ev = self._record(self._h2d_stream)
@@ -1735,6 +1768,7 @@ class CudaDevice:
             if t0 else 0
         stats["gc_pause_ns"] = _GC.pause_ns
         stats["gc_full_passes"] = _GC.full_passes
+        stats.update(self._comm_counters())
         on_card = self.device.type == "cuda"
         fz = self._fuser
         return {
@@ -1756,6 +1790,23 @@ class CudaDevice:
                 "cache_hits": 0, "cache_misses": 0, "parked": 0,
                 "refused": {}},
         }
+
+    def _comm_counters(self) -> dict:
+        """The context's comm engine counters, for info()["stats"]: its
+        ctx.comm_stats() as comm_msgs_sent, comm_msgs_recv,
+        comm_bytes_sent, comm_bytes_recv, and the rendezvous GETs it sent
+        as comm_rdv_gets.  Zero until comm_init; the last reading once
+        the engine or the context is gone."""
+        ctx = self.ctx
+        if not ctx._destroyed and ctx.comm_enabled:
+            st = ctx.comm_stats()
+            self._comm_seen = {
+                "comm_msgs_sent": st["msgs_sent"],
+                "comm_msgs_recv": st["msgs_recv"],
+                "comm_bytes_sent": st["bytes_sent"],
+                "comm_bytes_recv": st["bytes_recv"],
+                "comm_rdv_gets": ctx.comm_rdv_stats()["gets_sent"]}
+        return self._comm_seen
 
     def _dbg(self, msg: str):
         """Device-subsystem debug stream (PTC_MCA_debug_device >= 1;
@@ -1950,6 +2001,27 @@ class CudaDevice:
                     self.ctx.task_complete(t)
 
     # ------------------------------------------------------------ data plane
+    def _dp_open(self, key: int, nbytes: int, peer: int) -> tuple:
+        """Begin a data-plane callback's stretch: (key, bytes, peer, start
+        ns, traced), its span's BEGIN emitted while a trace or a PINS
+        chain listens (l0 = bytes, l1 = this device's queue, aux = the
+        peer rank or -1)."""
+        traced = self.ctx._listening
+        t0 = time.perf_counter_ns()
+        if traced:
+            N.prof_event_held(self.ctx._ptr, key, 0, -1, nbytes, self.qid,
+                              peer)
+        return key, nbytes, peer, t0, traced
+
+    def _dp_close(self, span: tuple, counter: str) -> None:
+        """End a stretch _dp_open began: its END where its BEGIN was
+        emitted, and its time into stats[counter]."""
+        key, nbytes, peer, t0, traced = span
+        if traced:
+            N.prof_event_held(self.ctx._ptr, key, 1, -1, nbytes, self.qid,
+                              peer)
+        self._stats_add(counter, time.perf_counter_ns() - t0)
+
     def _serve_d2h(self, arr: torch.Tensor, event) -> torch.Tensor:
         """A pull's bytes (the synchronous serve): one d2h of the pinned
         payload on the d2h stream after its event, into a pinned host

@@ -106,6 +106,17 @@ KEY_H2D_AHEAD = 15        # h2d staged off the dispatch path (the prefetch
                           # DEVICE_H2D, class -1, aux 1.  A key of its own
                           # so that its spans never pair with a
                           # dispatch's of the same bytes and queue
+# The device data plane's callbacks (device/cuda.py), on the comm thread,
+# worker -1: l0 = the payload's bytes, l1 = the device's queue.  Each
+# key's durations add up to one stats counter.
+KEY_DEVICE_DP_SERVE = 16  # a remote pull served from the device: the d2h
+                          # into pinned memory (or the token) and the
+                          # handoff to the engine; aux = the pulling
+                          # rank; stats["dp_serve_ns"]
+KEY_DEVICE_DP_RECV = 17   # a remote payload landed in a device mirror:
+                          # the pinned staging copy and the h2d's enqueue
+                          # (or the clone or pull of a token); aux -1;
+                          # stats["dp_recv_ns"]
 
 _MAGIC = b"#PTCPROF"
 _VERSION = 2
@@ -128,6 +139,8 @@ _DEFAULT_KEYS = {
     KEY_DEVICE_COMPLETE: ("DEVICE_COMPLETE", "#0066ff"),
     KEY_GC_PAUSE: ("GC_PAUSE", "#ff0000"),
     KEY_H2D_AHEAD: ("DEVICE_H2D_AHEAD", "#66ccff"),
+    KEY_DEVICE_DP_SERVE: ("DEVICE_DP_SERVE", "#cc6600"),
+    KEY_DEVICE_DP_RECV: ("DEVICE_DP_RECV", "#669900"),
 }
 
 # a device op on the wall clock, as torch.profiler's CUDA events carry it
