@@ -108,6 +108,8 @@ class Context:
         # one rank until set_rank (which mirrors a change into the native
         # core, which keeps no getter)
         self.myrank, self.nodes = 0, 1
+        # the rank remap set_rank_map last installed (None: identity)
+        self.rank_map: Optional[tuple] = None
         # peer ranks whose devices share this process (comm_set_colocated)
         self._colocated: set = set()
         # the collective builder's op-level records and its name counter
@@ -276,6 +278,7 @@ class Context:
         startup."""
         if not perm:
             N.lib.ptc_context_set_rank_map(self._ptr, None, 0)
+            self.rank_map = None
             return
         perm = [int(x) for x in perm]
         if sorted(perm) != list(range(len(perm))):
@@ -283,6 +286,7 @@ class Context:
                              f"0..{len(perm) - 1}, got {perm}")
         arr = (C.c_int32 * len(perm))(*perm)
         N.lib.ptc_context_set_rank_map(self._ptr, arr, len(perm))
+        self.rank_map = tuple(perm)
 
     # ------------------------------------------------------------ comm (L4)
     def comm_init(self, base_port: Optional[int] = None):
@@ -567,8 +571,8 @@ class Context:
         "devices"), the counter-level overlap ratio — the
         share of h2d nanoseconds spent on the prefetch lane, overlapping
         compute, rather than stalling a dispatch — the wave compiler's
-        counters under "fuse" (summed; `refused` merges the per-reason
-        refusal records) and each device's info object under
+        counters under "fuse" (summed; `refused` and `cert_uncached`
+        merge the per-reason records) and each device's info object under
         "devices"."""
         devs = [dev.info() for dev in self._devices]
         keys = ("tasks", "batches", "batched_tasks", "h2d_hits",
@@ -588,14 +592,15 @@ class Context:
         fuse_keys = ("fused_waves", "fused_tasks", "fused_chains",
                      "chain_waves", "chain_parked", "chain_hits",
                      "chain_misses", "chain_drops", "cache_hits",
-                     "cache_misses", "parked")
+                     "cache_misses", "parked", "cert_hits", "cert_misses")
         fuse = {k: sum(d["fuse"][k] for d in devs) for k in fuse_keys}
         fuse["enabled"] = any(d["fuse"]["enabled"] for d in devs)
-        refused: Dict[str, int] = {}
-        for d in devs:
-            for reason, n in d["fuse"]["refused"].items():
-                refused[reason] = refused.get(reason, 0) + n
-        fuse["refused"] = refused
+        for name in ("refused", "cert_uncached"):
+            merged: Dict[str, int] = {}
+            for d in devs:
+                for reason, n in d["fuse"][name].items():
+                    merged[reason] = merged.get(reason, 0) + n
+            fuse[name] = merged
         agg["fuse"] = fuse
         agg["devices"] = devs
         return agg

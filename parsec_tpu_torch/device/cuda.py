@@ -79,7 +79,9 @@ thread alone at the boundaries between them (one clock read each):
   - mgr_plan_ns      grouping a popped batch (its draining pops too),
                      the wave compiler's certification and chain
                      planning before a launch opens its span, the
-                     prefetch lane's handoff
+                     prefetch lane's handoff; cert_ns is the part of it
+                     spent having each pool's chain certificates
+                     (device/fuse.py)
   - mgr_dispatch_ns  inside DEVICE_DISPATCH spans, chains included
                      (h2d_stall_ns is a part of it)
   - mgr_complete_ns  ctx.task_complete on this thread (the native
@@ -107,6 +109,10 @@ while neither listens no span call is made):
     nanoseconds stats["h2d_stall_ns"] counts for it.  DEVICE_COMPLETE:
     class = the task class (-1: a DTD body or none), l0 = tasks, aux =
     1 for parked or speculative results
+  - DEVICE_CERT inside the DEVICE_PLAN span under way, once a pool: the
+    wave compiler having its chain certificates (l0 0, aux of its END 0
+    a miss, 1 a cache hit, 2 uncached); their durations add up to
+    stats["cert_ns"]
   - GC_PAUSE around each collection (l0 = the generation), on the thread
     that triggered it
   - DEVICE_H2D around each dispatch-time staging (_h2d): l0 = bytes,
@@ -1134,7 +1140,10 @@ class CudaDevice:
                       # the manager thread's time partition (written by
                       # that thread alone, unlocked: see _mgr_to)
                       "mgr_wait_ns": 0, "mgr_plan_ns": 0,
-                      "mgr_dispatch_ns": 0, "mgr_complete_ns": 0}
+                      "mgr_dispatch_ns": 0, "mgr_complete_ns": 0,
+                      # a part of mgr_plan_ns: the wave compiler's time
+                      # having a pool's chain certificates (device/fuse.py)
+                      "cert_ns": 0}
         # the comm engine's counters as info() last read them
         self._comm_seen = dict.fromkeys(
             ("comm_msgs_sent", "comm_msgs_recv", "comm_bytes_sent",
@@ -1788,7 +1797,8 @@ class CudaDevice:
                 "fused_chains": 0, "chain_waves": 0, "chain_parked": 0,
                 "chain_hits": 0, "chain_misses": 0, "chain_drops": 0,
                 "cache_hits": 0, "cache_misses": 0, "parked": 0,
-                "refused": {}},
+                "refused": {}, "cert_hits": 0, "cert_misses": 0,
+                "cert_uncached": {}},
         }
 
     def _comm_counters(self) -> dict:

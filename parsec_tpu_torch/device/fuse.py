@@ -43,6 +43,20 @@ Two fusion levels:
          dispatches normally: a stale certificate costs a wasted
          speculation, never a wrong answer.
 
+The certificates depend on a pool's structure alone (its classes'
+tables, its globals, the geometry of the collections it reads, the
+device's chore attachments, the rank and the analysis knobs), and a
+builder run once a solve makes a new pool of the same structure each
+time.  So the consumed certificate state is cached per device under a
+key rendered exactly from that structure (_structure_key), least
+recently used first out: a pool whose key is cached takes the state as
+it is (cert_hits), one whose key is not runs the pass and stores its
+result (cert_misses), and one whose tables hold what the key cannot
+render exactly (a Python callable in an expression, a JDF escape, a
+collection of a type without a known geometry) runs the pass uncached,
+counted by reason (cert_uncached), never guessed at.  Parked results
+and the online checks stay per pool.
+
 Widths are never padded: a chained level launches with exactly its
 consumer count, the same call with the same shapes that the unfused
 dispatch of a whole wave makes (the reference pads to powers of two to
@@ -61,19 +75,166 @@ dispatcher); counters are merged under the device lock.
 """
 from __future__ import annotations
 
+import time
 import traceback
+from collections import OrderedDict
+from functools import partial
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from .. import _native as N
+from ..analysis.flowgraph import LinearCollectionShim
+from ..core import expr as E
+from ..core.taskclass import Mem, Ref
+from ..data import collections as _colls
+from ..profiling.trace import KEY_DEVICE_CERT
 from ..utils import params as _knobs
 
 # hard bound on parked speculative results (each pins a row of an output
 # stack on the card): beyond it the oldest record drops and its task
 # falls back to a normal dispatch (counted, never silent)
 _PARKED_MAX = 8192
+
+# pool structures whose consumed certificates a device keeps
+_CERT_CACHE_MAX = 8
+
+# DEVICE_CERT's END aux: how the pool's certificates were had
+_CERT_MISS, _CERT_HIT, _CERT_UNCACHED = range(3)
+
+
+class _Unkeyable(Exception):
+    """A pool table element the structure key cannot render exactly; its
+    message is the reason cert_uncached counts."""
+
+
+def _expr_key(e):
+    """An expression of a pool's tables as nested tuples, node for node
+    (what analysis/flowgraph.py compiles).  A Python callback or a JDF
+    escape reads state the key cannot see: _Unkeyable."""
+    if e is None:
+        return None
+    if isinstance(e, (int, np.integer)):
+        return int(e)
+    if isinstance(e, str):              # a bare string names a global
+        return ("G", e)
+    t = type(e)
+    if t is E.Const:
+        return ("c", int(e.v))
+    if t is E.L or t is E.G:
+        return (t.__name__, e.name)
+    if t is E.BinOp:
+        return ("b", e.op, _expr_key(e.a), _expr_key(e.b))
+    if t is E.UnOp:
+        return ("u", e.op, _expr_key(e.a))
+    if t is E.Select:
+        return ("s", _expr_key(e.c), _expr_key(e.a), _expr_key(e.b))
+    if t is E.Range:
+        return ("range", _expr_key(e.lo), _expr_key(e.hi),
+                _expr_key(e.step))
+    if t is E.Compr:
+        return ("compr", _expr_key(e.lo), _expr_key(e.hi),
+                _expr_key(e.step), _expr_key(e.value), e.iter_name)
+    if t is E.Call:
+        raise _Unkeyable("python-call")
+    from ..dsl import jdf
+    if t is jdf._Name:
+        return ("N", e.name)
+    if t is jdf._PyEscape:
+        raise _Unkeyable("jdf-escape")
+    raise _Unkeyable(f"expression:{t.__name__}")
+
+
+def _target_key(t):
+    if t is None:
+        return None
+    if type(t) is Ref:
+        return ("ref", t.task, tuple(_expr_key(p) for p in t.params),
+                t.flow)
+    if type(t) is Mem:
+        return ("mem", t.collection, tuple(_expr_key(x) for x in t.idx))
+    raise _Unkeyable(f"target:{type(t).__name__}")
+
+
+def _collection_key(coll):
+    """What a collection's rank_of and tile bytes depend on, by its exact
+    type (a subclass may place tiles otherwise: _Unkeyable)."""
+    if coll is None:
+        return None
+    t = type(coll)
+    if t is LinearCollectionShim:
+        return (t.__name__, int(coll.nodes), int(coll.elem_size))
+    if t is _colls.VectorCyclic:
+        return (t.__name__, coll.N, coll.nb, coll.nodes, coll.myrank,
+                coll.dtype.str)
+    if t in (_colls.TwoDimBlockCyclic, _colls.SymTwoDimBlockCyclic,
+             _colls.ReplicatedLocal, _colls.SubtileView):
+        grid = (coll.P, coll.Q)
+    elif t in (_colls.TwoDimBlockCyclicBand,
+               _colls.SymTwoDimBlockCyclicBand):
+        grid = (coll.off_band.P, coll.off_band.Q, coll.band_size)
+    elif t is _colls.TwoDimTabular:
+        grid = (coll.table.tobytes(),)
+    else:
+        raise _Unkeyable(f"collection:{t.__name__}")
+    return (t.__name__, coll.M, coll.N, coll.mb, coll.nb, coll.nodes,
+            coll.myrank, coll.dtype.str, getattr(coll, "uplo", None)) + grid
+
+
+def _structure_key(tp, dev, depth: int, max_instances: int) -> tuple:
+    """Everything chain_certificates(tp) and its consumption read, as one
+    hashable tuple: per class its name, id, parameters, affinity, flows
+    (access, arena and its bytes, dependencies with their targets, guards
+    and iterators) and chores, and the device's attachment of it (flows,
+    shapes, dtypes, the kernel's id: the key holds no reference to it,
+    and the certificates read nothing of a kernel, so an id a later
+    kernel reuses can only match a structure certified alike); the
+    pool's globals; the geometry of every collection it names; the
+    context's rank, rank map and the knobs.  A chore's Python body
+    enters as its kind and purity, all the certificates read of it.
+    _Unkeyable where something cannot be rendered exactly."""
+    ctx = tp.ctx
+    colls, classes = set(), []
+    for tc in tp.classes:
+        flows = []
+        for fl in tc.flows:
+            deps = []
+            for d in fl.deps:
+                if type(d.target) is Mem:
+                    colls.add(d.target.collection)
+                deps.append((d.direction, _target_key(d.target),
+                             _expr_key(d.guard),
+                             tuple((nm, _expr_key(lo), _expr_key(hi),
+                                    _expr_key(st))
+                                   for nm, lo, hi, st in d.iters),
+                             d.dtype, d.ltype))
+            flows.append((fl.name, fl.access, fl.arena,
+                          ctx.arena_sizes.get(fl.arena), tuple(deps)))
+        aff = tc._affinity
+        if aff is not None:
+            colls.add(aff.collection)
+        body = dev.bodies.get((id(tp), tc.id))
+        attached = None if body is None else (
+            id(body.kernel), tuple(body.reads), tuple(body.writes),
+            tuple(sorted((f, tuple(s)) for f, s in body.shapes.items())),
+            tuple(sorted((f, np.dtype(d).str)
+                         for f, d in body.dtypes.items())), body.batch)
+        classes.append((
+            tc.name, tc.id,
+            tuple((nm, bool(is_range), _expr_key(p))
+                  for nm, is_range, p in tc.locals),
+            _target_key(aff), tuple(flows),
+            tuple((ch.device_type, ch.body_kind, bool(ch.pure),
+                   ch.body_arg if ch.body_kind == N.BODY_DEVICE else None)
+                  for ch in tc.chores),
+            attached))
+    return (tuple(classes),
+            tuple(sorted((nm, i, int(N.lib.ptc_tp_global(tp._ptr, i)))
+                         for nm, i in tp.globals_map.items())),
+            tuple((nm, _collection_key(ctx.collection_objs.get(nm)))
+                  for nm in sorted(colls)),
+            ctx.myrank, ctx.rank_map, max_instances, depth)
 
 
 def _per_lane_bytes(body) -> int:
@@ -105,6 +266,10 @@ class WaveFuser:
         # id(tp) -> {"failed": str|False, "links", "classes", "slots",
         #            "by_name"}: the consumed chain certificates
         self._tp_state: Dict[int, dict] = {}
+        # _structure_key -> that state, shared by the pools of one
+        # structure (least recently used first out)
+        self._cert_cache: "OrderedDict[tuple, dict]" = OrderedDict()
+        self.cert_uncached: Dict[str, int] = {}
         # (tp_id, class_id, params) -> parked speculative result
         self._parked: Dict[tuple, dict] = {}
         self._parked_classes: Dict[tuple, int] = {}
@@ -117,7 +282,8 @@ class WaveFuser:
                       "fused_chains": 0, "chain_waves": 0,
                       "chain_parked": 0, "chain_hits": 0,
                       "chain_misses": 0, "chain_drops": 0,
-                      "cache_hits": 0, "cache_misses": 0}
+                      "cache_hits": 0, "cache_misses": 0,
+                      "cert_hits": 0, "cert_misses": 0}
         self.refused: Dict[str, int] = {}
 
     # ------------------------------------------------------------ stats
@@ -135,48 +301,100 @@ class WaveFuser:
         with self.dev._lock:
             out = dict(self.stats)
             out["refused"] = dict(self.refused)
+            out["cert_uncached"] = dict(self.cert_uncached)
         out["enabled"] = True
         out["parked"] = len(self._parked)
         return out
 
     def clear(self) -> None:
-        """Drop parked results and certificate state (device stop)."""
+        """Drop parked results and certificate state, the cache of it
+        included (device stop)."""
         self._parked.clear()
         self._parked_classes.clear()
         self._pending.clear()
         self._tp_state.clear()
+        self._cert_cache.clear()
         with self.dev._lock:
             self.dev._chain_pinned = 0
 
     # ----------------------------------------------------- certificates
     def _state_for(self, body) -> Optional[dict]:
-        """Consume the static chain certificates for a taskpool, once.
-        Extraction failures refuse with a reason and never retry (a pool
-        that cannot certify cannot start certifying mid-run)."""
+        """The consumed chain certificates of a taskpool, had once a pool
+        (_certify)."""
         tp = body.tp
         if tp is None or body.tc is None:
             return None
-        key = id(tp)
-        st = self._tp_state.get(key)
+        st = self._tp_state.get(id(tp))
         if st is None:
-            st = {"failed": False, "links": {}, "classes": {},
-                  "slots": {}, "by_name": {}}
-            try:
-                from ..analysis.plan import chain_certificates
-                plan = chain_certificates(tp)
-                if plan is None:
-                    st["failed"] = "enumeration-refused"
-                else:
-                    idx = plan.chain_index(
-                        getattr(self.dev.ctx, "myrank", 0))
-                    st["links"] = idx["links"]
-                    st["classes"] = idx["classes"]
-                    for nm, rec in idx["classes"].items():
-                        st["slots"][rec["id"]] = rec["param_slots"]
-                        st["by_name"][nm] = rec["id"]
-            except Exception as e:  # analysis must never kill dispatch
-                st["failed"] = f"certificate-error: {type(e).__name__}"
-            self._tp_state[key] = st
+            st = self._tp_state[id(tp)] = self._certify(tp)
+        return st
+
+    def _certify(self, tp) -> dict:
+        """A pool's certificate state: the cached state of its structure
+        where a pool of that structure has certified on this device, else
+        the pass's (stored where the structure keys).  Its time, key
+        included, counts in the device's stats["cert_ns"] (a part of
+        mgr_plan_ns) and, while a trace or PINS listens, spans a
+        DEVICE_CERT inside the DEVICE_PLAN under way (its END's aux: 0 a
+        miss, 1 a hit, 2 uncached)."""
+        from .cuda import _in_one_step
+        dev = self.dev
+        traced = dev.ctx._listening
+        span = partial(N.prof_event_held, dev.ctx._ptr, KEY_DEVICE_CERT)
+        t0 = _in_one_step([partial(span, 0, -1, 0, dev.qid, 0)] * traced
+                          + [time.perf_counter_ns])[-1]
+        max_instances = int(_knobs.get("plan.max_instances"))
+        try:
+            key = _structure_key(tp, dev, self.depth, max_instances)
+        except _Unkeyable as e:
+            key, why = None, str(e)
+        except Exception as e:  # a key must never kill dispatch
+            key, why = None, f"key-error: {type(e).__name__}"
+        st = None if key is None else self._cert_cache.get(key)
+        if st is not None:
+            self._cert_cache.move_to_end(key)
+            how = _CERT_HIT
+            self._bump("cert_hits")
+        else:
+            st = self._chain_state(tp, max_instances)
+            if key is None:
+                how = _CERT_UNCACHED
+                with dev._lock:
+                    self.cert_uncached[why] = \
+                        self.cert_uncached.get(why, 0) + 1
+            else:
+                how = _CERT_MISS
+                self._bump("cert_misses")
+                if st["failed"] in (False, "enumeration-refused"):
+                    # an error may not recur: only answers are kept
+                    self._cert_cache[key] = st
+                    while len(self._cert_cache) > _CERT_CACHE_MAX:
+                        self._cert_cache.popitem(last=False)
+        end = [partial(span, 1, -1, 0, dev.qid, how)] * traced
+        t1 = _in_one_step([time.perf_counter_ns] + end)[0]
+        dev._stats_add("cert_ns", t1 - t0)
+        return st
+
+    def _chain_state(self, tp, max_instances: int) -> dict:
+        """The certificate pass over a pool, consumed for this device's
+        rank.  Extraction failures refuse with a reason and never retry
+        (a pool that cannot certify cannot start certifying mid-run)."""
+        st = {"failed": False, "links": {}, "classes": {},
+              "slots": {}, "by_name": {}}
+        try:
+            from ..analysis.plan import chain_certificates
+            plan = chain_certificates(tp, max_instances)
+            if plan is None:
+                st["failed"] = "enumeration-refused"
+            else:
+                idx = plan.chain_index(getattr(self.dev.ctx, "myrank", 0))
+                st["links"] = idx["links"]
+                st["classes"] = idx["classes"]
+                for nm, rec in idx["classes"].items():
+                    st["slots"][rec["id"]] = rec["param_slots"]
+                    st["by_name"][nm] = rec["id"]
+        except Exception as e:  # analysis must never kill dispatch
+            st["failed"] = f"certificate-error: {type(e).__name__}"
         return st
 
     @staticmethod

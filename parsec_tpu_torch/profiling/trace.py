@@ -117,6 +117,13 @@ KEY_DEVICE_DP_RECV = 17   # a remote payload landed in a device mirror:
                           # the pinned staging copy and the h2d's enqueue
                           # (or the clone or pull of a token); aux -1;
                           # stats["dp_recv_ns"]
+# The wave compiler (device/fuse.py), on the manager thread, worker -1,
+# inside the DEVICE_PLAN span under way: l0 = 0, l1 = the device's queue.
+KEY_DEVICE_CERT = 18      # a pool's chain certificates had once: the
+                          # structure key and, on a miss, the pass; the
+                          # END's aux = 0 a miss, 1 a cache hit, 2 a pool
+                          # the key cannot render (uncached); their
+                          # durations add up to stats["cert_ns"]
 
 _MAGIC = b"#PTCPROF"
 _VERSION = 2
@@ -141,6 +148,7 @@ _DEFAULT_KEYS = {
     KEY_H2D_AHEAD: ("DEVICE_H2D_AHEAD", "#66ccff"),
     KEY_DEVICE_DP_SERVE: ("DEVICE_DP_SERVE", "#cc6600"),
     KEY_DEVICE_DP_RECV: ("DEVICE_DP_RECV", "#669900"),
+    KEY_DEVICE_CERT: ("DEVICE_CERT", "#996600"),
 }
 
 # a device op on the wall clock, as torch.profiler's CUDA events carry it

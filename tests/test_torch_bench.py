@@ -36,9 +36,11 @@ CPU = ["--device", "cpu"]
 # port path); a path is "/"-joined keys, "[]" for a list's elements
 RENAMED = (("/xla_psum_ms", "/torch_all_reduce_ms"),)
 # keys only the port's documents carry: a spotrf line's yardstick, power
-# limit and residual; and the counters the port's Context.device_stats()
-# sums beside the reference's
-PORT_ONLY_LEAVES = {"baseline", "power_limit_w", "residual"}
+# limit and residual, the wave compiler's certificate cache counters; and
+# the counters the port's Context.device_stats() sums beside the
+# reference's
+PORT_ONLY_LEAVES = {"baseline", "power_limit_w", "residual", "cert_hits",
+                    "cert_misses", "cert_uncached"}
 PORT_ONLY_DEVICE_STATS = {"tasks", "batches", "batched_tasks", "d2h_bytes",
                           "dead_drops", "eager_gathers", "f64_refused",
                           "fused_flows", "invalidations", "wb_tasks"}

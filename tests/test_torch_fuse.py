@@ -56,6 +56,8 @@ FUSE_KEYS = {"enabled", "fused_waves", "fused_tasks", "fused_chains",
              "chain_waves", "chain_parked", "chain_hits", "chain_misses",
              "chain_drops", "cache_hits", "cache_misses", "parked",
              "refused"}
+# the port's certificate cache (device/fuse.py), which the reference lacks
+CERT_KEYS = {"cert_hits", "cert_misses", "cert_uncached"}
 
 
 @pytest.fixture(autouse=True)
@@ -332,15 +334,17 @@ def _zero_schema(P):
 
 
 def test_wave_fuse_off_exports_zero_schema():
-    """Knob off: no compiler, yet the same keys as the reference's, all
-    zero, enabled False and no refusal."""
+    """Knob off: no compiler, yet the reference's keys and the port's
+    certificate cache counters, all zero, enabled False and no refusal."""
     port, port_info = _with_fuse(PORT, False, _zero_schema)
     ref, ref_info = _with_fuse(REF, False, _zero_schema)
-    assert set(port) == set(ref) == set(port_info) == set(ref_info) \
-        == FUSE_KEYS
-    assert port == ref == port_info
+    assert set(ref) == set(ref_info) == FUSE_KEYS
+    assert set(port) == set(port_info) == FUSE_KEYS | CERT_KEYS
+    assert {k: port[k] for k in FUSE_KEYS} == ref and port == port_info
     assert port["enabled"] is False and port["refused"] == {}
-    for k in FUSE_KEYS - {"enabled", "refused"}:
+    assert port["cert_uncached"] == {}
+    for k in FUSE_KEYS - {"enabled", "refused"} | {"cert_hits",
+                                                   "cert_misses"}:
         assert port[k] == 0, (k, port)
 
 

@@ -441,10 +441,12 @@ def _prom_keys(text):
 _REF_ONLY = re.compile(r"^ptc_(comm|coll|plan)_|^ptc_trace_clock_|"
                        r"^ptc_device_(fuse|stream|dp|wave|chain|plan)")
 # device_stats() counters the port's aggregate carries beyond the
-# reference's (the device module's own stats keys, summed)
+# reference's (the device module's own stats keys, summed, and the wave
+# compiler's certificate cache counters)
 _PORT_ONLY = re.compile(r"^ptc_device_(tasks|batches|batched_tasks|"
                         r"d2h_bytes|dead_drops|eager_gathers|f64_refused|"
-                        r"fused_flows|invalidations|wb_tasks)$")
+                        r"fused_flows|invalidations|wb_tasks|"
+                        r"fuse_cert_hits|fuse_cert_misses)$")
 
 
 def test_prometheus_lines_match_reference():

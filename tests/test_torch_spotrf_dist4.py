@@ -130,7 +130,8 @@ def test_four_cpu_ranks_are_correct(tmp_path, n, nb, trace):
     """Four ranks on the 2 x 2 grid come out correct against the
     reference; a traced run reports what rank 0's comm engine received,
     within 10% of the DAG's count, and the time its data plane served
-    tiles (of 256 KiB: above the eager limit, so pulled from the device)."""
+    tiles (of 256 KiB: above the eager limit, so pulled from the device),
+    and its wave compiler's time having each solve's certificates."""
     rc, r, err, _, _ = run_cell(small_root(tmp_path, n, nb), trace=trace)
     assert rc == 0 and r is not None, err[-3000:]
     assert r["correct"] is True and r["failed"] == 0, err[-3000:]
@@ -140,11 +141,12 @@ def test_four_cpu_ranks_are_correct(tmp_path, n, nb, trace):
         assert set(m) == {"setup_s", "gflops"}
         return
     # no card: no peak, so no grid_mfu_pct
-    assert set(m) == {"comm_mb_per_solve", "dp_serve_ms"}
+    assert set(m) == {"comm_mb_per_solve", "dp_serve_ms", "cert_ms"}
     want = tiles_to_rank(n // nb, 2, 2, 0) * nb * nb * 4 / 1e6
     assert abs(m["comm_mb_per_solve"]["value"] - want) <= 0.1 * want, \
         (m, want)
     assert m["dp_serve_ms"]["value"] > 0
+    assert m["cert_ms"]["value"] >= 0
 
 
 def test_a_perturbed_gemm_on_one_rank_is_not_correct(tmp_path):
