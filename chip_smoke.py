@@ -3171,7 +3171,7 @@ def fuse_path(dev_t, rng, dims=None) -> dict:
             dev = new_dev(ctx, knobs)
             dev.batch_wait_ms = wait_ms
             tp = build_gemm(ctx, A, B, C, dev)
-            body = dev.bodies[(id(tp), tp.classes[0].id)]
+            body = dev._pools[tp._ptr].bodies[tp.classes[0].id]
             widths, kern = [], body.kernel
 
             def k_gemm_nn(a_, b_, c_):  # the chore, its widths recorded
@@ -3862,7 +3862,7 @@ def _comm_gemm(ctx, rank, nodes, dev_t, dims, label, want_c, mats, c0,
     finally:
         _knobs.unset("device.wave_fuse")
     tp = build_gemm_dist(ctx, A, B, C, dev, names=names)
-    body = dev.bodies[(id(tp), tp.class_by_name("Gemm").id)]
+    body = dev._pools[tp._ptr].bodies[tp.class_by_name("Gemm").id]
     widths, kern = [], body.kernel
 
     def k_gemm_nn(a_, b_, c_):  # the chore, its widths recorded

@@ -8,6 +8,7 @@ from __future__ import annotations
 
 import ctypes as C
 import traceback
+import weakref
 from typing import Callable, Dict, List, Optional
 
 from .. import _native as N
@@ -83,9 +84,12 @@ class Taskpool:
         return self.ctx.register_expr_cb(_cb)
 
     def _register_body(self, tc: TaskClass, fn: Callable) -> int:
+        # the context keeps _cb past destroy(), after which it never runs
+        pool = weakref.ref(self)
+
         def _cb(user, task_ptr):
             try:
-                r = fn(TaskView(task_ptr, tc, self))
+                r = fn(TaskView(task_ptr, tc, pool()))
                 # bool is an int subclass; True must not become HOOK_AGAIN
                 if isinstance(r, int) and not isinstance(r, bool):
                     return r
@@ -310,5 +314,9 @@ class Taskpool:
                 # stays allocated, and tracked so that its callbacks
                 # live, until the context ends
                 return
+            # every device forgets the pool before a new one may get
+            # its pointer
+            for dev in list(self.ctx._devices):
+                dev.drop_pool(self)
             self.ctx._untrack_taskpool_locked(self)
             N.lib.ptc_tp_destroy(self._ptr)

@@ -67,6 +67,15 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
     of a CUDA IPC token counts there too and fails the consuming task,
     and so its pool (its bytes were never sent)
 
+Per taskpool a device keeps one record (_PoolRecord), keyed by the
+pool's native pointer (what ptc_task_taskpool returns for each of its
+tasks): its class bodies, its DTD bodies by signature and by tag, and
+the wave compiler's consumed certificates.  The pool's first attach or
+register_dtd_task makes it; Taskpool.destroy() drops it (drop_pool),
+with the pool's parked epilogue and chain results, before the native
+pool is freed and its pointer may name a new pool.  An aborted pool is
+never freed, so its record stays until stop().
+
 A failing kernel fails its tasks (ctx.task_fail) and so the pool: there
 is no silent fallback to another path.
 
@@ -205,16 +214,16 @@ _MGR_KEYS = (KEY_DEVICE_WAIT, KEY_DEVICE_PLAN, KEY_DEVICE,
              KEY_DEVICE_COMPLETE)
 
 
-def _dtd_signature(tp, kernel, reads, writes, shapes, dtype,
+def _dtd_signature(kernel, reads, writes, shapes, dtype,
                    nb_flows) -> Optional[tuple]:
-    """What DTD device tasks share when one launch can run them as lanes:
-    their pool, kernel object, access modes, tile shapes, dtype and
-    arity.  None where a read or write flow declares no shape, or where
-    the task reads nothing (vmap batches over the reads)."""
+    """What DTD device tasks of one pool share when one launch can run
+    them as lanes: their kernel object, access modes, tile shapes, dtype
+    and arity.  None where a read or write flow declares no shape, or
+    where the task reads nothing (vmap batches over the reads)."""
     flows = set(reads) | set(writes)
     if not reads or any(shapes.get(f) is None for f in flows):
         return None
-    return (tp, kernel, tuple(reads), tuple(writes),
+    return (kernel, tuple(reads), tuple(writes),
             tuple((f, tuple(shapes[f])) for f in sorted(flows)),
             np.dtype(dtype), nb_flows)
 
@@ -311,17 +320,34 @@ class _GcClock:
 _GC = _GcClock()
 
 
+class _PoolRecord:
+    """What one device holds for one taskpool, from the pool's first
+    attach or register_dtd_task until its destroy() (CudaDevice.drop_pool)
+    or the device's stop(): the pool, its class bodies by class id, its
+    DTD bodies by signature (_dtd_signature) and by task tag (each popped
+    at its task's dispatch), and the wave compiler's consumed certificates
+    (device/fuse.py; None until its first certified wave).  `key` is the
+    pool's native pointer, under which the device and its wave compiler
+    file everything else they keep for the pool."""
+    __slots__ = ("tp", "key", "bodies", "dtd_sigs", "dtd_tags", "cert")
+
+    def __init__(self, tp: Taskpool):
+        self.tp, self.key, self.cert = tp, tp._ptr, None
+        self.bodies, self.dtd_sigs, self.dtd_tags = {}, {}, {}
+
+
 class _DeviceBody:
-    """A device chore: the kernel and its flows.  A PTG class body (`tc`
-    set) is keyed by (pool, class) and its flows are named; a DTD body
-    (`tc` None) is shared by the tasks of one signature and found by each
-    task's tag, its flows are argument indices (`nb_flows` of them), and
-    its kernel takes and returns single tiles: a group of its tasks
-    launches as torch.func.vmap(kernel) (CudaDevice.register_dtd_task)."""
+    """A device chore: the kernel and its flows, held in its pool's
+    record (`pool`).  A PTG class body (`tc` set) is filed there by class
+    id and its flows are named; a DTD body (`tc` None) is shared by the
+    tasks of one signature and found by each task's tag, its flows are
+    argument indices (`nb_flows` of them), and its kernel takes and
+    returns single tiles: a group of its tasks launches as
+    torch.func.vmap(kernel) (CudaDevice.register_dtd_task)."""
 
     def __init__(self, kernel: Callable, reads: Sequence,
                  writes: Sequence, shapes: Dict, dtypes: Dict,
-                 tc: Optional[TaskClass], tp: Optional[Taskpool],
+                 tc: Optional[TaskClass], pool: _PoolRecord,
                  nb_flows: int = 0, batch: bool = True):
         self.kernel = kernel
         self.reads = list(reads)
@@ -329,7 +355,7 @@ class _DeviceBody:
         self.shapes = shapes
         self.dtypes = dtypes
         self.tc = tc
-        self.tp = tp
+        self.pool = pool
         self.nb_flows = nb_flows
         # a group launches as one: the kernel is elementwise over lanes
         # (a DTD body: vmap takes its kernel, until a launch finds not)
@@ -359,13 +385,14 @@ class _DeviceBody:
 
     def make_view(self, task_ptr):
         if self.tc is not None:
-            return TaskView(task_ptr, self.tc, self.tp)
+            return TaskView(task_ptr, self.tc, self.pool.tp)
         return DtdView(task_ptr, self.nb_flows)
 
 
 class _Epilogue:
     """Speculative cross-class fusion config, attached to the SOURCE
-    body (see CudaDevice.attach_epilogue)."""
+    body (see CudaDevice.attach_epilogue).  dst_bkey is (the pool's
+    record key, the dst class id): its parked results go with the pool."""
     __slots__ = ("dst_bkey", "kernel", "pick", "dst_params", "ops",
                  "src_flow", "dst_in_flow")
 
@@ -1020,14 +1047,8 @@ class CudaDevice:
         self.batch_wait_ms = 0.0
         self.batch_max_bytes = int(
             os.environ.get("PTC_DEVICE_BATCH_BYTES", str(2 << 30)))
-        self.bodies: Dict[Tuple[int, int], _DeviceBody] = {}
-        # DTD device tasks' bodies by task tag (register_dtd_task); each
-        # is popped at its task's dispatch.  The bodies by signature
-        # (_dtd_signature), one per pool and signature, dropped with the
-        # pool's leftovers at its wait()
-        self._dtd_bodies: Dict[int, _DeviceBody] = {}
-        self._dtd_sigs: Dict[tuple, _DeviceBody] = {}
-        self._tp_by_ptr: Dict[int, Taskpool] = {}
+        # the live pools' records by native pointer (_PoolRecord)
+        self._pools: Dict[int, _PoolRecord] = {}
         # device-copy LRU keyed by uid (stamped into the native copy handle,
         # so freed/reused ptc_copy addresses can't alias — ABA guard)
         self._cache: "OrderedDict[int, _CacheEnt]" = OrderedDict()
@@ -1151,8 +1172,8 @@ class CudaDevice:
         # chore name -> [launches, lanes]: one launch per kernel call of
         # the manager (epilogues included), written under self._lock
         self.launches: Dict[str, List[int]] = {}
-        # parked speculative results: (dst body key, dst key) ->
-        # (output stacks, src uid, src version); bounded by _spec_put
+        # parked speculative results: ((pool key, dst class id), dst key)
+        # -> (output stacks, src uid, src version); bounded by _spec_put
         self._spec: Dict[tuple, tuple] = {}
         # the wave compiler (device.wave_fuse; None = off: the per-group
         # batched dispatch, bit for bit)
@@ -1764,12 +1785,15 @@ class CudaDevice:
         return None if lane is None else lane.error
 
     def info(self) -> dict:
-        """Device info object: identity, capacity, live cache state."""
+        """Device info object: identity, capacity, live cache state.
+        attached_classes counts the device chores of the pools this
+        device holds a record of: pools not destroyed yet (and aborted
+        ones, until stop())."""
         with self._lock:
             cache_n = len(self._cache)
             cache_b = self._cache_used
             stats = dict(self.stats)
-            attached = len(self.bodies)
+            attached = sum(len(r.bodies) for r in self._pools.values())
         # the manager loop's wall time so far (the four mgr_* buckets'
         # whole), and the collector's process totals
         t0, t1 = self._mgr_t0, self._mgr_t1
@@ -1859,7 +1883,10 @@ class CudaDevice:
 
         batch=True (default) lets the manager run a group of ready tasks
         of this class as one launch; set False for kernels with
-        cross-lane semantics."""
+        cross-lane semantics.
+
+        The body is filed in the pool's record (_PoolRecord, made by the
+        pool's first attachment here), which tp.destroy() drops."""
         if dtypes is None:
             dtypes = {f: np.dtype(dtype) for f in set(reads) | set(writes)}
         # float64 is refused as the reference device module refuses it
@@ -1872,12 +1899,18 @@ class CudaDevice:
             self._stats_add("f64_refused")
             return
         tc.body_device(self.qid, device="cuda")
-        body = _DeviceBody(kernel, reads, writes, shapes, dtypes, tc, tp,
-                           batch=batch)
-        if not sync_mem_out:
-            body.mem_out_flows = set()
-        self.bodies[(id(tp), tc.id)] = body
-        self._tp_by_ptr[tp._ptr] = tp
+        with self._lock:
+            rec = self._pool(tp)
+            body = _DeviceBody(kernel, reads, writes, shapes, dtypes, tc,
+                               rec, batch=batch)
+            if not sync_mem_out:
+                body.mem_out_flows = set()
+            rec.bodies[tc.id] = body
+
+    def _pool(self, tp: Taskpool) -> _PoolRecord:
+        """The pool's record, made at its first call (under self._lock)."""
+        return self._pools.get(tp._ptr) or \
+            self._pools.setdefault(tp._ptr, _PoolRecord(tp))
 
     def attach_epilogue(self, src_tc: TaskClass, dst_tc: TaskClass, tp,
                         src_flow: str, dst_in_flow: str, pick, dst_params,
@@ -1909,8 +1942,9 @@ class CudaDevice:
         PTC_DEVICE_EPILOGUE=0 turns the mechanism off."""
         if os.environ.get("PTC_DEVICE_EPILOGUE", "1") == "0":
             return
-        src = self.bodies.get((id(tp), src_tc.id))
-        dst = self.bodies.get((id(tp), dst_tc.id))
+        rec = self._pools.get(tp._ptr)
+        src = rec and rec.bodies.get(src_tc.id)
+        dst = rec and rec.bodies.get(dst_tc.id)
         if src is None or dst is None:
             return
         uncovered = [f for f in dst.reads
@@ -1923,7 +1957,7 @@ class CudaDevice:
                 "src lane and ops alone; a varying undeclared input would "
                 "complete dst tasks with stale data (single-varying-input "
                 "contract)")
-        epi = _Epilogue((id(tp), dst_tc.id), kernel, pick, dst_params, ops,
+        epi = _Epilogue((rec.key, dst_tc.id), kernel, pick, dst_params, ops,
                         src_flow, dst_in_flow)
         src.epilogue = epi
         dst.spec_src = epi
@@ -2222,7 +2256,8 @@ class CudaDevice:
                 f"{timeout:.0f}s; dirty mirrors are NOT coherent")
 
     def stop(self):
-        """Flush dirty mirrors and stop the lanes and the manager
+        """Flush dirty mirrors, stop the lanes and the manager, and drop
+        every pool record left (an aborted pool's among them)
         (idempotent).  The prefetch lane object stays, stopped, so that
         prefetch_error can still be read."""
         if self._stop.is_set():
@@ -2251,8 +2286,7 @@ class CudaDevice:
             self._cache.clear()
             self._stacks.clear()
             self._spec.clear()
-            self._dtd_bodies.clear()
-            self._dtd_sigs.clear()
+            self._pools.clear()
             self._cache_used = 0
         if self._fuser is not None:
             self._fuser.clear()
@@ -2390,39 +2424,7 @@ class CudaDevice:
                     if t2:
                         batch.append(t2)
                 self._mgr_to(_PLAN)
-            fz = self._fuser
-            groups: List[Tuple[Optional[_DeviceBody], List]] = []
-            index: Dict[int, int] = {}
-            for t in batch:
-                body = self._body_for(t)
-                gi = index.get(id(body))
-                if gi is None or body is None or not body.batch:
-                    if gi is not None and body is not None \
-                            and body.tc is not None and fz is not None:
-                        # >= 2 ready tasks of an unbatchable class: the
-                        # wave exists but cannot fuse (counted)
-                        fz._refuse("unbatchable-body")
-                    index[id(body)] = len(groups)
-                    groups.append((body, [t]))
-                else:
-                    groups[gi][1].append(t)
-            if fz is not None and len({id(b) for b, _ in groups
-                                       if b is not None
-                                       and b.tc is not None}) > 1:
-                # the front as popped was not ONE wave of classes
-                # (counted as certify()'s heterogeneous refusals are;
-                # DTD bodies are no class's wave)
-                fz._refuse("heterogeneous-front")
-            for body, ts in groups:
-                if body is None:
-                    self._mgr_to(_COMPLETE, -1, len(ts))
-                    for t in ts:
-                        self.ctx.task_complete(t)
-                elif len(ts) == 1 or not body.batch:
-                    for t in ts:
-                        self._run_lanes(body, [t])
-                else:
-                    self._dispatch_group(body, ts)
+            self._dispatch_front(batch)
             if self._pf_lane is not None and \
                     self.ctx.device_queue_depth(self.qid) > 0:
                 # the wave consumed its staged tiles and the queue's
@@ -2430,6 +2432,44 @@ class CudaDevice:
                 # the interpreter this thread yields (device/prefetch)
                 self._mgr_to(_PLAN)
                 self._pf_lane.handoff()
+
+    def _dispatch_front(self, batch: List) -> None:
+        """Group a popped batch by body (a class, or a DTD signature; pop
+        order kept) and run each group.  A method of its own so that no
+        body, and so no pool record, outlives it in the manager's frame."""
+        fz = self._fuser
+        groups: List[Tuple[Optional[_DeviceBody], List]] = []
+        index: Dict[int, int] = {}
+        for t in batch:
+            body = self._body_for(t)
+            gi = index.get(id(body))
+            if gi is None or body is None or not body.batch:
+                if gi is not None and body is not None \
+                        and body.tc is not None and fz is not None:
+                    # >= 2 ready tasks of an unbatchable class: the
+                    # wave exists but cannot fuse (counted)
+                    fz._refuse("unbatchable-body")
+                index[id(body)] = len(groups)
+                groups.append((body, [t]))
+            else:
+                groups[gi][1].append(t)
+        if fz is not None and len({id(b) for b, _ in groups
+                                   if b is not None
+                                   and b.tc is not None}) > 1:
+            # the front as popped was not ONE wave of classes
+            # (counted as certify()'s heterogeneous refusals are;
+            # DTD bodies are no class's wave)
+            fz._refuse("heterogeneous-front")
+        for body, ts in groups:
+            if body is None:
+                self._mgr_to(_COMPLETE, -1, len(ts))
+                for t in ts:
+                    self.ctx.task_complete(t)
+            elif len(ts) == 1 or not body.batch:
+                for t in ts:
+                    self._run_lanes(body, [t])
+            else:
+                self._dispatch_group(body, ts)
 
     def register_dtd_task(self, task_ptr, kernel: Callable,
                           reads: Sequence[int], writes: Sequence[int],
@@ -2445,50 +2485,64 @@ class CudaDevice:
         so that a drain groups them into one vmapped launch (_launch).  A
         task with a read or write flow of no declared shape (the whole
         datum, whose size may differ from task to task) or with no read
-        gets a body of its own and runs one task per launch."""
-        sig = _dtd_signature(tp, kernel, reads, writes, shapes, dtype,
-                             nb_flows)
+        gets a body of its own and runs one task per launch.  Both maps
+        are the pool's record's (_PoolRecord, made by its first device
+        task here), which tp.destroy() drops."""
+        sig = _dtd_signature(kernel, reads, writes, shapes, dtype, nb_flows)
         with self._lock:
-            body = self._dtd_sigs.get(sig) if sig is not None else None
+            rec = self._pool(tp)
+            body = rec.dtd_sigs.get(sig) if sig is not None else None
             if body is None:
                 dtypes = {i: np.dtype(dtype) for i in range(nb_flows)}
                 body = _DeviceBody(kernel, reads, writes, dict(shapes),
-                                   dtypes, None, tp, nb_flows,
+                                   dtypes, None, rec, nb_flows,
                                    batch=sig is not None)
                 if sig is not None:
-                    self._dtd_sigs[sig] = body
+                    rec.dtd_sigs[sig] = body
             tag = _next_uid()
             N.lib.ptc_task_set_tag(task_ptr, tag)
-            self._dtd_bodies[tag] = body
+            rec.dtd_tags[tag] = body
         return tag
 
     def drop_dtd_tasks(self, tp: Taskpool, tag: Optional[int] = None) -> None:
-        """Forget DTD bodies that will never dispatch: the one of `tag`
-        (an insertion the pool refused), or every one of the pool `tp`
-        still held (its wait() returned: they are tasks an abort
-        dropped), and the pool's bodies by signature."""
+        """Forget DTD bodies of the pool `tp` that will never dispatch:
+        the one of `tag` (an insertion the pool refused), or every one
+        its record still holds (its wait() returned: they are tasks an
+        abort dropped), and its bodies by signature.  The record itself
+        stays until tp.destroy()."""
         with self._lock:
-            if tag is not None:
-                self._dtd_bodies.pop(tag, None)
-                return
-            for t in [t for t, b in self._dtd_bodies.items() if b.tp is tp]:
-                del self._dtd_bodies[t]
-            for sig in [s for s, b in self._dtd_sigs.items() if b.tp is tp]:
-                del self._dtd_sigs[sig]
+            rec = self._pools.get(tp._ptr)
+            if rec is not None and tag is not None:
+                rec.dtd_tags.pop(tag, None)
+            elif rec is not None:
+                rec.dtd_tags.clear()
+                rec.dtd_sigs.clear()
+
+    def drop_pool(self, tp: Taskpool) -> None:
+        """Forget the pool `tp` (Taskpool.destroy, before the native pool
+        is freed and its pointer may name a new pool): its record, its
+        parked epilogue results and, through the wave compiler, its
+        parked chain results (counted as drops) and their pins."""
+        key = tp._ptr
+        with self._lock:
+            self._pools.pop(key, None)
+            for k in [k for k in list(self._spec) if k[0][0] == key]:
+                self._spec.pop(k, None)
+        if self._fuser is not None:
+            self._fuser.drop_pool(key)
 
     def _body_for(self, task) -> Optional[_DeviceBody]:
-        """A DTD task's body by its tag (popped: a tag dispatches once),
-        else its pool's class body."""
+        """A task's body, from its pool's record: a DTD task's by its tag
+        (popped: a tag dispatches once; a PTG task has none), else its
+        class's."""
+        rec = self._pools.get(N.lib.ptc_task_taskpool(task))
+        if rec is None:
+            return None
         tag = N.lib.ptc_task_get_tag(task)
         if tag:
             with self._lock:
-                body = self._dtd_bodies.pop(tag, None)
-            if body is not None:
-                return body
-        tp = self._tp_by_ptr.get(N.lib.ptc_task_taskpool(task))
-        if tp is None:
-            return None
-        return self.bodies.get((id(tp), N.lib.ptc_task_class(task)))
+                return rec.dtd_tags.pop(tag, None)
+        return rec.bodies.get(N.lib.ptc_task_class(task))
 
     def _flow_uid_ver(self, view, body, flow):
         cptr = N.lib.ptc_task_copy(view._ptr, body.flow_index(flow))
@@ -2665,8 +2719,9 @@ class CudaDevice:
         only a handful may linger."""
         self._spec[key] = (eouts, src[0], src[1])
         self._stats_add("spec_store")
-        while len(self._spec) > 4:
-            self._spec.pop(next(iter(self._spec)))
+        # the oldest past 4, over a snapshot (drop_pool pops elsewhere)
+        for k in list(self._spec)[:-4]:
+            self._spec.pop(k, None)
 
     def _try_spec(self, body: _DeviceBody, task) -> bool:
         """Destination side of an epilogue: complete `task` from a parked

@@ -54,8 +54,11 @@ it is (cert_hits), one whose key is not runs the pass and stores its
 result (cert_misses), and one whose tables hold what the key cannot
 render exactly (a Python callable in an expression, a JDF escape, a
 collection of a type without a known geometry) runs the pass uncached,
-counted by reason (cert_uncached), never guessed at.  Parked results
-and the online checks stay per pool.
+counted by reason (cert_uncached), never guessed at.  A pool's consumed
+state, its parked results and their pending online checks live with the
+device's record of the pool (cuda._PoolRecord; the parked results and
+checks filed under its key) and go with it when the pool is destroyed
+(drop_pool: the parked results count as chain_drops).
 
 Widths are never padded: a chained level launches with exactly its
 consumer count, the same call with the same shapes that the unfused
@@ -71,7 +74,10 @@ effects have started, an error fails its tasks.
 entirely, reproducing the per-group batched dispatch bit for bit.
 
 All fuser state changes on the device's manager thread (the only
-dispatcher); counters are merged under the device lock.
+dispatcher), but for a destroyed pool's drop (drop_pool, on the thread
+that destroys it, once no task of the pool is left): the parked store
+is iterated over snapshots, its records popped one key at a time, and
+class counts, pins and counters change under the device lock.
 """
 from __future__ import annotations
 
@@ -182,7 +188,7 @@ def _collection_key(coll):
             coll.myrank, coll.dtype.str, getattr(coll, "uplo", None)) + grid
 
 
-def _structure_key(tp, dev, depth: int, max_instances: int) -> tuple:
+def _structure_key(pool, depth: int, max_instances: int) -> tuple:
     """Everything chain_certificates(tp) and its consumption read, as one
     hashable tuple: per class its name, id, parameters, affinity, flows
     (access, arena and its bytes, dependencies with their targets, guards
@@ -194,6 +200,7 @@ def _structure_key(tp, dev, depth: int, max_instances: int) -> tuple:
     context's rank, rank map and the knobs.  A chore's Python body
     enters as its kind and purity, all the certificates read of it.
     _Unkeyable where something cannot be rendered exactly."""
+    tp = pool.tp
     ctx = tp.ctx
     colls, classes = set(), []
     for tc in tp.classes:
@@ -214,7 +221,7 @@ def _structure_key(tp, dev, depth: int, max_instances: int) -> tuple:
         aff = tc._affinity
         if aff is not None:
             colls.add(aff.collection)
-        body = dev.bodies.get((id(tp), tc.id))
+        body = pool.bodies.get(tc.id)
         attached = None if body is None else (
             id(body.kernel), tuple(body.reads), tuple(body.writes),
             tuple(sorted((f, tuple(s)) for f, s in body.shapes.items())),
@@ -263,17 +270,16 @@ class WaveFuser:
     def __init__(self, dev):
         self.dev = dev
         self.depth = max(1, int(_knobs.get("device.wave_fuse_depth")))
-        # id(tp) -> {"failed": str|False, "links", "classes", "slots",
-        #            "by_name"}: the consumed chain certificates
-        self._tp_state: Dict[int, dict] = {}
-        # _structure_key -> that state, shared by the pools of one
+        # _structure_key -> a pool's consumed chain certificates
+        # ({"failed": str|False, "links", "classes", "slots", "by_name"},
+        # kept in its record's `cert`), shared by the pools of one
         # structure (least recently used first out)
         self._cert_cache: "OrderedDict[tuple, dict]" = OrderedDict()
         self.cert_uncached: Dict[str, int] = {}
-        # (tp_id, class_id, params) -> parked speculative result
+        # (pool key, class_id, params) -> parked speculative result
         self._parked: Dict[tuple, dict] = {}
         self._parked_classes: Dict[tuple, int] = {}
-        # (tp_id, cls_name, params, flow) -> [(rec_key, flow_name)]: chain
+        # (pool key, cls_name, params, flow) -> [(rec_key, flow_name)]: chain
         # checks waiting for an upstream consumption to learn its concrete
         # (uid, version); an unresolved pending reads as a miss
         self._pending: Dict[tuple, list] = {}
@@ -307,29 +313,34 @@ class WaveFuser:
         return out
 
     def clear(self) -> None:
-        """Drop parked results and certificate state, the cache of it
-        included (device stop)."""
+        """Drop parked results and the cache of certificate state (device
+        stop, which drops the pool records too)."""
         self._parked.clear()
         self._parked_classes.clear()
         self._pending.clear()
-        self._tp_state.clear()
         self._cert_cache.clear()
         with self.dev._lock:
             self.dev._chain_pinned = 0
 
-    # ----------------------------------------------------- certificates
-    def _state_for(self, body) -> Optional[dict]:
-        """The consumed chain certificates of a taskpool, had once a pool
-        (_certify)."""
-        tp = body.tp
-        if tp is None or body.tc is None:
-            return None
-        st = self._tp_state.get(id(tp))
-        if st is None:
-            st = self._tp_state[id(tp)] = self._certify(tp)
-        return st
+    def drop_pool(self, key: int) -> None:
+        """Drop what is parked for the pool of record key `key` (its
+        destroy()): its results, counted as chain_drops, with their pins,
+        and its pending checks."""
+        for rec_key in [k for k in list(self._parked) if k[0] == key]:
+            self._drop(rec_key)
+        for k in [k for k in list(self._pending) if k[0] == key]:
+            self._pending.pop(k, None)
 
-    def _certify(self, tp) -> dict:
+    # ----------------------------------------------------- certificates
+    def _state_for(self, body) -> dict:
+        """The consumed chain certificates of a class body's pool, had
+        once a pool (_certify) and kept in its record."""
+        pool = body.pool
+        if pool.cert is None:
+            pool.cert = self._certify(pool)
+        return pool.cert
+
+    def _certify(self, pool) -> dict:
         """A pool's certificate state: the cached state of its structure
         where a pool of that structure has certified on this device, else
         the pass's (stored where the structure keys).  Its time, key
@@ -345,7 +356,7 @@ class WaveFuser:
                           + [time.perf_counter_ns])[-1]
         max_instances = int(_knobs.get("plan.max_instances"))
         try:
-            key = _structure_key(tp, dev, self.depth, max_instances)
+            key = _structure_key(pool, self.depth, max_instances)
         except _Unkeyable as e:
             key, why = None, str(e)
         except Exception as e:  # a key must never kill dispatch
@@ -356,7 +367,7 @@ class WaveFuser:
             how = _CERT_HIT
             self._bump("cert_hits")
         else:
-            st = self._chain_state(tp, max_instances)
+            st = self._chain_state(pool.tp, max_instances)
             if key is None:
                 how = _CERT_UNCACHED
                 with dev._lock:
@@ -407,13 +418,12 @@ class WaveFuser:
         """Whether a chain result of `body`'s class is parked: only then
         can a popped task of it complete from one."""
         return bool(self._parked) and body.tc is not None and \
-            (id(body.tp), body.tc.id) in self._parked_classes
+            (body.pool.key, body.tc.id) in self._parked_classes
 
     def consume_group(self, body, tasks: List) -> List:
         """Complete every task with a matching parked chain result;
-        return the rest for a real dispatch."""
-        if not self.has_parked(body):
-            return tasks
+        return the rest for a real dispatch.  The caller has checked
+        has_parked(body)."""
         return [t for t in tasks if not self.consume(body, t)]
 
     def consume(self, body, task) -> bool:
@@ -421,25 +431,17 @@ class WaveFuser:
         when every input copy matches the (uid, version) the speculation
         consumed.  Returns True when the task was DISPOSED (completed or
         failed)."""
-        if not self._parked or body.tc is None:
-            return False
-        tp_id = id(body.tp)
-        cid = body.tc.id
-        if (tp_id, cid) not in self._parked_classes:
-            return False
-        st = self._tp_state.get(tp_id)
+        key, cid = body.pool.key, body.tc.id
+        st = body.pool.cert
         slots = st["slots"].get(cid) if st else None
         if slots is None:
             return False
         dev = self.dev
         view = body.make_view(task)
         params = self._params(view, slots)
-        rec = self._parked.pop((tp_id, cid, params), None)
+        rec = self._unpark((key, cid, params))
         if rec is None:
             return False
-        self._unpark_class((tp_id, cid))
-        with dev._lock:
-            dev._chain_pinned = max(0, dev._chain_pinned - rec["pin"])
         ok = not rec["pending"]
         if ok:
             for fname, chk in rec["checks"].items():
@@ -465,7 +467,7 @@ class WaveFuser:
                     wb_uids.append(uid)
                 # downstream parked records waiting on this lane's output
                 # learn its concrete (uid, version) now
-                self._resolve(tp_id, body.tc.name, params, f, uid, nv)
+                self._resolve(key, body.tc.name, params, f, uid, nv)
         except Exception:
             traceback.print_exc()
             dev.ctx.task_fail(task)
@@ -479,15 +481,27 @@ class WaveFuser:
         dev.ctx.task_complete(task)
         return True
 
-    def _unpark_class(self, ckey: tuple) -> None:
-        n = self._parked_classes.get(ckey, 0) - 1
-        if n <= 0:
-            self._parked_classes.pop(ckey, None)
-        else:
-            self._parked_classes[ckey] = n
+    def _unpark(self, rec_key: tuple) -> Optional[dict]:
+        """Pop the parked record `rec_key`, if there is one, with its
+        class's count and its bytes' pin."""
+        rec = self._parked.pop(rec_key, None)
+        if rec is not None:
+            with self.dev._lock:
+                n = self._parked_classes.pop(rec_key[:2], 1) - 1
+                if n > 0:
+                    self._parked_classes[rec_key[:2]] = n
+                self.dev._chain_pinned = max(0, self.dev._chain_pinned
+                                             - rec["pin"])
+        return rec
 
-    def _resolve(self, tp_id, cls_name, params, flow, uid, ver) -> None:
-        lst = self._pending.pop((tp_id, cls_name, params, flow), None)
+    def _drop(self, rec_key: tuple) -> None:
+        """Drop a parked record no task consumed (superseded, past
+        _PARKED_MAX, or its pool destroyed), counted in chain_drops."""
+        if self._unpark(rec_key) is not None:
+            self._bump("chain_drops")
+
+    def _resolve(self, key, cls_name, params, flow, uid, ver) -> None:
+        lst = self._pending.pop((key, cls_name, params, flow), None)
         if not lst:
             return
         for rec_key, fname in lst:
@@ -551,9 +565,6 @@ class WaveFuser:
             self._refuse("chain:epilogue-active")
             return False
         st = self._state_for(body)
-        if st is None:
-            self._refuse("chain:no-certificate")
-            return False
         if st["failed"]:
             self._refuse(f"chain:{st['failed']}")
             return False
@@ -574,7 +585,6 @@ class WaveFuser:
         batched-dispatch byte cap and the device's free residency."""
         dev = self.dev
         links = st["links"]
-        tp_id = id(body.tp)
         # parked stacks live on the card outside the LRU until consumed:
         # bound them by BOTH the byte cap of one dispatch and the free
         # residency (budget - used - reservations - parked).  Under
@@ -605,7 +615,7 @@ class WaveFuser:
                 break
             cname = next(iter(cnames))
             cid = st["by_name"].get(cname)
-            cbody = dev.bodies.get((tp_id, cid))
+            cbody = body.pool.bodies.get(cid)
             if cbody is None or not cbody.batch:
                 self._refuse("chain:consumer-not-attached")
                 break
@@ -741,7 +751,7 @@ class WaveFuser:
         wave's tasks complete once the span has ended, as after a batched
         launch (CudaDevice._disp_close)."""
         dev = self.dev
-        tp_id = id(body.tp)
+        key = body.pool.key
         try:
             got = self._marshal(levels, lane_params, list(body.writes))
         except Exception:
@@ -811,7 +821,7 @@ class WaveFuser:
                                                         level_outs)):
                     cbody = lvl["body"]
                     entries = lvl["entries"]
-                    ckey = (tp_id, lvl["cid"])
+                    ckey = (key, lvl["cid"])
                     # residency of the parked stacks (one level's output
                     # stacks, split across its records; released as each
                     # record is consumed or dropped)
@@ -820,7 +830,7 @@ class WaveFuser:
                     with dev._lock:
                         dev._chain_pinned += share * len(entries)
                     for j, e in enumerate(entries):
-                        rec_key = (tp_id, lvl["cid"], e["params"])
+                        rec_key = (key, lvl["cid"], e["params"])
                         rec = {"outs": {f: (ostacks[fi], j) for fi, f in
                                         enumerate(cbody.writes)},
                                "event": ev, "pin": share,
@@ -835,32 +845,22 @@ class WaveFuser:
                                     # consumed; unresolved reads as a miss
                                     rec["pending"][fname] = True
                                     self._pending.setdefault(
-                                        (tp_id, prev_cls, spec[1],
+                                        (key, prev_cls, spec[1],
                                          spec[2]), []).append(
                                             (rec_key, fname))
                             else:
                                 rec["checks"][fname] = \
                                     mem_checks[(li, j, fname)]
-                        old = self._parked.pop(rec_key, None)
-                        if old is not None:
-                            self._unpark_class(ckey)
-                            with dev._lock:
-                                dev._chain_pinned = max(
-                                    0, dev._chain_pinned - old["pin"])
-                            self._bump("chain_drops")
+                        self._drop(rec_key)  # a superseded record
                         self._parked[rec_key] = rec
                         self._parked_classes[ckey] = \
                             self._parked_classes.get(ckey, 0) + 1
                         parked += 1
                     prev_cls = lvl["cls"]
-                while len(self._parked) > _PARKED_MAX:
-                    old_key = next(iter(self._parked))
-                    old = self._parked.pop(old_key)
-                    self._unpark_class((old_key[0], old_key[1]))
-                    with dev._lock:
-                        dev._chain_pinned = max(
-                            0, dev._chain_pinned - old["pin"])
-                    self._bump("chain_drops")
+                over = len(self._parked) - _PARKED_MAX
+                if over > 0:  # the oldest, over a snapshot (drop_pool)
+                    for k in list(self._parked)[:over]:
+                        self._drop(k)
                 self._bump("fused_chains")
                 self._bump("chain_waves", len(levels))
                 self._bump("chain_parked", parked)

@@ -121,9 +121,6 @@ class DtdTaskpool:
         # one native body callback per distinct host fn (the context keeps
         # every callback alive, so one per insert would grow without bound)
         self._body_ids: Dict[Callable, int] = {}
-        # devices this pool inserted tasks for (their leftover bodies are
-        # dropped at wait())
-        self._devices: list = []
         self._closed = False
 
     # ------------------------------------------------------------- tiles
@@ -297,8 +294,6 @@ class DtdTaskpool:
                 writes.append(i)
         tag = dev.register_dtd_task(t, kernel, reads, writes, shapes or {},
                                     dtype, len(args), self.tp)
-        if dev not in self._devices:
-            self._devices.append(dev)
         if N.lib.ptc_dtask_submit(self.ctx._ptr, t, self.window) != 0:
             dev.drop_dtd_tasks(self.tp, tag)
             raise RuntimeError("taskpool aborted: insertion refused")
@@ -315,7 +310,7 @@ class DtdTaskpool:
             self.tp.wait()
         finally:
             # bodies of device tasks an abort dropped never dispatch
-            for dev in self._devices:
+            for dev in list(self.ctx._devices):
                 dev.drop_dtd_tasks(self.tp)
 
     def destroy(self):

@@ -54,9 +54,9 @@ def _grid(rank):
 def _certify(dev, tp):
     """The fuser's state for `tp`, had as a popped wave of its first
     device class has it."""
-    cid = next(tc.id for tc in tp.classes
-               if (id(tp), tc.id) in dev.bodies)
-    return dev._fuser._state_for(dev.bodies[(id(tp), cid)])
+    bodies = dev._pools[tp._ptr].bodies
+    cid = next(tc.id for tc in tp.classes if tc.id in bodies)
+    return dev._fuser._state_for(bodies[cid])
 
 
 def _fuse(dev):
@@ -147,8 +147,8 @@ def test_a_changed_structure_misses(rank, change):
             tp = build_potrf(ctx, A, dev=dev, trsm_via_inverse=False)
         else:
             tp = build_potrf(ctx, A, dev=dev)
-            body = next(b for (t, _), b in dev.bodies.items()
-                        if t == id(tp) and b.tc.name == "GEMM")
+            body = next(b for b in dev._pools[tp._ptr].bodies.values()
+                        if b.tc.name == "GEMM")
             if change == "chore_shape":
                 body.shapes["C"] = (NB, NB // 2)
             else:

@@ -1002,7 +1002,7 @@ def _card_gemm(card, fused, depth=None):
             params.unset("device.wave_fuse")
         dev.batch_wait_ms = 2.0
         tp = build_gemm(ctx, A, B, C, dev)
-        body = dev.bodies[(id(tp), tp.classes[0].id)]
+        body = dev._pools[tp._ptr].bodies[tp.classes[0].id]
         widths, kern = [], body.kernel
 
         def k_gemm_nn(x, y, z):

@@ -587,7 +587,7 @@ def test_epilogue_rejects_undeclared_varying_read_flow():
         with pytest.raises(ValueError, match="single-varying-input"):
             dev.attach_epilogue(src, dst, tp, **kw)
         dev.attach_epilogue(src, dst, tp, const_flows=("Q",), **kw)
-        assert dev.bodies[(id(tp), dst.id)].spec_src is not None
+        assert dev._pools[tp._ptr].bodies[dst.id].spec_src is not None
         dev.stop()
 
 

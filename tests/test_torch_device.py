@@ -4,7 +4,9 @@ each kernel's plain PyTorch version, and the reference runs the same
 builders under TpuDevice on the JAX CPU backend (its Pallas kernels in
 interpret mode where the tile shapes reach them).  Inputs are made from
 a numpy seed and carried across by parsec_tpu_torch.convert."""
+import gc
 import time
+import weakref
 
 import numpy as np
 import pytest
@@ -18,8 +20,10 @@ from parsec_tpu.device import TpuDevice
 from parsec_tpu.ops.flash_attention import \
     build_flash_attention as jax_build_fatt
 from parsec_tpu.ops.rms_norm import build_rms_norm as jax_build_norm
-from parsec_tpu_torch.algos import build_gemm
+from parsec_tpu_torch.algos import build_gemm, build_potrf
+from parsec_tpu_torch.analysis.plan import chain_certificates
 from parsec_tpu_torch.convert import to_collection
+from parsec_tpu_torch.data import TwoDimBlockCyclic
 from parsec_tpu_torch.device import CudaDevice
 from parsec_tpu_torch.ops import build_flash_attention, build_rms_norm
 
@@ -391,3 +395,131 @@ def test_manager_hands_off_to_the_lane_after_a_wave_while_tasks_stay_queued(
         dev.stop()
     assert handoffs == [12, 8, 4]  # the queue's depth at each
     np.testing.assert_array_equal(dst, src * 2.0)
+
+
+# ------------------------------------------- a pool's record and its end
+def _spd_tiles(ctx, name, n=512, nb=64, seed=0):
+    """An SPD matrix in nb x nb tiles, registered as `name`, and the
+    float64 matrix its float32 tiles were rounded from."""
+    x = np.random.default_rng(seed).standard_normal((n, n))
+    s = x @ x.T + n * np.eye(n)
+    A = TwoDimBlockCyclic(n, n, nb, nb, dtype=np.float32)
+    A.from_dense(s.astype(np.float32))
+    A.register(ctx, name)
+    return A, s
+
+
+def test_a_destroyed_pool_leaves_nothing_on_the_device():
+    """Six solves, each a new build_potrf pool (N 512, NB 64) run, waited
+    and destroyed: after each the device holds no record, and every pool
+    is freed (the manager's last front may hold a body for a moment);
+    the certificate cache serves the five pools after the first."""
+    refs = []
+    with tpt.Context(nb_workers=2) as ctx:
+        A, _ = _spd_tiles(ctx, "A")
+        dev = CudaDevice(ctx, device="cpu")
+        dev.batch_wait_ms = 2.0
+        for _ in range(6):
+            tp = build_potrf(ctx, A, dev=dev)
+            tp.run()
+            tp.wait()
+            tp.destroy()
+            refs.append(weakref.ref(tp))
+            assert dev._pools == {}
+            assert dev.info()["attached_classes"] == 0
+        del tp
+        deadline = time.monotonic() + 10.0
+        while any(r() is not None for r in refs):
+            assert time.monotonic() < deadline, [r() is None for r in refs]
+            gc.collect()
+            time.sleep(0.01)
+        fz = dev.info()["fuse"]
+        dev.stop()
+    assert (fz["cert_hits"], fz["cert_misses"]) == (5, 1), fz
+
+
+def test_a_pool_on_a_reused_pointer_runs_on_its_own_record(record_property):
+    """A pool destroyed, then one of another structure (the textbook TRSM
+    dataflow, over another matrix): the second may get the first's native
+    pointer (recorded as pointer_reused); either way its record is new,
+    holds its own bodies, and certifies it afresh, and its factor is the
+    float64 one's."""
+    with tpt.Context(nb_workers=2) as ctx:
+        A, _ = _spd_tiles(ctx, "A")
+        B, s = _spd_tiles(ctx, "B", seed=1)
+        dev = CudaDevice(ctx, device="cpu")
+        dev.batch_wait_ms = 2.0
+        first = build_potrf(ctx, A, dev=dev)
+        first.run()
+        first.wait()
+        ptr = first._ptr
+        first.destroy()
+        tp = build_potrf(ctx, B, dev=dev, name="B", trsm_via_inverse=False)
+        record_property("pointer_reused", tp._ptr == ptr)
+        rec = dev._pools[tp._ptr]
+        assert list(dev._pools) == [tp._ptr]
+        assert rec.tp is tp and rec.cert is None
+        assert {b.tc for b in rec.bodies.values()} <= set(tp.classes)
+        tp.run()
+        tp.wait()
+        dev.flush()
+        gemm = next(b for b in rec.bodies.values() if b.tc.name == "GEMM")
+        st = dev._fuser._state_for(gemm)
+        assert st is rec.cert
+        assert st["links"] == chain_certificates(tp).chain_index(0)["links"]
+        fz = dev.info()["fuse"]
+        out = np.tril(B.to_dense())
+        tp.destroy()
+        dev.stop()
+    assert (fz["cert_hits"], fz["cert_misses"]) == (0, 2), fz
+    np.testing.assert_allclose(out, np.linalg.cholesky(s), rtol=1e-4,
+                               atol=1e-4)
+
+
+def test_destroy_drops_the_pools_parked_results():
+    """Parked chain results whose consumers never popped here (as when
+    they ran on a sibling device), their pending checks and a parked
+    epilogue result, filed by hand under two live pools as the wave
+    compiler and the epilogue file them: each pool's destroy() drops its
+    own, counted as chain_drops, their pins leaving _chain_pinned."""
+    with tpt.Context(nb_workers=2) as ctx:
+        dev = CudaDevice(ctx, device="cpu")
+        fz = dev._fuser
+        pools = [build_potrf(ctx, _spd_tiles(ctx, name, 128, 32, i)[0],
+                             dev=dev, name=name)
+                 for i, name in enumerate("AB")]
+        for tp in pools:
+            tp.run()
+            tp.wait()
+        row = torch.zeros(1, 32, 32)
+        for tp in pools:
+            key, cid = tp._ptr, tp.class_by_name("GEMM").id
+            with dev._lock:
+                for j in range(3):
+                    fz._parked[(key, cid, (j, 0, 0))] = {
+                        "outs": {"C": (row, 0)}, "event": None,
+                        "pin": row.nbytes, "checks": {},
+                        "pending": {"C": True}}
+                    fz._parked_classes[(key, cid)] = \
+                        fz._parked_classes.get((key, cid), 0) + 1
+                    dev._chain_pinned += row.nbytes
+            fz._pending[(key, "GEMM", (0, 0, 0), "C")] = [
+                ((key, cid, (1, 0, 0)), "C")]
+            dev._spec[((key, cid), (1,))] = ((row,), 0, 0)
+        drops = fz.stats["chain_drops"]
+        pools[0].destroy()
+        b = pools[1]._ptr
+        assert fz.stats["chain_drops"] == drops + 3
+        assert dev._chain_pinned == 3 * row.nbytes
+        assert {k[0] for k in fz._parked} == {b} and len(fz._parked) == 3
+        assert [k[0] for k in fz._parked_classes] == [b]
+        assert [k[0] for k in fz._pending] == [b]
+        assert [k[0][0] for k in dev._spec] == [b]
+        assert list(dev._pools) == [b]
+        pools[1].destroy()
+        assert fz.stats["chain_drops"] == drops + 6
+        assert dev._chain_pinned == 0
+        assert not (fz._parked or fz._parked_classes or fz._pending)
+        assert not (dev._spec or dev._pools)
+        assert dev.info()["fuse"]["parked"] == 0
+        dev.stop()

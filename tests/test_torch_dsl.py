@@ -1436,7 +1436,7 @@ def test_dtd_device_f64_refused():
         assert "insert_task" in str(ei.value)
         assert "JAX" not in str(ei.value) and "jax" not in str(ei.value)
         dtd.wait()
-        assert dev._dtd_bodies == {}
+        assert dtd.tp._ptr not in dev._pools  # no body was ever filed
         dev.stop()
         dtd.destroy()
 
@@ -1470,7 +1470,7 @@ def test_dtd_failing_kernel_fails_the_pool():
             dtd.wait()
         assert dtd.tp.nb_errors > 0
         assert ran == []
-        assert dev._dtd_bodies == {}
+        assert dev._pools[dtd.tp._ptr].dtd_tags == {}
         dev.stop()
         dtd.destroy()
 
@@ -1611,9 +1611,10 @@ def test_dtd_tags_are_never_reused():
                 tags.add(tpt._native.lib.ptc_task_get_tag(task))
             dtd.wait()
             dev.flush()
-            assert dev._dtd_bodies == {}
+            assert dev._pools[dtd.tp._ptr].dtd_tags == {}
             got.append(vec.copy())
             dtd.destroy()
+            assert dev._pools == {}
         dev.stop()
     assert len(tags) == 40
     np.testing.assert_array_equal(got[0], np.full(8, 20, np.float32))

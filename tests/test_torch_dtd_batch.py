@@ -95,7 +95,8 @@ def test_dtd_gemm_runs_as_lane_batched_launches():
         st = dict(dev.stats)
         fuse = dev.info()["fuse"]
         launches = _launches(dev)
-        assert dev._dtd_bodies == {} and dev._dtd_sigs == {}
+        rec = dev._pools[dtd.tp._ptr]
+        assert rec.dtd_tags == {} and rec.dtd_sigs == {}
         dev.stop()
         assert _c_err(a, b, c) < 1e-4
         dtd.destroy()
@@ -288,7 +289,8 @@ def test_a_raising_kernel_still_fails_the_pool():
             dtd.wait()
         st = dict(dev.stats)
         assert dtd.tp.nb_errors > 0
-        assert dev._dtd_bodies == {} and dev._dtd_sigs == {}
+        rec = dev._pools[dtd.tp._ptr]
+        assert rec.dtd_tags == {} and rec.dtd_sigs == {}
         dev.stop()
         dtd.destroy()
     assert st["dtd_unbatchable"] == 1
