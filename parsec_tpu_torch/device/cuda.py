@@ -40,7 +40,11 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
     queued and stages their inputs on the h2d stream while the current
     wave runs; the residency planner reserves budget for it, prefers to
     evict tiles outside the lookahead, and, when dirty mirrors exceed
-    the budget, spills them through the writeback lane (out-of-core)
+    the budget, spills them through the writeback lane (out-of-core).
+    After a dry sweep (every tile of its lookahead already current) the
+    lane rests until a stage from the host, an eviction, a spill or a
+    pre-staged collection rouses it (_pf_rouse), or a wake gives it one
+    more pass
   - speculative epilogues (attach_epilogue): the lane of a wave whose
     output is the next input of a declared consumer class runs that
     class's kernel right after the wave's launch; the consumer task
@@ -90,7 +94,9 @@ thread alone at the boundaries between them (one clock read each):
                      planning before a launch opens its span, the
                      prefetch lane's handoff; cert_ns is the part of it
                      spent having each pool's chain certificates
-                     (device/fuse.py)
+                     (device/fuse.py), pf_handoff_ns the part inside
+                     the lane's handoff() (pf_handoffs of them waited
+                     for the lane, pf_handoffs_skipped found it at rest)
   - mgr_dispatch_ns  inside DEVICE_DISPATCH spans, chains included
                      (h2d_stall_ns is a part of it)
   - mgr_complete_ns  ctx.task_complete on this thread (the native
@@ -1077,6 +1083,10 @@ class CudaDevice:
         # the executing wave still needs
         self._pf_reserved = 0
         self._pf_lane: Optional[_PrefetchLane] = None  # once started
+        # the lane is at rest after a dry sweep (device/prefetch.py): its
+        # handoff() declines; set by the lane, cleared by _pf_rouse, read
+        # unlocked
+        self._pf_rest = False
         # wakes the lane's idle wait now instead of at its poll interval
         # (the comm engine's deliveries will set it; tests set it)
         self._pf_wake = threading.Event()
@@ -1132,6 +1142,15 @@ class CudaDevice:
                       "spills": 0, "spill_bytes": 0,
                       "prefetch_h2d_ns": 0, "ooc_waits": 0,
                       "prefetch_wakeups": 0,
+                      # the lane's rest (device/prefetch.py): sweeps that
+                      # found every lookahead tile current, and returns
+                      # from rest to its engaged pace (lane thread); the
+                      # manager's handoffs that waited for it and those it
+                      # declined at rest, and its time in them, a part of
+                      # mgr_plan_ns (manager thread, unlocked as mgr_*)
+                      "pf_dry_sweeps": 0, "pf_engagements": 0,
+                      "pf_handoffs": 0, "pf_handoffs_skipped": 0,
+                      "pf_handoff_ns": 0,
                       # the lane's stages of the wave compiler's chain
                       # hints: staged, served at a stage-in, refused
                       "prefetch_hint_stages": 0, "prefetch_hint_hits": 0,
@@ -1480,6 +1499,18 @@ class CudaDevice:
             del self._cache[k]
             self.stats["evictions"] += 1
             N.lib.ptc_device_clear_data_owner(self.ctx._ptr, k, self.qid)
+        if evict:
+            self._pf_rouse()
+
+    def _pf_rouse(self) -> None:
+        """Re-engage a resting prefetch lane (device/prefetch.py): a tile
+        was staged from the host at dispatch, evicted or spilled, or a
+        collection pre-staged, so a lookahead tile may want staging.  A
+        no-op while the lane is engaged or off.  Takes no lock: callers
+        may hold self._lock."""
+        if self._pf_rest:
+            self._pf_rest = False
+            self._pf_wake.set()
 
     def _cache_put(self, uid, version, arr, nbytes, dirty=False, host=None,
                    persistent=True, stack=None, idx=0, event=None,
@@ -1560,6 +1591,7 @@ class CudaDevice:
         self.stats["spills"] += 1
         self.stats["spill_bytes"] += int(ent.nbytes)
         N.lib.ptc_device_clear_data_owner(self.ctx._ptr, ent.uid, self.qid)
+        self._pf_rouse()
 
     def _spill(self, uids) -> None:
         """Writeback-lane half of the spill: write the picked mirrors back
@@ -1977,6 +2009,7 @@ class CudaDevice:
         for i, (uid, ver) in enumerate(keys):
             self._cache_put(uid, ver, stack[i], tiles[i].nbytes,
                             stack=stack, idx=i, event=ev)
+        self._pf_rouse()
 
     # ------------------------------------------------------------ manager
     def start(self):
@@ -2429,9 +2462,14 @@ class CudaDevice:
                     self.ctx.device_queue_depth(self.qid) > 0:
                 # the wave consumed its staged tiles and the queue's
                 # head moved: the lane stages the next waves now, on
-                # the interpreter this thread yields (device/prefetch)
+                # the interpreter this thread yields (device/prefetch);
+                # a lane at rest declines at once
                 self._mgr_to(_PLAN)
-                self._pf_lane.handoff()
+                t0 = time.perf_counter_ns()
+                waited = self._pf_lane.handoff()
+                self.stats["pf_handoff_ns"] += time.perf_counter_ns() - t0
+                self.stats["pf_handoffs" if waited
+                           else "pf_handoffs_skipped"] += 1
 
     def _dispatch_front(self, batch: List) -> None:
         """Group a popped batch by body (a class, or a DTD signature; pop
@@ -2596,6 +2634,7 @@ class CudaDevice:
         stall's owner (-1: none)."""
         if self._pf_lane is not None:
             self._stats_add("prefetch_misses")
+            self._pf_rouse()
         return self._h2d(host, scope)
 
     def _view_host(self, view, body: _DeviceBody, flow):

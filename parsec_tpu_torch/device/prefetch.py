@@ -65,6 +65,29 @@ Chain hints: the wave compiler (device/fuse.py) publishes, at each chain
 it runs, the collection tiles the NEXT chain segment will read
 (`dev._pf_chain_hints`), and the lane stages them first (`_stage_hints`)
 through the same pinned staging, h2d stream and refusals of stale stages.
+
+Rest: the lane engages only while staging can pay.  A DRY sweep (a
+non-empty lookahead, read to its end with no staging slot in flight,
+every copy of it already current somewhere in the context) puts it to
+rest: it drops its lookahead pin set and waits on the device's wake
+event alone, and handoff() returns at once, waking nothing.  So on a
+path whose tiles all live on the card the manager no longer pays a
+handoff after each wave, nor the interpreter a sweep every few ms.  Two
+kinds of event end the rest:
+  - a ROUSE (CudaDevice._pf_rouse) re-engages the lane at once: a
+    dispatch-time stage from the host (a prefetch miss), an eviction, a
+    spill, a pre-staged collection: a tile the lookahead reads may want
+    staging now
+  - a WAKE alone (a data-plane landing, a chain hint) gets one
+    pass: the hints staged, one sweep; the lane engages if either found
+    a tile that wants staging, and rests again on a dry sweep
+Engaged, the lane and handoff() run as described above; a path that
+stages from the host every wave never rests.  Counters (CudaDevice
+stats, always counted): pf_handoffs and pf_handoffs_skipped (the
+manager's handoffs that waited, and those a resting lane declined),
+pf_handoff_ns (the manager's time inside handoff(), a part of its
+mgr_plan_ns), pf_dry_sweeps (the sweeps that put or kept the lane at
+rest) and pf_engagements (rest to engaged).
 """
 from __future__ import annotations
 
@@ -95,6 +118,10 @@ class _PrefetchLane:
         # handoff waits on it
         self._passed = threading.Event()
         self._thread: Optional[threading.Thread] = None
+        # the last sweep's verdict: the copies it found wanting a stage
+        # (staged or not), and whether it was dry
+        self.wanted = 0
+        self.dry = False
         # the last exception of a sweep: the lane is advisory and goes
         # on, but a caller that must know reads it (dev.prefetch_error)
         self.error: Optional[BaseException] = None
@@ -108,20 +135,23 @@ class _PrefetchLane:
 
     def stop(self):
         self._stop.set()
+        self.dev._pf_wake.set()  # a resting lane waits on nothing else
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
 
-    def handoff(self) -> None:
+    def handoff(self) -> bool:
         """The manager's call after a wave while tasks stay queued: wake
         the lane and yield the interpreter to it until it has staged one
         more wave or ended its pass, at most HANDOFF_S (see the module's
-        docstring)."""
-        if self._thread is None or self._stop.is_set():
-            return
+        docstring).  A resting lane is left asleep: False, no wait."""
+        if self._thread is None or self._stop.is_set() or \
+                self.dev._pf_rest:
+            return False
         self._passed.clear()
         self.dev._pf_wake.set()
         self._passed.wait(self.HANDOFF_S)
+        return True
 
     # ------------------------------------------------------------ loop
     def _loop(self):
@@ -131,21 +161,32 @@ class _PrefetchLane:
         gets a sweep now rather than at the end of the poll interval.
         Sweeps that find nothing to stage back off, 0.5 ms doubling to
         8 ms (a handoff ends the wait): a sweep parses the whole
-        lookahead in Python, and on a host-bound path whose tiles are all
-        resident (a decode loop) back-to-back sweeps would take the
-        interpreter from the manager for nothing."""
+        lookahead in Python and takes the interpreter from the manager.
+        A dry sweep puts the lane to rest until a wake (see the module's
+        docstring)."""
         dev = self.dev
 
-        def wait(timeout: float) -> None:
+        def wait(timeout: Optional[float]) -> None:
             self._passed.set()
             if dev._pf_wake.wait(timeout):
                 dev._stats_add("prefetch_wakeups", 1)
             dev._pf_wake.clear()
 
         idle = 0
+        resting = False  # this thread's view; a rouse clears dev._pf_rest
         with dev._device_ctx(), torch.no_grad():
             while not self._stop.is_set():
                 try:
+                    if resting:
+                        if dev._pf_rest:
+                            wait(None)
+                            if self._stop.is_set() or (
+                                    dev._pf_rest and not self._wake_pass()):
+                                continue
+                        resting = dev._pf_rest = False
+                        dev._stats_add("pf_engagements")
+                        idle = 0
+                        continue
                     hinted = self._stage_hints()
                     if N.lib.ptc_device_queue_depth(dev.ctx._ptr,
                                                     dev.qid) <= 0:
@@ -161,6 +202,9 @@ class _PrefetchLane:
                     elif self._sweep() or hinted:
                         idle = 0
                         self._passed.set()
+                    elif self.dry:
+                        self._rest()
+                        resting = True
                     else:
                         wait(0.0005 * (1 << idle))
                         idle = min(idle + 1, 4)
@@ -168,6 +212,30 @@ class _PrefetchLane:
                     self.error = e
                     traceback.print_exc()
                     time.sleep(0.01)
+
+    def _wake_pass(self) -> bool:
+        """A resting lane's pass after a wake that roused nothing: stage
+        the chain hints, sweep once.  True (engage) where either found a
+        tile wanting a stage, or a rouse came meanwhile; otherwise the
+        lane rests on (a dry sweep counted as such)."""
+        hinted = self._stage_hints()
+        self._sweep()
+        if hinted or self.wanted or not self.dev._pf_rest:
+            return True
+        self._rest()  # dry, or nothing queued to judge by
+        return False
+
+    def _rest(self) -> None:
+        """Go (or stay) at rest: drop the lookahead pin set, so that
+        eviction follows no stale pins, count a dry sweep, and release a
+        handoff waiting on this pass."""
+        dev = self.dev
+        with dev._lock:
+            dev._pf_pin = set()
+        if self.dry:
+            dev._stats_add("pf_dry_sweeps")
+        dev._pf_rest = True
+        self._passed.set()
 
     def _stage_hints(self) -> bool:
         """Stage the wave compiler's chain hints: collection tiles the
@@ -245,9 +313,13 @@ class _PrefetchLane:
     def _sweep(self) -> bool:
         """One lookahead pass: peek, publish the lookahead pin set, stage
         what fits the free slots.  Returns True if anything was staged
-        (the loop sweeps again at once)."""
+        (the loop sweeps again at once).  Leaves its verdict in `wanted`
+        (the copies with no current mirror and no stage in flight) and
+        `dry` (the lookahead, read to its end with no slot in flight,
+        wanted nothing)."""
         dev = self.dev
         ctx = dev.ctx
+        self.wanted, self.dry = 0, False
         free = self._free_slots()
         if free <= 0:
             return False
@@ -278,8 +350,10 @@ class _PrefetchLane:
             taken = 0
             slot_uids = set()
             inflight = set().union(*self._slots) if self._slots else set()
+            cut = False
             for _, recs in tasks:
                 if taken >= free * wave or self._stop.is_set():
+                    cut = True
                     break
                 if all(uid_of[cptr] in inflight for cptr, *_ in recs):
                     continue
@@ -297,6 +371,7 @@ class _PrefetchLane:
                     q, v = ctx.device_get_data_owner(uid)
                     if q >= 0 and v == ver:
                         continue
+                    self.wanted += 1
                     if not dev._prefetch_reserve(size):
                         continue  # over budget: on-demand staging wins
                     try:
@@ -323,6 +398,7 @@ class _PrefetchLane:
                         staged_any = True
             if slot_uids:
                 self._slots.append(slot_uids)
+            self.dry = not (cut or inflight or self.wanted)
         finally:
             for _, recs in tasks:
                 for cptr, *_ in recs:

@@ -15,7 +15,8 @@ benchmark/harness/core.py sets it up) and measures two things on it:
          window with the card's idle time blamed on the manager span
          open at each idle gap's midpoint, and the manager's buckets
          and dispatches inside each of the driver's phases (build,
-         run_wait, drain)
+         run_wait, drain), and the prefetch lane's counters over the
+         window (its wakes and rests, the manager's handoffs to it)
 
 and prints one JSON line (written to `--out` too).  On the card:
 
@@ -39,6 +40,10 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
 BUCKETS = ("mgr_wait_ns", "mgr_plan_ns", "mgr_dispatch_ns",
            "mgr_complete_ns")
+# the prefetch lane's counters: its wakes, its rest, the manager's
+# handoffs to it (pf_handoff_ns, a part of mgr_plan_ns)
+LANE = ("prefetch_wakeups", "pf_dry_sweeps", "pf_engagements",
+        "pf_handoffs", "pf_handoffs_skipped", "pf_handoff_ns")
 
 
 def _solve_s(drv) -> float:
@@ -149,6 +154,7 @@ def main(argv=None) -> int:
     out["window_counters"] = delta
     out["residual"] = 1 - total / delta["mgr_wall_ns"]
     out["split"] = {k: delta[k] / total for k in BUCKETS}
+    out["lane"] = {k: s1[k] - s0[k] for k in LANE if k in s1}
     anchors = tr.meta["wall_anchors"]
     out["anchors_span_s"] = (anchors[-1][1] - anchors[0][1]) / 1e9
     out["drift_ns"] = tr.wall_drift_ns()
