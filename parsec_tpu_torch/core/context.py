@@ -923,11 +923,17 @@ class Context:
         (numpy, outside the runtime): every device mirror of it is stale
         and must drop — the copy version cannot tell, no runtime write
         happened.  The serving engine's slot and prompt staging and the
-        PagePool's copy-on-write clones route through here."""
-        if not self._devices:
-            return
+        PagePool's copy-on-write clones route through here; a whole
+        collection's tiles: Collection.host_wrote()."""
         d = coll._datas.get((m, n))
-        if d is None:
+        if d is not None:
+            self._host_wrote_data(d)
+
+    def _host_wrote_data(self, d: Data) -> None:
+        """Drop every device mirror of `d`'s host copy and its owner
+        stamp, as the runtime's own host overwrite does (the copy
+        invalidation callback): host_wrote and Collection.host_wrote."""
+        if not self._devices:
             return
         h = N.lib.ptc_copy_handle(N.lib.ptc_data_host_copy(d._ptr))
         if h:

@@ -61,6 +61,31 @@ class Collection:
         self._ctx = ctx
         return ctx.register_collection(name, self)
 
+    def host_wrote(self) -> None:
+        """Declare this collection's local host tiles rewritten outside
+        the runtime: writes into `tile()` arrays, `fill`, `from_dense`,
+        a copy into the tiles.  A copy's version moves only with the
+        runtime's own writes, so without this a device may go on serving
+        a mirror older than the new host bytes.  Every device mirror of
+        a tile is dropped, and its owner stamp cleared, as when the
+        runtime overwrites a host copy itself (each drop counts in that
+        device's stats["invalidations"]); the next task that reads a
+        tile stages the host bytes.  Call it once the writes are done
+        and before the next taskpool reads the tiles.  Nothing to do
+        before `register()`: no device can mirror the tiles yet."""
+        ctx = getattr(self, "_ctx", None)
+        if ctx is None:
+            return
+        with _LAZY:
+            datas = list(self._local_datas())
+        for d in datas:
+            ctx._host_wrote_data(d)
+
+    def _local_datas(self):
+        """The Data made so far for this collection's local tiles (a
+        tile's Data, so its host copy, exists once data_of made it)."""
+        return getattr(self, "_datas", {}).values()
+
     # ---------------------------------------------- matrix-family helpers
     def stored(self, m: int, n: int) -> bool:
         """Whether tile (m, n) is physically stored."""
@@ -72,7 +97,9 @@ class Collection:
         return rows, cols
 
     def fill(self, fn: Callable[[int, int], np.ndarray]):
-        """Materialize every local stored tile via fn(m, n) -> array."""
+        """Materialize every local stored tile via fn(m, n) -> array.  A
+        write into host tiles: once a device has mirrored them, follow it
+        with host_wrote()."""
         for m in range(self.mt):
             for n in range(self.nt):
                 if self.stored(m, n) and self.rank_of(m, n) == self.myrank:
@@ -95,6 +122,9 @@ class Collection:
         return A
 
     def from_dense(self, A: np.ndarray):
+        """Copy a dense matrix into the local stored tiles.  A write into
+        host tiles: once a device has mirrored them, follow it with
+        host_wrote()."""
         for m in range(self.mt):
             for n in range(self.nt):
                 if not self.stored(m, n):
@@ -149,7 +179,9 @@ class TwoDimBlockCyclic(Collection):
 
     def tile(self, m: int, n: int) -> np.ndarray:
         """The local tile array (allocating on first touch).  In
-        single-rank mode a remote touch is a bug."""
+        single-rank mode a remote touch is a bug.  It is the host copy
+        the runtime reads: a write into it once a device has mirrored it
+        must be declared with host_wrote()."""
         key = (m, n)
         t = self._tiles.get(key)
         if t is not None:
@@ -248,6 +280,9 @@ class TwoDimBlockCyclicBand(Collection):
         part = self.band if self.in_band(m, n) else self.off_band
         part._ctx = self._ctx
         return part.data_of(m, n)
+
+    def _local_datas(self):
+        return [*self.band._local_datas(), *self.off_band._local_datas()]
 
 
 class SymTwoDimBlockCyclicBand(_SymStorage, TwoDimBlockCyclicBand):

@@ -24,9 +24,13 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
     memory.  The host copy is written (a) by the writeback lane for
     flows declared sync_mem_out, one stacked d2h per launch's output
     stack, (b) at flush(), same-shape mirrors grouped into stacked d2h
-    copies, (c) on a host read (TaskView.data and the native copy-sync
-    callback), (d) by an out-of-core spill, or (e) never, if the copy
-    dies first
+    copies (stats["flush_bytes"], stats["flush_ns"]), (c) on a host read
+    (TaskView.data and the native copy-sync callback), (d) by an
+    out-of-core spill, or (e) never, if the copy dies first.  A mirror
+    drops where its host bytes change outside a device: the runtime's
+    own overwrite (the copy invalidation callback), or a user's write
+    declared with Collection.host_wrote() or Context.host_wrote()
+    (stats["invalidations"])
   - three CUDA streams per device, ordered by events: h2d copies run on
     the h2d stream, kernels on the exec stream, d2h copies on the d2h
     stream.  Every cache entry carries the event after which its bytes
@@ -44,7 +48,9 @@ module, parsec/mca/device/cuda/device_cuda_module.c):
     After a dry sweep (every tile of its lookahead already current) the
     lane rests until a stage from the host, an eviction, a spill or a
     pre-staged collection rouses it (_pf_rouse), or a wake gives it one
-    more pass
+    more pass.  A tile's stage from the host is claimed first
+    (_staging): the lane leaves a tile the manager is staging, and the
+    manager waits for one the lane is staging, so its bytes cross once
   - speculative epilogues (attach_epilogue): the lane of a wave whose
     output is the next input of a declared consumer class runs that
     class's kernel right after the wave's launch; the consumer task
@@ -135,7 +141,9 @@ while neither listens no span call is made):
     aux 0; DEVICE_H2D_AHEAD around each stage off the dispatch path (the
     prefetch lane; _h2d_ahead: stage_collection, the panel DAGs' index
     segments): class -1, aux 1.  Every byte stats["h2d_bytes"] counts
-    is in one of these spans.
+    is in one of these spans; those of the DEVICE_H2D spans alone are
+    stats["h2d_dispatch_bytes"], what reached the card at dispatch
+    rather than ahead of the task that read it.
   - STREAM around each progressive serve (_stream_serve, on the
     writeback lane): l0 = bytes, l1 = the queue; it brackets the slices'
     d2h copies and their pushes to the wire.
@@ -149,6 +157,12 @@ while neither listens no span call is made):
     the enqueue of the h2d, or the on-card clone or pull of a token;
     l0 = bytes, l1 = the queue, aux -1.  Their durations add up to
     stats["dp_recv_ns"].
+  - DEVICE_FLUSH around each flush()'s write-back, on the calling
+    thread, once the writeback lane's queue has drained: the stacked
+    d2h copies and their landing in the host tiles; l0 = the bytes
+    written back (stats["flush_bytes"] sums them), l1 = the queue,
+    class -1, aux 0.  Their durations add up to stats["flush_ns"]: the
+    caller's wait for its results to reach the host.
 The DEVICE_* spans bracket what the HOST does, as the reference's spans
 do: from the start of the copy into pinned staging (or of the launch's
 staging) to the asynchronous enqueue.  The copies and kernels
@@ -189,8 +203,9 @@ from ..core.taskpool import Taskpool
 from ..dsl.dtd import DtdView
 from ..profiling.trace import (KEY_DEVICE, KEY_DEVICE_COMPLETE,
                                KEY_DEVICE_DP_RECV, KEY_DEVICE_DP_SERVE,
-                               KEY_DEVICE_PLAN, KEY_DEVICE_WAIT, KEY_GC_PAUSE,
-                               KEY_H2D, KEY_H2D_AHEAD, KEY_STREAM)
+                               KEY_DEVICE_FLUSH, KEY_DEVICE_PLAN,
+                               KEY_DEVICE_WAIT, KEY_GC_PAUSE, KEY_H2D,
+                               KEY_H2D_AHEAD, KEY_STREAM)
 from ..utils import params as _knobs
 from .fuse import WaveFuser
 from .prefetch import _PrefetchLane
@@ -206,6 +221,10 @@ _NP_TO_TORCH = {
 # (one on the copy engine, one landing in its host buffers), so this
 # bounds the pinned staging and the device gather stack a write-back holds
 _D2H_CHUNK = 256 << 20
+
+# the longest the manager waits for the prefetch lane's stage of a tile in
+# flight before it stages the tile itself (_stage_or_wait)
+_STAGE_WAIT_S = 5.0
 
 # _launch's answer for a DTD group whose kernel vmap refused: nothing was
 # launched or installed, and the tasks are to launch one by one
@@ -1106,6 +1125,11 @@ class CudaDevice:
         # stage that began before one is discarded (it may have copied
         # the bytes being replaced)
         self._host_epoch = 0
+        # host-to-device stages of tiles in flight, uid -> an Event set
+        # once the stage is installed or given up: the prefetch lane
+        # leaves a tile the manager is staging, and the manager waits for
+        # a tile the lane is staging, so no tile's bytes cross twice
+        self._staging: Dict[int, threading.Event] = {}
         # dispatch-time h2d stall since the last DEVICE_DISPATCH end
         # (manager thread only): read and reset at each end, so a chain's
         # staging before its span opens lands in that span's end aux
@@ -1122,6 +1146,13 @@ class CudaDevice:
         # concurrent info() copy cannot hit a changed-size error.  Names
         # follow the reference device module's stats.
         self.stats = {"tasks": 0, "h2d_bytes": 0, "d2h_bytes": 0,
+                      # the part of h2d_bytes staged at dispatch (_h2d:
+                      # the prefetch lane's misses); the rest reached
+                      # the card ahead of the task that read it
+                      "h2d_dispatch_bytes": 0,
+                      # flush(): the bytes it wrote back to the host and
+                      # its time, the DEVICE_FLUSH spans' sum
+                      "flush_bytes": 0, "flush_ns": 0,
                       "h2d_hits": 0, "evictions": 0, "dead_drops": 0,
                       "batches": 0, "batched_tasks": 0,
                       "invalidations": 0, "eager_gathers": 0,
@@ -1341,7 +1372,8 @@ class CudaDevice:
         copy into pinned staging to the enqueue is the launch's h2d stall
         (stats["h2d_stall_ns"], and its DEVICE_DISPATCH end's aux), traced
         as a DEVICE_H2D span whose class is the dispatching task's request
-        scope (`scope`, -1: none)."""
+        scope (`scope`, -1: none).  Its bytes count in h2d_bytes and in
+        h2d_dispatch_bytes."""
         t0 = time.perf_counter_ns()
         self._prof_h2d(0, host.nbytes, scope, 0)
         out, ev = self._h2d_async(torch.from_numpy(host))
@@ -1353,6 +1385,7 @@ class CudaDevice:
         with self._lock:
             self.stats["h2d_stall_ns"] += stall
             self.stats["h2d_bytes"] += host.nbytes
+            self.stats["h2d_dispatch_bytes"] += host.nbytes
         # always-on metrics: the stall joins the native h2d_stall
         # histogram at the span-close instant of its DEVICE_H2D event
         N.lib.ptc_metrics_record(self.ctx._ptr, N.MET_H2D_STALL, -1, stall)
@@ -1885,7 +1918,9 @@ class CudaDevice:
         size mirrors move as stacked d2h copies on the d2h stream, into
         pinned staging, then into the host tiles.  Call before bulk host
         reads (to_dense etc.); per-copy coherence for CPU chores is
-        automatic via sync_handle()."""
+        automatic via sync_handle().  Once the writeback lane's queue has
+        drained, the write-back is a DEVICE_FLUSH span (l0 = its bytes)
+        and counts in stats["flush_ns"] and stats["flush_bytes"]."""
         self._wb_barrier()
         with self._lock:
             # only persistent (user-Data-backed) hosts are written: arena
@@ -1894,7 +1929,21 @@ class CudaDevice:
                      if e.dirty and e.persistent]
         if dirty:
             self._dbg(f"flush: {len(dirty)} dirty mirrors")
-        self._write_back(dirty)
+        nbytes = sum(e.arr.nbytes for e in dirty)
+        traced = self.ctx._listening
+        t0 = time.perf_counter_ns()
+        if traced:
+            N.prof_event_held(self.ctx._ptr, KEY_DEVICE_FLUSH, 0, -1,
+                              nbytes, self.qid, 0)
+        try:
+            self._write_back(dirty)
+        finally:
+            if traced:
+                N.prof_event_held(self.ctx._ptr, KEY_DEVICE_FLUSH, 1, -1,
+                                  nbytes, self.qid, 0)
+            with self._lock:
+                self.stats["flush_ns"] += time.perf_counter_ns() - t0
+                self.stats["flush_bytes"] += nbytes
 
     # ------------------------------------------------------------ attach
     def attach(self, tc: TaskClass, tp: Taskpool, kernel: Callable,
@@ -2637,6 +2686,48 @@ class CudaDevice:
             self._pf_rouse()
         return self._h2d(host, scope)
 
+    def _stage_claim(self, uid: int) -> Optional[threading.Event]:
+        """Claim the host stage of `uid` (the prefetch lane): the Event
+        to hand to _stage_release once the stage is installed or given
+        up, or None where another thread's stage of it is in flight."""
+        with self._lock:
+            if uid in self._staging:
+                return None
+            ev = self._staging[uid] = threading.Event()
+        return ev
+
+    def _stage_release(self, uid: int,
+                       claim: Optional[threading.Event]) -> None:
+        """End a claim of _stage_claim or _stage_or_wait (None: none)."""
+        if claim is None:
+            return
+        with self._lock:
+            if self._staging.get(uid) is claim:
+                del self._staging[uid]
+        claim.set()
+
+    def _stage_or_wait(self, uid, ver, dt, shape):
+        """Manager thread, at a stage-in of (uid, ver) with no current
+        mirror: claim its host stage, or, where the prefetch lane's stage
+        of it is in flight, wait for that (at most _STAGE_WAIT_S) and
+        read its mirror as a hit.  Returns (the lane's mirror, None), or
+        (None, the claim or None): stage the tile from the host, then
+        _stage_release(uid, claim).  The wait is the manager's dispatch
+        time (mgr_dispatch_ns), not an h2d stall: no bytes of its own
+        cross."""
+        for _ in range(2):
+            with self._lock:
+                ev = self._staging.get(uid)
+                if ev is None:
+                    ev = self._staging[uid] = threading.Event()
+                    return None, ev
+            ev.wait(_STAGE_WAIT_S)
+            arr = self._cache_get_typed(uid, ver, dt, shape)
+            if arr is not None:
+                self._hit(uid)
+                return arr, None
+        return None, None
+
     def _view_host(self, view, body: _DeviceBody, flow):
         """A task's read flow as (its host tile, the task's scope)."""
         host = view.data(flow, dtype=body.dtypes[flow],
@@ -2656,8 +2747,14 @@ class CudaDevice:
             arr = sarr.to(self.device, copy=True, non_blocking=True)
             self._cache_put(uid, ver, arr, arr.nbytes, event=self._record())
             return arr
-        arr, ev = self._stage_from_host(*host_of())
-        self._cache_put(uid, ver, arr, arr.nbytes, event=ev)
+        arr, claim = self._stage_or_wait(uid, ver, dt, shape)
+        if arr is not None:
+            return arr
+        try:
+            arr, ev = self._stage_from_host(*host_of())
+            self._cache_put(uid, ver, arr, arr.nbytes, event=ev)
+        finally:
+            self._stage_release(uid, claim)
         return arr
 
     def _lanes_in(self, views, body: _DeviceBody, flow) -> torch.Tensor:
@@ -2706,28 +2803,41 @@ class CudaDevice:
                           device=self.device)
         staged = []
         first: Dict[tuple, int] = {}  # (uid, ver) staged here -> its row
-        for i, (uid, ver) in enumerate(keys):
-            j = first.get((uid, ver))
-            if j is not None:
-                # an earlier lane of this gather staged the same tile: copy
-                # its row rather than moving the bytes across again
-                self._stats_add("h2d_hits")
-                out[i].copy_(out[j], non_blocking=True)
-                continue
-            arr = self._cache_get_typed(uid, ver, dt, shape)
-            if arr is not None:
-                self._hit(uid)
-            else:
-                arr = self._sibling_mirror(uid, ver, dt, shape)
-                if arr is None:
-                    arr, _ = self._stage_from_host(*host_of(i))
-                staged.append((i, uid, ver))
-                first[(uid, ver)] = i
-            out[i].copy_(arr.reshape(shape), non_blocking=True)
-        ev = self._record() if staged else None
-        for i, uid, ver in staged:
-            self._cache_put(uid, ver, out[i], out[i].nbytes, stack=out,
-                            idx=i, event=ev)
+        claims = []  # host stages claimed here, released once cached
+        try:
+            for i, (uid, ver) in enumerate(keys):
+                j = first.get((uid, ver))
+                if j is not None:
+                    # an earlier lane of this gather staged the same tile:
+                    # copy its row rather than moving the bytes across
+                    # again
+                    self._stats_add("h2d_hits")
+                    out[i].copy_(out[j], non_blocking=True)
+                    continue
+                arr = self._cache_get_typed(uid, ver, dt, shape)
+                if arr is not None:
+                    self._hit(uid)
+                else:
+                    arr = self._sibling_mirror(uid, ver, dt, shape)
+                    if arr is None:
+                        # the lane's stage in flight (a hit), or claimed
+                        arr, claim = self._stage_or_wait(uid, ver, dt, shape)
+                        if arr is None:
+                            claims.append((uid, claim))
+                            arr, _ = self._stage_from_host(*host_of(i))
+                            staged.append((i, uid, ver))
+                            first[(uid, ver)] = i
+                    else:
+                        staged.append((i, uid, ver))
+                        first[(uid, ver)] = i
+                out[i].copy_(arr.reshape(shape), non_blocking=True)
+            ev = self._record() if staged else None
+            for i, uid, ver in staged:
+                self._cache_put(uid, ver, out[i], out[i].nbytes, stack=out,
+                                idx=i, event=ev)
+        finally:
+            for uid, claim in claims:
+                self._stage_release(uid, claim)
         return out
 
     def _write_out(self, view, body: _DeviceBody, flow, ostack, i, event):

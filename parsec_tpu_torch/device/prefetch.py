@@ -30,6 +30,11 @@ Safety model:
     truth; a clean one may be mid-read by the wave in flight), and a tile
     that has a current mirror anywhere in the context is skipped (its
     host bytes may be stale).
+  - A stage is CLAIMED before its bytes move (CudaDevice._stage_claim):
+    the lane leaves a tile whose stage is in flight (the manager's, for
+    a task popped since the peek), and the manager, missing a tile the
+    lane is staging, waits for that stage and reads it as a hit
+    (_stage_or_wait) rather than staging the bytes a second time.
   - Budget is RESERVED before staging (`_prefetch_reserve`): the lane
     can evict clean tiles outside the lookahead to make room, never dirty
     ones; a failed reservation skips the tile, which is then staged on
@@ -271,31 +276,37 @@ class _PrefetchLane:
                 with dev._lock:
                     if uid in dev._cache:
                         continue
-                # the epoch BEFORE the host bytes are read: a host write
-                # from here on refuses the install
-                epoch = dev._host_epoch
-                host = np.ascontiguousarray(coll.tile(*idx))
-                size = int(host.nbytes)
-                if not dev._prefetch_reserve(size):
-                    continue
+                claim = dev._stage_claim(uid)
+                if claim is None:
+                    continue  # its stage is in flight
                 try:
-                    t0 = time.perf_counter_ns()
-                    dev._prof_h2d(0, size, -1, 1)
-                    arr, ev = dev._h2d_async(torch.from_numpy(
-                        host.reshape(-1).view(np.uint8)))
-                    dev._prof_h2d(1, size, -1, 1)
-                    dev._stats_add("prefetch_h2d_ns",
-                                   time.perf_counter_ns() - t0)
-                except Exception:
-                    dev._prefetch_unreserve(size)
-                    raise
-                dev._stats_add("h2d_bytes", size)
-                dev._stats_add("prefetch_hint_stages")
-                if dev._cache_put_prefetch(uid, ver, arr, size, ev, epoch,
-                                           hint=True):
-                    staged = True
-                else:
-                    dev._stats_add("prefetch_hint_wasted")
+                    # the epoch BEFORE the host bytes are read: a host
+                    # write from here on refuses the install
+                    epoch = dev._host_epoch
+                    host = np.ascontiguousarray(coll.tile(*idx))
+                    size = int(host.nbytes)
+                    if not dev._prefetch_reserve(size):
+                        continue
+                    try:
+                        t0 = time.perf_counter_ns()
+                        dev._prof_h2d(0, size, -1, 1)
+                        arr, ev = dev._h2d_async(torch.from_numpy(
+                            host.reshape(-1).view(np.uint8)))
+                        dev._prof_h2d(1, size, -1, 1)
+                        dev._stats_add("prefetch_h2d_ns",
+                                       time.perf_counter_ns() - t0)
+                    except Exception:
+                        dev._prefetch_unreserve(size)
+                        raise
+                    dev._stats_add("h2d_bytes", size)
+                    dev._stats_add("prefetch_hint_stages")
+                    if dev._cache_put_prefetch(uid, ver, arr, size, ev,
+                                               epoch, hint=True):
+                        staged = True
+                    else:
+                        dev._stats_add("prefetch_hint_wasted")
+                finally:
+                    dev._stage_release(uid, claim)
             except Exception as e:  # advisory: record, report, go on
                 self.error = e
                 traceback.print_exc()
@@ -371,31 +382,39 @@ class _PrefetchLane:
                     q, v = ctx.device_get_data_owner(uid)
                     if q >= 0 and v == ver:
                         continue
-                    self.wanted += 1
-                    if not dev._prefetch_reserve(size):
-                        continue  # over budget: on-demand staging wins
+                    # the manager stages it now (a task popped since the
+                    # peek): its bytes cross once
+                    claim = dev._stage_claim(uid)
+                    if claim is None:
+                        continue
                     try:
-                        epoch = dev._host_epoch
-                        t0 = time.perf_counter_ns()
-                        dev._prof_h2d(0, size, -1, 1)
-                        host = np.frombuffer(
-                            (C.c_uint8 * size).from_address(dptr),
-                            dtype=np.uint8, count=size)
-                        arr, ev = dev._h2d_async(torch.from_numpy(host))
-                        dev._prof_h2d(1, size, -1, 1)
-                        dev._stats_add("prefetch_h2d_ns",
-                                       time.perf_counter_ns() - t0)
-                    except Exception:
-                        dev._prefetch_unreserve(size)
-                        raise
-                    # the bytes crossed whether or not the stage is
-                    # installed: h2d_bytes counts a refused (wasted) stage
-                    # too, as its DEVICE_H2D_AHEAD span does
-                    dev._stats_add("h2d_bytes", size)
-                    if dev._cache_put_prefetch(uid, ver, arr, size, ev,
-                                               epoch):
-                        slot_uids.add(uid)
-                        staged_any = True
+                        self.wanted += 1
+                        if not dev._prefetch_reserve(size):
+                            continue  # over budget: on-demand staging wins
+                        try:
+                            epoch = dev._host_epoch
+                            t0 = time.perf_counter_ns()
+                            dev._prof_h2d(0, size, -1, 1)
+                            host = np.frombuffer(
+                                (C.c_uint8 * size).from_address(dptr),
+                                dtype=np.uint8, count=size)
+                            arr, ev = dev._h2d_async(torch.from_numpy(host))
+                            dev._prof_h2d(1, size, -1, 1)
+                            dev._stats_add("prefetch_h2d_ns",
+                                           time.perf_counter_ns() - t0)
+                        except Exception:
+                            dev._prefetch_unreserve(size)
+                            raise
+                        # the bytes crossed whether or not the stage is
+                        # installed: h2d_bytes counts a refused (wasted)
+                        # stage too, as its DEVICE_H2D_AHEAD span does
+                        dev._stats_add("h2d_bytes", size)
+                        if dev._cache_put_prefetch(uid, ver, arr, size, ev,
+                                                   epoch):
+                            slot_uids.add(uid)
+                            staged_any = True
+                    finally:
+                        dev._stage_release(uid, claim)
             if slot_uids:
                 self._slots.append(slot_uids)
             self.dry = not (cut or inflight or self.wanted)

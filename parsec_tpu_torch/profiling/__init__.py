@@ -7,14 +7,15 @@ request scopes with plan conformance and the request timeline
 
 Port of parsec_tpu/profiling; it exports the same names, and the keys
 and the wall-clock anchor of the device manager's own spans, the keys of
-the device data plane's and of the wave compiler's certificates.
+the device data plane's, of the wave compiler's certificates and of the
+device's flush.
 """
 from .trace import (KEY_EXEC, KEY_RELEASE, KEY_EDGE,
                     KEY_COMM_SEND, KEY_COMM_RECV, KEY_DEVICE, KEY_H2D,
                     KEY_STREAM, KEY_COLL, KEY_SCOPE, KEY_INFLIGHT,
                     KEY_DEVICE_WAIT, KEY_DEVICE_PLAN, KEY_DEVICE_COMPLETE,
                     KEY_GC_PAUSE, KEY_H2D_AHEAD, KEY_DEVICE_DP_SERVE,
-                    KEY_DEVICE_DP_RECV, KEY_DEVICE_CERT,
+                    KEY_DEVICE_DP_RECV, KEY_DEVICE_CERT, KEY_DEVICE_FLUSH,
                     Dictionary, Trace, clock_anchor, take_trace, to_dot)
 from .critpath import critical_path, lost_time
 from .pins import (PinsModule, PinsChain, TaskCounter, TaskProfiler,
@@ -30,7 +31,7 @@ __all__ = ["KEY_EXEC", "KEY_RELEASE", "KEY_EDGE",
            "KEY_STREAM", "KEY_COLL", "KEY_SCOPE", "KEY_INFLIGHT",
            "KEY_DEVICE_WAIT", "KEY_DEVICE_PLAN", "KEY_DEVICE_COMPLETE",
            "KEY_GC_PAUSE", "KEY_H2D_AHEAD", "KEY_DEVICE_DP_SERVE",
-           "KEY_DEVICE_DP_RECV", "KEY_DEVICE_CERT",
+           "KEY_DEVICE_DP_RECV", "KEY_DEVICE_CERT", "KEY_DEVICE_FLUSH",
            "Dictionary", "Trace",
            "clock_anchor", "take_trace", "to_dot",
            "critical_path", "lost_time",

@@ -124,6 +124,13 @@ KEY_DEVICE_CERT = 18      # a pool's chain certificates had once: the
                           # END's aux = 0 a miss, 1 a cache hit, 2 a pool
                           # the key cannot render (uncached); their
                           # durations add up to stats["cert_ns"]
+# The device's write-back of its dirty mirrors to the host
+# (CudaDevice.flush), on the calling thread: l0 = the bytes written
+# back, l1 = the device's queue, class -1, aux 0.
+KEY_DEVICE_FLUSH = 19     # one flush(): the stacked d2h copies and their
+                          # landing in the host tiles, after the writeback
+                          # lane's queue has drained; their durations add
+                          # up to stats["flush_ns"]
 
 _MAGIC = b"#PTCPROF"
 _VERSION = 2
@@ -149,6 +156,7 @@ _DEFAULT_KEYS = {
     KEY_DEVICE_DP_SERVE: ("DEVICE_DP_SERVE", "#cc6600"),
     KEY_DEVICE_DP_RECV: ("DEVICE_DP_RECV", "#669900"),
     KEY_DEVICE_CERT: ("DEVICE_CERT", "#996600"),
+    KEY_DEVICE_FLUSH: ("DEVICE_FLUSH", "#339999"),
 }
 
 # a device op on the wall clock, as torch.profiler's CUDA events carry it

@@ -34,7 +34,8 @@ from parsec_tpu_torch import data as tdata
 from parsec_tpu_torch.device import CudaDevice
 from parsec_tpu_torch.device.prefetch import _PrefetchLane
 from parsec_tpu_torch.profiling import (KEY_DEVICE, KEY_DEVICE_COMPLETE,
-                                        KEY_DEVICE_PLAN, KEY_DEVICE_WAIT,
+                                        KEY_DEVICE_FLUSH, KEY_DEVICE_PLAN,
+                                        KEY_DEVICE_WAIT,
                                         KEY_EDGE, KEY_EXEC, KEY_GC_PAUSE,
                                         KEY_H2D, KEY_H2D_AHEAD, KEY_RELEASE)
 
@@ -89,10 +90,10 @@ def run_chain(P, nb=10):
         return P.prof.take_trace(ctx, class_names=["Task"])
 
 
-# the port's own keys: the device manager's time partition and the GC
-# pauses (the reference has neither)
+# the port's own keys: the device manager's time partition, the GC
+# pauses and the device's flush (the reference has none of them)
 PORT_ONLY = (KEY_DEVICE_WAIT, KEY_DEVICE_PLAN, KEY_DEVICE_COMPLETE,
-             KEY_GC_PAUSE)
+             KEY_GC_PAUSE, KEY_DEVICE_FLUSH)
 
 
 def structure(tr):
